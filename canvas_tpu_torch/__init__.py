@@ -8,6 +8,10 @@ only what runs on the device:
 - ``backend``: device resolution, host-to-device transfer, math mode;
 - ``ops.cuda_ops``: the hand-written CUDA kernels (``csrc/``) and their
   plain PyTorch versions;
+- ``ops.color``: f16 quantizers and transfer curves;
+- ``staging``: pipelined host-to-device staging on pinned memory;
+- ``plan``: the planning context, with the port's own device staging;
+- ``coded``: device staging of coded DV planes;
 - ``render``: the torch evaluator of the planner's IR and a
   ``RenderPlanner`` that streams batches through it.
 

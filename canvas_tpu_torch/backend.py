@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 __all__ = ['resolve_device', 'is_torch_tensor', 'asnumpy', 'to_device',
-           'transfer_stats', 'ensure_initialized']
+           'count_h2d', 'transfer_stats', 'ensure_initialized']
 
 
 def resolve_device(device=None):
@@ -65,6 +65,14 @@ def to_device(host_array, device):
         transfer_stats['h2d_bytes'] += t.numel() * t.element_size()
         transfer_stats['h2d_calls'] += 1
     return out
+
+
+def count_h2d(nbytes, calls):
+    """Add host->device copies made elsewhere (the staging slabs) to
+    ``transfer_stats``."""
+    with _stats_lock:
+        transfer_stats['h2d_bytes'] += int(nbytes)
+        transfer_stats['h2d_calls'] += int(calls)
 
 
 def ensure_initialized():

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 The ``.cu`` sources under ``canvas_tpu_torch/csrc/`` have a plain C
-interface. At first use they are compiled by ``nvcc`` for ``sm_90a``
-(Hopper) into one shared library under ``canvas_tpu_torch/_build/``,
-named by a hash of the sources and flags, and loaded with ``ctypes``.
-A later call with unchanged sources loads the cached library. A failed
-build raises; nothing falls back.
+interface. At first use each is compiled by its own ``nvcc`` for
+``sm_90a`` (Hopper), all started together, and the objects are linked
+into one shared library under ``canvas_tpu_torch/_build/``, named by a
+hash of the sources and flags, and loaded with ``ctypes``. A later call
+with unchanged sources loads the cached library. A failed build raises;
+nothing falls back.
 """
 
 import ctypes
@@ -13,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -22,10 +24,10 @@ __all__ = ['library', 'check', 'SOURCES', 'NVCC_FLAGS', 'build_info']
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG / '_build'
-SOURCES = ('solid_fold.cu', 'region_over_sep.cu')
+SOURCES = ('solid_fold.cu', 'region_over_sep.cu', 'region_over.cu')
+#: Compile flags of each source (``-c``); the objects link with ``-shared``.
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '--fmad=false', '-shared', '-Xcompiler', '-fPIC',
-              '-Xptxas', '-v')
+              '-O3', '--fmad=false', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,6 +37,8 @@ _SIGNATURES = {
     'canvas_solid_fold': (_P,) * 8 + (_I,) * 7 + (_P,),
     # color, ry, rx, P, A, B, h, w, H, W, dy0, dx0, blocks_x, device, stream
     'canvas_region_over_sep': (_P,) * 5 + (_I,) * 9 + (_P,),
+    # layer, P, A, B, h, w, H, W, dy0, dx0, blocks_x, device, stream
+    'canvas_region_over': (_P,) * 3 + (_I,) * 9 + (_P,),
 }
 
 #: What the last build or load did: 'path', 'seconds' (0 for a cached
@@ -63,6 +67,15 @@ def _nvcc():
                        'of canvas_tpu_torch cannot be built' % (cands,))
 
 
+def _run_all(cmds):
+    """Run the commands at once; wait for all. Returns [(rc, output)]."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    return [(p.returncode, text) for p, text in zip(procs, outs)]
+
+
 def _build():
     srcs = [CSRC / s for s in SOURCES]
     digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
@@ -75,19 +88,30 @@ def _build():
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Build under a private name and rename: a concurrent build of the
+    # Build in a private directory and rename: a concurrent build of the
     # same sources never loads a half-written library.
-    tmp = out.with_name('%s.%d.tmp' % (out.name, os.getpid()))
-    cmd = [nvcc, *NVCC_FLAGS, '-o', str(tmp), *map(str, srcs)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError('nvcc failed with exit code %d:\n%s\n%s'
-                           % (proc.returncode, ' '.join(cmd), log))
-    os.replace(tmp, out)
+    work = Path(tempfile.mkdtemp(prefix=out.name + '.', dir=BUILD_DIR))
+    try:
+        objs = [work / (s.stem + '.o') for s in srcs]
+        cmds = [[nvcc, *NVCC_FLAGS, '-c', '-o', str(o), str(s)]
+                for s, o in zip(srcs, objs)]
+        tmp = work / out.name
+        link = [nvcc, '-shared', *NVCC_FLAGS[:2], '-o', str(tmp),
+                *map(str, objs)]
+        t0 = time.perf_counter()
+        results = _run_all(cmds)
+        if all(rc == 0 for rc, _ in results):
+            results += _run_all([link])
+            cmds.append(link)
+        seconds = time.perf_counter() - t0
+        log = ''.join(text for _, text in results)
+        for cmd, (rc, text) in zip(cmds, results):
+            if rc != 0:
+                raise RuntimeError('nvcc failed with exit code %d:\n%s\n%s'
+                                   % (rc, ' '.join(cmd), text))
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     out.with_name(out.name + '.log').write_text(log)
     build_info.update(path=str(out), seconds=seconds, cached=False, log=log)
     return out

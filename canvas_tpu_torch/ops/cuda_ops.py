@@ -10,14 +10,14 @@ version, a CUDA tensor launches the kernel (``canvas_tpu_torch/csrc/``,
 built on first use by ``ops._build``) or raises. Nothing falls back
 from the kernel to the plain version. Each kernel wrapper counts its
 launches in a plain integer attribute (``solid_fold.launches``,
-``region_over_sep.launches``) so a run can show that the main path went
-through the kernels.
+``region_over_sep.launches``, ``region_over.launches``) so a run can
+show that the main path went through the kernels.
 
 The plain versions keep the op order of the JAX fallbacks, rounding
 after every operation (PyTorch never contracts separate ops into an
-FMA), so on the card ``solid_fold`` is bit-identical to
-``solid_fold_plain`` and ``region_over_sep`` agrees with
-``region_over_sep_plain`` within f32 reassociation.
+FMA), so on the card ``solid_fold`` and ``region_over`` are
+bit-identical to their plain versions and ``region_over_sep`` agrees
+with ``region_over_sep_plain`` within f32 reassociation.
 """
 
 import operator
@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from canvas_tpu_torch.ops import _build
 
-__all__ = ['solid_fold', 'solid_stack', 'region_over_sep',
+__all__ = ['solid_fold', 'solid_stack', 'region_over', 'region_over_sep',
            'solid_fold_plain', 'region_over_plain', 'region_over_sep_plain']
 
 # The damage-region block grid (planner quantization, sources.py).
@@ -215,7 +215,7 @@ def region_over_plain(P, A, layer, dy0, dx0):
     at (dy0, dx0), IN PLACE; returns (P, A). The plain form of
     ``pallas_ops.region_over``'s fallback (pallas_ops.py:298-326): pad
     the accumulators to the (64, 128) envelope, slice the region, blend
-    in f32, write it back, crop. (Its CUDA kernel is not ported yet.)"""
+    in f32, write it back, crop."""
     B, _c, h, w = layer.shape
     _check_region('region_over', h, w)
     H, W = P.shape[2], P.shape[3]
@@ -236,6 +236,47 @@ def region_over_plain(P, A, layer, dy0, dx0):
         P.copy_(Pp[:, :, :H, :W])
         A.copy_(Ap[:, :, :H, :W])
     return P, A
+
+
+def region_over(P, A, layer, dy0, dx0):
+    """Composite a materialised region *layer* (B, 4, h, w) f32 over the
+    premultiplied accumulators (P, A) at block-aligned offsets.
+
+    h % 64 == 0 and w % 128 == 0; dy0/dx0 host ints, block-aligned, the
+    region inside the frame's (64, 128) envelope (it may overhang the
+    bottom and right edges; those pixels are clipped). P (B, 3, H, W) /
+    A (B, 1, H, W) f32 are updated IN PLACE, where the TPU kernel
+    aliased them to its outputs; returns (P, A).
+
+    CUDA kernel ``csrc/region_over.cu`` on a CUDA tensor (bit-identical
+    to ``region_over_plain``), the plain version on a CPU tensor.
+    """
+    B, _c, h, w = layer.shape
+    _check_region('region_over', h, w)
+    dev = P.device
+    if dev.type == 'cpu':
+        return region_over_plain(P, A, layer, dy0, dx0)
+    if dev.type != 'cuda':
+        raise ValueError('region_over: unsupported device %s' % (dev,))
+    H, W = P.shape[2], P.shape[3]
+    dy0, dx0 = _check_offsets('region_over', dy0, dx0, h, w, H, W)
+    _need(layer, 'layer', torch.float32, (B, 4, h, w), dev)
+    _need(P, 'P', torch.float32, (B, 3, H, W), dev)
+    _need(A, 'A', torch.float32, (B, 1, H, W), dev)
+    if B > 65535:
+        raise ValueError('region_over: B=%d frames (max 65535)' % (B,))
+    n_px = max(0, min(h, H - dy0)) * max(0, min(w, W - dx0))
+    if B and n_px:
+        lib = _build.library()
+        rc = lib.canvas_region_over(
+            layer.data_ptr(), P.data_ptr(), A.data_ptr(), B, h, w, H, W,
+            dy0, dx0, _blocks(n_px, 4), dev.index, _stream(dev))
+        _build.check(lib, 'region_over', rc)
+        region_over.launches += 1
+    return P, A
+
+
+region_over.launches = 0
 
 
 def region_over_sep_plain(P, A, color, ry, rx, dy0, dx0):

@@ -2,18 +2,22 @@
 (the counterpart of ``canvas_tpu/render.py``).
 
 The host side is ``canvas_tpu``'s, reused by import: sources plan a
-frame range into a ``Node`` tree with NumPy (``PlanContext``), and the
-tree's signature plus its flat parameter list describe the whole
-computation. This module evaluates that signature with torch ops and the
-port's CUDA kernels. Planning never touches JAX; neither does anything
-here.
+frame range into a ``Node`` tree with NumPy (the port's ``PlanContext``,
+``plan.py``, which stages host-pulled frames and coded planes onto the
+device itself), and the tree's signature plus its flat parameter list
+describe the whole computation. This module evaluates that signature
+with torch ops and the port's CUDA kernels. Nothing here touches JAX.
 
-The slice covers the ops the headline composite emits (``bench.py``
-``build_timeline``): ``solid``, ``empty``, ``gain_offset``, ``mix``,
-``solid_stack``, ``over_stack`` (f32 accumulators, quality 10),
-``placed``, ``scale_solid`` and ``scale_solid_dyn``. Every other op, and
-the quality <= 9 ``acc16`` accumulators, raises ``NotImplementedError``
-naming the ROADMAP.md queue item that ports it.
+The slice covers the ops of the headline composite (``bench.py``
+``build_timeline``) and of the mixed-content timeline
+(``benchmarks._mixed_timeline``: DV clips through animated scalers):
+``solid``, ``empty``, ``gain_offset``, ``mix``, ``solid_stack``,
+``over_stack`` (f32 accumulators, quality 10), ``placed`` (rank-1
+regions through ``region_over_sep``, any other region through
+``region_over``), ``scale_solid``, ``scale_solid_dyn``, ``scale``,
+``scale_taps_dyn``, ``place``, ``stage_rows`` and ``dv_recon_rows``.
+Every other op, and the quality <= 9 ``acc16`` accumulators, raises
+``NotImplementedError`` naming the ROADMAP.md queue item that ports it.
 """
 
 from concurrent.futures import ThreadPoolExecutor
@@ -23,22 +27,22 @@ import torch
 
 from canvas_tpu import render as _ref
 from canvas_tpu.basetypes import box2i  # noqa: F401  (re-export for callers)
-from canvas_tpu.render import (_BATCH_AXIS, PlanContext, _frame_params,
-                               _sliced_signature, windows_to_array)
+from canvas_tpu.render import _BATCH_AXIS, _frame_params, windows_to_array
 from canvas_tpu_torch import backend
+from canvas_tpu_torch.ops import color as color_ops
 from canvas_tpu_torch.ops import cuda_ops
+from canvas_tpu_torch.plan import PlanContext
 
-__all__ = ['RenderPlanner', 'flat_params', 'params_to_torch', 'run']
+__all__ = ['RenderPlanner', 'flat_params', 'params_to_torch', 'run',
+           'signature', 'sliced_signature']
 
 #: Ops of the IR that the slice does not evaluate yet, with the
 #: ROADMAP.md queue-1 item that ports each.
 _LATER = {
-    'scale': 'queue 1 item 4', 'scale_taps_dyn': 'queue 1 item 4',
-    'place': 'queue 1 item 4', 'transfer': 'queue 1 item 4',
-    'matrix': 'queue 1 item 4', 'field_interleave': 'queue 1 item 4',
-    'stage': 'queue 1 item 6', 'stage_rows': 'queue 1 item 6',
+    'transfer': 'queue 1 item 4', 'matrix': 'queue 1 item 4',
+    'field_interleave': 'queue 1 item 4', 'stage': 'queue 1 item 6',
     'u8_linearize': 'queue 1 item 6', 'dv_recon': 'queue 1 item 6',
-    'dv_recon_rows': 'queue 1 item 6', 'planar_recon_rows': 'queue 1 item 6',
+    'planar_recon_rows': 'queue 1 item 6',
     'solid_cells': 'queue 1 item 9 (not ported)',
 }
 
@@ -63,26 +67,70 @@ def _canonical(v):
     return a
 
 
+def _dtype_num(v):
+    """NumPy dtype number of a param: torch tensors map their dtype to
+    NumPy's; anything else as ``Node.signature`` reads it."""
+    if isinstance(v, torch.Tensor):
+        return torch.empty((), dtype=v.dtype).numpy().dtype.num
+    return np.dtype(getattr(v, 'dtype', None) or np.asarray(v).dtype).num
+
+
+def sliced_signature(node, N, B):
+    """``canvas_tpu.render._sliced_signature`` (render.py:1270-1299) of a
+    node whose params may hold device tensors (the staged stacks): the
+    structure signature after the frame axes are cut from N to B frames,
+    with the same tuples for NumPy params and torch dtypes given NumPy's
+    dtype numbers. ``N=None`` cuts nothing (``Node.signature``)."""
+    child_sigs = tuple(sliced_signature(c, N, B) for c in node.children)
+    ax = _BATCH_AXIS.get(node.op, 0)
+    fp = _frame_params(node.op) if N is not None else ()
+    shapes = []
+    for k, v in node.params.items():
+        shp = tuple(v.shape) if isinstance(v, torch.Tensor) else np.shape(v)
+        if k in fp:
+            if len(shp) <= ax or shp[ax] != N:
+                raise ValueError(
+                    'op %r frame param %r has shape %r; expected axis %d '
+                    'of length %d' % (node.op, k, shp, ax, N))
+            shp = shp[:ax] + (B,) + shp[ax + 1:]
+        shapes.append((k, shp, _dtype_num(v)))
+    static = node.static
+    if node.op == 'empty' and N is not None:
+        if static[0] != N:
+            raise ValueError("'empty' static batch %r != segment length %d"
+                             % (static[0], N))
+        static = (B,) + static[1:]
+    return (node.op, static, tuple(sorted(shapes)), child_sigs)
+
+
+def signature(node):
+    """``Node.signature()`` of a node whose params may hold device
+    tensors."""
+    return sliced_signature(node, None, None)
+
+
 def flat_params(node, out=None):
-    """Depth-first list of each node's params as numpy arrays, the order
-    ``_eval`` visits them: ``Node.flat_params`` without its probe for
-    JAX device arrays (which imports JAX; the port's plans hold only
-    host arrays)."""
+    """Depth-first list of each node's params, the order ``_eval`` visits
+    them: ``Node.flat_params`` with torch tensors (the staged stacks)
+    passed through untouched where it passes JAX arrays, and without its
+    probe for JAX arrays (which imports JAX)."""
     out = [] if out is None else out
-    out.append({k: np.asarray(v) for k, v in node.params.items()})
+    out.append({k: (v if isinstance(v, torch.Tensor) else np.asarray(v))
+                for k, v in node.params.items()})
     for c in node.children:
         flat_params(c, out)
     return out
 
 
 def params_to_torch(plist, device):
-    """The planner's flat param list (one dict of numpy arrays per node,
-    depth first; the same list ``Node.flat_params`` gives
-    ``canvas_tpu.render._eval``) as tensors on *device*. Region offsets
-    stay host ints."""
+    """The planner's flat param list (one dict per node, depth first; the
+    same list ``Node.flat_params`` gives ``canvas_tpu.render._eval``) as
+    tensors on *device*. Region offsets stay host ints; tensors already
+    made by the planner (the staged stacks, on *device*) pass through."""
     out = []
     for p in plist:
         out.append({k: (int(v) if k in _HOST_INT_PARAMS
+                        else v if isinstance(v, torch.Tensor)
                         else backend.to_device(_canonical(v), device))
                     for k, v in p.items()})
     return out
@@ -98,12 +146,13 @@ def _box_mask(box, H, W):
             (cols >= b[:, 2:3]) & (cols <= b[:, 3:4]))
 
 
-def _dyn_axis_taps(fv, tp, sp, lo, hi, t_lo, T, K, lq):
-    """Per-frame 1-D resample weights (B, T, K) f32 built on the device
-    from scalar params, in the op order of render.py:749-777 (triangle
-    filter, bilinear when *lq*, normalised when downscaling, zeroed
-    outside the [lo, hi] source window). Only the weights: the slice's
-    scalers row-sum them."""
+def _dyn_axis_taps(fv, tp, sp, lo, hi, t_lo, T, K, lq, S=None):
+    """Per-frame 1-D resample taps built on the device from scalar
+    params, in the op order of render.py:749-777: ``(idx, w)`` with idx
+    (B, T, K) int32 source positions clipped to [0, S-1] (None when S is
+    None) and w (B, T, K) f32 weights (triangle filter, bilinear when
+    *lq*, normalised when downscaling, zeroed outside the [lo, hi]
+    source window)."""
     dev = fv.device
     t = torch.arange(T, dtype=torch.float32, device=dev).view(1, T) + t_lo
     f = fv[:, None]
@@ -120,7 +169,10 @@ def _dyn_axis_taps(fv, tp, sp, lo, hi, t_lo, T, K, lq):
                     w / torch.where(sums != 0.0, sums, 1.0), w)
     in_window = ((pos >= lo[:, None, None]) &
                  (pos <= hi[:, None, None]))
-    return torch.where(in_window, w, 0.0)
+    w = torch.where(in_window, w, 0.0)
+    idx = (torch.clamp(pos, 0, S - 1).to(torch.int32)
+           if S is not None else None)
+    return idx, w
 
 
 def _scale_solid_factors(op, static, params):
@@ -133,11 +185,38 @@ def _scale_solid_factors(op, static, params):
         rx = params['rx'][None, :].expand(B, -1).contiguous()
         return color, ry, rx
     (Ky, Kx, Ty, Tx, lq) = static
-    wy = _dyn_axis_taps(params['fy'], params['tpy'], params['spy'],
-                        params['yl'], params['yh'], params['tly'], Ty, Ky, lq)
-    wx = _dyn_axis_taps(params['fx'], params['tpx'], params['spx'],
-                        params['xl'], params['xh'], params['tlx'], Tx, Kx, lq)
+    _i, wy = _dyn_axis_taps(params['fy'], params['tpy'], params['spy'],
+                            params['yl'], params['yh'], params['tly'], Ty,
+                            Ky, lq)
+    _i, wx = _dyn_axis_taps(params['fx'], params['tpx'], params['spx'],
+                            params['xl'], params['xh'], params['tlx'], Tx,
+                            Kx, lq)
     return color, torch.sum(wy, dim=2), torch.sum(wx, dim=2)
+
+
+def _densify(idx, w, S):
+    """Per-frame dense (B, T, S) resample matrices from K taps, the
+    one-hot sum of render.py:1081-1085 (duplicate clipped indices add
+    up, as the gather-add they stand for)."""
+    s = torch.arange(S, dtype=torch.int32, device=idx.device)
+    terms = torch.where(idx[:, :, :, None] == s, w[:, :, :, None], 0.0)
+    return torch.sum(terms, dim=2)
+
+
+def _dv_recon_math(y8, cb8, cr8, U, M):
+    """DV 4:1:1 reconstruction (render.py:1247-1267): studio-range
+    expand, chroma upsample as a matmul with U (720, 180), the 3x3
+    YCbCr->RGB matrix, the truncating f16 grid, rec709->linear."""
+    y = (y8.float() - 16.0) / 219.0
+    cb = (cb8.float() - 128.0) / 224.0
+    cr = (cr8.float() - 128.0) / 224.0
+    cb_full = torch.einsum('bhs,xs->bhx', cb, U)
+    cr_full = torch.einsum('bhs,xs->bhx', cr, U)
+    ycc = torch.stack([y, cb_full, cr_full], dim=1)
+    rgb = torch.einsum('ij,bjhw->bihw', M, ycc)
+    alpha = torch.ones_like(y)[:, None]
+    rgba16 = color_ops.quantize_f16_trunc(torch.cat([rgb, alpha], dim=1))
+    return color_ops.device_transfer('rec709_to_linear_scene', rgba16)
 
 
 def _eval(node_sig, params_iter, device):
@@ -194,6 +273,59 @@ def _eval(node_sig, params_iter, device):
         return (color[:, :, None, None] * ry[:, None, :, None]
                 * rx[:, None, None, :])
 
+    if op == 'stage_rows':
+        # this batch's rows of the segment's staged (U, 4, H, W) f16 stack
+        return torch.index_select(params['data'], 0,
+                                  params['rows']).float()
+
+    if op == 'dv_recon_rows':
+        rows = params['rows']
+        return _dv_recon_math(torch.index_select(params['py'], 0, rows),
+                              torch.index_select(params['pcb'], 0, rows),
+                              torch.index_select(params['pcr'], 0, rows),
+                              params['up'], params['m'])
+
+    if op == 'place':
+        # static re-window: the child's [sy0..sy1, sx0..sx1] copied to
+        # (dy0, dx0) of a zero (dst_h, dst_w) frame
+        child = _eval(child_sigs[0], params_iter, device)
+        (dst_h, dst_w, sy0, sy1, sx0, sx1, dy0, dx0) = static
+        out = torch.zeros((child.shape[0], 4, dst_h, dst_w),
+                          dtype=torch.float32, device=device)
+        h, w = sy1 - sy0 + 1, sx1 - sx0 + 1
+        if h > 0 and w > 0:
+            out[:, :, dy0:dy0 + h, dx0:dx0 + w] = \
+                child[:, :, sy0:sy0 + h, sx0:sx0 + w]
+        return out
+
+    if op == 'scale':
+        # static taps shared by the segment: (T, S) or per frame (B, T, S)
+        child = _eval(child_sigs[0], params_iter, device)
+        Wy, Wx = params['wy'], params['wx']
+        if Wy.dim() == 2:
+            tmp = torch.einsum('yh,bchw->bcyw', Wy, child)
+            return torch.einsum('xw,bcyw->bcyx', Wx, tmp)
+        tmp = torch.einsum('byh,bchw->bcyw', Wy, child)
+        return torch.einsum('bxw,bcyw->bcyx', Wx, tmp)
+
+    if op == 'scale_taps_dyn':
+        # animated resample: per-frame taps from scalar params, densified
+        # to (B, T, S) matrices and contracted (render.py:1053-1094)
+        child = _eval(child_sigs[0], params_iter, device)
+        (Ky, Kx, Ty, Tx, lq) = static
+        if lq:
+            raise _not_ported("quality <= 5 ('lq' scaler taps)",
+                              'queue 1 item 4')
+        Sy, Sx = child.shape[2], child.shape[3]
+        iy, wy = _dyn_axis_taps(params['fy'], params['tpy'], params['spy'],
+                                params['yl'], params['yh'], params['tly'],
+                                Ty, Ky, lq, Sy)
+        ix, wx = _dyn_axis_taps(params['fx'], params['tpx'], params['spx'],
+                                params['xl'], params['xh'], params['tlx'],
+                                Tx, Kx, lq, Sx)
+        mid = torch.einsum('bts,bcsw->bctw', _densify(iy, wy, Sy), child)
+        return torch.einsum('bxw,bctw->bctx', _densify(ix, wx, Sx), mid)
+
     if op in _LATER:
         raise _not_ported('op %r' % (op,), _LATER[op])
     raise ValueError('unknown op: %r' % (op,))
@@ -204,6 +336,7 @@ def _over_stack(static, child_sigs, params_iter, device):
     f32 (P, A) accumulators. Solid runs fold through the ``solid_fold``
     kernel (the last one finalizes straight to the f16 output); each
     placed rank-1 region composites through ``region_over_sep`` in
+    place, any other placed region layer through ``region_over`` in
     place; any other child is a layer blended with torch ops."""
     if len(static) > 2 and static[2] == 'acc16':
         raise _not_ported("quality <= 9 ('acc16' accumulators)",
@@ -227,23 +360,29 @@ def _over_stack(static, child_sigs, params_iter, device):
         if c_op == 'placed':
             pl_params = next(params_iter)
             inner = cs[3][0]
-            if inner[0] not in ('scale_solid', 'scale_solid_dyn'):
-                raise _not_ported(
-                    "a 'placed' %r region (region_over kernel)" % (inner[0],),
-                    'queue 1 item 4 / queue 2 item 4')
-            color, ry, rx = _scale_solid_factors(inner[0], inner[1],
-                                                 next(params_iter))
-            if P is None:
+            if inner[0] in ('scale_solid', 'scale_solid_dyn'):
+                color, ry, rx = _scale_solid_factors(inner[0], inner[1],
+                                                     next(params_iter))
+                layer = None
                 B = color.shape[0]
+            else:
+                layer = _eval(inner, params_iter, device).contiguous()
+                B = layer.shape[0]
+            if P is None:
                 P = torch.zeros((B, 3, H, W), dtype=torch.float32,
                                 device=device)
                 A = torch.zeros((B, 1, H, W), dtype=torch.float32,
                                 device=device)
-            # The kernel updates contiguous accumulators in place; A can
+            # The kernels update contiguous accumulators in place; A can
             # still be a strided view of a first, non-solid layer.
-            P, A = cuda_ops.region_over_sep(
-                P.contiguous(), A.contiguous(), color, ry, rx,
-                pl_params['dy0'], pl_params['dx0'])
+            if layer is None:
+                P, A = cuda_ops.region_over_sep(
+                    P.contiguous(), A.contiguous(), color, ry, rx,
+                    pl_params['dy0'], pl_params['dx0'])
+            else:
+                P, A = cuda_ops.region_over(
+                    P.contiguous(), A.contiguous(), layer,
+                    pl_params['dy0'], pl_params['dx0'])
             continue
         layer = _eval(cs, params_iter, device)
         la = layer[:, 3:4]
@@ -271,16 +410,29 @@ class RenderPlanner(_ref.RenderPlanner):
     ``device=None`` is CUDA and raises when there is none;
     ``device='cpu'`` runs the kernels' plain PyTorch versions. Plans are
     not cached across calls: every ``iter_batches``/``render`` plans its
-    segments anew (``plan_cache_segments`` is not read).
+    segments anew (``plan_cache_segments`` is not read). Staged stacks
+    (host-pulled frames, coded planes) live in the inherited
+    ``persistent_cache`` between calls; ``stage_cache_mb = 0`` turns
+    that off.
     """
+
+    #: The CUDA stream the render reads staged stacks on: the calling
+    #: thread's current stream when ``iter_batches``/``render`` starts
+    #: (None off CUDA). See ``staging.py``.
+    render_stream = None
 
     def __init__(self, source, window, quality=10, device=None):
         super().__init__(source, window, quality)
         self.device = backend.resolve_device(device)
         backend.ensure_initialized()
 
+    def _note_render_stream(self):
+        if self.device.type == 'cuda':
+            self.render_stream = torch.cuda.current_stream(self.device)
+
     def _plan(self, seg):
-        """Plan segment [s0, s1) on the host (NumPy only)."""
+        """Plan segment [s0, s1) on the host with the port's
+        ``PlanContext`` (NumPy, plus the port's device staging)."""
         s0, s1 = seg
         self._stage_cache = {}
         self._frame_hints = {}
@@ -299,7 +451,7 @@ class RenderPlanner(_ref.RenderPlanner):
         node = self._plan(seg)
         N = seg_stop - seg_start
         B_eff = batch if N >= batch else N
-        sig = _sliced_signature(node, N, B_eff)
+        sig = sliced_signature(node, N, B_eff)
         params = flat_params(node)
         ops = node.flat_ops([])
         batches = []
@@ -347,6 +499,7 @@ class RenderPlanner(_ref.RenderPlanner):
                 raise _not_ported('iter_batches(%s=...)' % (name,), item)
         segs = self.segments(start, stop, min_span=batch)
         self._drain_plan_pool()
+        self._note_render_stream()
         pool = self._plan_pool = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix='canvas-torch-plan')
         try:
@@ -375,11 +528,12 @@ class RenderPlanner(_ref.RenderPlanner):
         per-frame current_window as a (B, 4) int64 [x0, y0, x1, y1]
         array (empty encoded max < min)."""
         self._drain_plan_pool()
+        self._note_render_stream()
         outs = []
         windows = []
         for seg in self.segments(start, stop):
             node = self._plan(seg)
-            outs.append(run(node.signature(),
+            outs.append(run(signature(node),
                             params_to_torch(flat_params(node), self.device),
                             self.device))
             windows.append(windows_to_array(node.windows))

@@ -1,28 +1,43 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (canvas_tpu_torch) on one CUDA card.
 
-Drives the port's main path, the headline render of bench.py (a 10-layer
-1080p composite streamed by RenderPlanner.iter_batches), on the card, in
-phases that each print one line; any failure raises (traceback, nonzero
-exit, no result line):
+Drives the port's two paths on the card: the headline render of bench.py
+(a 10-layer 1080p composite streamed by RenderPlanner.iter_batches) and
+the mixed-content timeline of benchmarks.py config7 (the headline with
+three DV clips, decoded on the host and staged by the port, through
+animated scalers). Each phase prints one line; any failure raises
+(traceback, nonzero exit, no result line):
 
 1. card: nvidia-smi's name and power limit, torch's device name;
 2. build: compile the CUDA kernels from the checkout's sources;
 3. kernels vs plain: each kernel against its plain PyTorch version on
-   the card, on seeded inputs (solid_fold bit-identical; region_over_sep
-   within atol 1e-6, f32 reassociation);
-4. slice: frames 0..255 through iter_batches; both kernels' launch
-   counters must rise; finite f16 (B, 4, 1080, 1920) batches; frames 0,
-   130 and 1000 against the NumPy pull path at atol 2e-3;
-5. timing: cold streaming fps of frames 128..511 in 128-frame batches,
-   the device's busy time for the same batches (device idle share), and
-   each kernel's time beside its plain version's at the main path's
+   the card, on seeded inputs (solid_fold and region_over bit-identical;
+   region_over_sep within atol 1e-6, f32 reassociation);
+4. headline slice: frames 0..255 through iter_batches; its kernels'
+   launch counters must rise; finite f16 (B, 4, 1080, 1920) batches;
+   frames 0, 130 and 1000 against the NumPy pull path at atol 2e-3;
+5. headline timing: cold streaming fps of frames 128..511 in 128-frame
+   batches, the device's busy time for the same batches (device idle
+   share), and each kernel's time beside its plain version's at the
+   main path's shapes;
+6. mixed slice: frames 0..127 of benchmarks._mixed_timeline(256) through
+   iter_batches(batch=16); all three kernels' launch counters must rise;
+   finite f16 batches; frames 0, 1 and 70 against the NumPy pull path at
+   atol 1e-2 with at least 99% of values bit-equal;
+7. mixed timing: config7_mixed_content_10layer_fps (cold: no stage
+   cache, no plan cache; frames 0..127, batch 16, one warm pass, best of
+   3), the device busy time of the same batches replayed and the idle
+   share, the replay's device time by kernel (torch.profiler),
+   and region_over beside its plain version at the path's three region
    shapes.
 
-The line before the last is the card's nvidia-smi line; the last line is
-``{"ok": true, "device": {...}}``. Run from the repository root with no
-arguments: ``python3 chip_smoke.py``. JAX is never imported (an import
-hook refuses it), so the pull path runs on NumPy.
+Each path runs with every launch counter set to 0 just before it and
+read just after; the kernels line reports the launches of the two path
+runs together. The line before the last is the card's nvidia-smi line;
+the last line is ``{"ok": true, "device": {...}}``. Run from the
+repository root with no arguments: ``python3 chip_smoke.py``. JAX is
+never imported (an import hook refuses it), so the pull path runs on
+NumPy.
 """
 
 import importlib.abc
@@ -87,6 +102,225 @@ def _solid_layers(rng, L, B, H, W):
     return color, box, gain, offset
 
 
+def _launch_counts():
+    from canvas_tpu_torch.ops import cuda_ops
+    return {'solid_fold': cuda_ops.solid_fold.launches,
+            'region_over_sep': cuda_ops.region_over_sep.launches,
+            'region_over': cuda_ops.region_over.launches}
+
+
+def _zero_launch_counts():
+    from canvas_tpu_torch.ops import cuda_ops
+    for name in _launch_counts():
+        getattr(cuda_ops, name).launches = 0
+
+
+def _n_nodes(sig):
+    return 1 + sum(_n_nodes(c) for c in sig[3])
+
+
+def _children_params(sig, tparams):
+    """[(child signature, its flat params)] of an over_stack root."""
+    out, idx = [], 1
+    for cs in sig[3]:
+        n = _n_nodes(cs)
+        out.append((cs, tparams[idx:idx + n]))
+        idx += n
+    return out
+
+
+def _bit_share(a, b):
+    """Share of equal f16 bit patterns of two numpy f16 arrays."""
+    import numpy as np
+    return float(np.mean(a.view(np.uint16) == b.view(np.uint16)))
+
+
+def _mixed_slice(tag, window):
+    """Phase 6: the mixed-content timeline through the kernels. Returns
+    (the timeline, launches)."""
+    import numpy as np
+    import torch
+
+    import benchmarks
+    from canvas_tpu_torch.render import RenderPlanner
+
+    H, W = window.height, window.width
+    ws = benchmarks._mixed_timeline(256)
+    planner = RenderPlanner(ws, window)
+    picked = {}
+    n_frames = 0
+    _zero_launch_counts()
+    for s, n, out in planner.iter_batches(0, 128, batch=16):
+        if (out.dtype != torch.float16
+                or tuple(out.shape) != (n, 4, H, W)
+                or not bool(torch.isfinite(out).all())):
+            raise AssertionError('mixed batch at %d: %s %s, finite=%s'
+                                 % (s, out.dtype, tuple(out.shape),
+                                    bool(torch.isfinite(out).all())))
+        for i in (0, 1, 70):
+            if s <= i < s + n:
+                picked[i] = out[i - s].cpu().numpy()
+        n_frames += n
+    launches = _launch_counts()
+    if n_frames != 128 or min(launches.values()) <= 0:
+        raise AssertionError('mixed slice rendered %d frames with launches '
+                             '%r' % (n_frames, launches))
+    errs, shares = {}, {}
+    for i in (0, 1, 70):
+        want = np.asarray(ws.get_frame_f16(i, window).data, np.float16)
+        errs[i] = float(np.abs(picked[i].astype(np.float32)
+                               - want.astype(np.float32)).max())
+        shares[i] = _bit_share(picked[i], want)
+        if (not np.isfinite(picked[i]).all() or errs[i] > 1e-2
+                or shares[i] < 0.99):
+            raise AssertionError('mixed frame %d differs from the pull path '
+                                 'by %r (%.5f bit-equal)'
+                                 % (i, errs[i], shares[i]))
+    print('phase 6 mixed slice: 128 frames of benchmarks._mixed_timeline(256) '
+          'at 1080p via iter_batches(0, 128, batch=16), finite f16; launches '
+          '%s; vs the NumPy pull path frame 0 max diff %.3g (%.5f bit-equal), '
+          '1 %.3g (%.5f), 70 %.3g (%.5f) (atol 1e-2, >= 0.99) %s'
+          % (json.dumps(launches), errs[0], shares[0], errs[1], shares[1],
+             errs[70], shares[70], tag), flush=True)
+    return ws, launches
+
+
+def _profile_kernels(fn):
+    """[(kernel name, device ms, calls)] of one run of *fn*, by device
+    time, and the total device ms (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, 'self_device_time_total', None)
+        if dev_us is None:
+            dev_us = e.self_cuda_time_total
+        if dev_us > 0 and e.device_type.name == 'CUDA':
+            rows.append((e.key, dev_us / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    return rows, sum(r[1] for r in rows)
+
+
+def _mixed_timing(tag, ws, window):
+    """Phase 7: cold streaming fps, host prepare time, device busy and
+    idle share, the replay's kernels, region_over vs plain. Returns
+    region_over's (max diff, ms, plain ms) at the path's shapes."""
+    import numpy as np
+    import torch
+
+    from canvas_tpu_torch.ops import cuda_ops
+    from canvas_tpu_torch.render import RenderPlanner, params_to_torch, run
+
+    dev = torch.device('cuda')
+    H, W = window.height, window.width
+    start, stop, batch = 0, 128, 16
+    planner = RenderPlanner(ws, window)
+    planner.stage_cache_mb = 0        # cold: every pass decodes and stages
+    torch.cuda.reset_peak_memory_stats()
+    for _ in planner.iter_batches(start, stop, batch=batch):
+        pass
+    walls = []
+    for _rep in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = 0
+        for _s, k, _out in planner.iter_batches(start, stop, batch=batch):
+            n += k
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = min(walls)
+    fps = (stop - start) / wall
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    work = []
+    prepare_ms = []
+    for seg in planner.segments(start, stop, min_span=batch):
+        t0 = time.perf_counter()
+        _s0, sig, batches = planner._prepare(seg, batch)
+        prepare_ms.append((seg, (time.perf_counter() - t0) * 1e3))
+        for (_pos, _take, plist) in batches:
+            work.append((sig, params_to_torch(plist, dev)))
+    torch.cuda.synchronize()
+
+    def replay():
+        for sig, tparams in work:
+            run(sig, tparams, dev)
+
+    busy_ms = _cuda_ms(replay, 3)
+    idle = 1.0 - busy_ms / (wall * 1e3)
+    t0 = time.perf_counter()
+    replay()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    print('phase 7 mixed host: plan + stage per segment %s ms; enqueue of '
+          'the %d replayed batches %.3f ms (host clock, no sync) %s'
+          % (', '.join('[%d, %d) %.1f' % (sg[0], sg[1], ms)
+                       for sg, ms in prepare_ms), len(work), enqueue_ms,
+             tag), flush=True)
+    print('phase 7 mixed timing: config7_mixed_content_10layer_fps %.1f '
+          '(best of 3 cold passes over frames %d..%d, batch %d, stage cache '
+          'and plan cache off; walls %s s); device busy %.3f ms of %.3f ms '
+          'wall, device idle share %.3f; peak device memory %.2f GB %s'
+          % (fps, start, stop - 1, batch,
+             ', '.join('%.4f' % w for w in walls), busy_ms, wall * 1e3,
+             idle, peak_gb, tag), flush=True)
+
+    kernels, prof_ms = _profile_kernels(replay)
+    for name, ms, calls in kernels[:14]:
+        print('phase 7 replay kernel %.3f ms (%.1f%%), %d calls: %s'
+              % (ms, 100.0 * ms / prof_ms, calls, name[:160]), flush=True)
+    print('phase 7 replay profile: %.3f ms of device time over %d batches '
+          '%s' % (prof_ms, len(work), tag), flush=True)
+
+    # region_over at the path's three region shapes: the non-factored
+    # placed children of the first full batch of segment [1, 65).
+    sig, tparams = next((sg, tp) for sg, tp in work
+                        if sg[3][1][0] == 'placed'
+                        and sg[3][1][3][0][0] == 'scale_taps_dyn')
+    regions = [(cs[1], cp[0]['dy0'], cp[0]['dx0'])
+               for cs, cp in _children_params(sig, tparams)
+               if cs[0] == 'placed'
+               and not cs[3][0][0].startswith('scale_solid')]
+    if len(regions) != 3:
+        raise AssertionError('expected 3 DV regions, got %r' % (regions,))
+    rng = np.random.default_rng(SEED + 7)
+    B = batch
+    err = 0.0
+    ms = plain_ms = 0.0
+    for (h, w), dy0, dx0 in regions:
+        P, A, layer = [torch.from_numpy(rng.uniform(0, 1, s).astype(
+            np.float32)).to(dev) for s in ((B, 3, H, W), (B, 1, H, W),
+                                            (B, 4, h, w))]
+        P2, A2 = P.clone(), A.clone()
+        cuda_ops.region_over(P, A, layer, dy0, dx0)
+        cuda_ops.region_over_plain(P2, A2, layer, dy0, dx0)
+        err = max(err, float((P - P2).abs().max()),
+                  float((A - A2).abs().max()))
+        k = lambda: cuda_ops.region_over(P, A, layer, dy0, dx0)
+        p = lambda: cuda_ops.region_over_plain(P2, A2, layer, dy0, dx0)
+        t_p1, t_k1, t_k2, t_p2 = (_cuda_ms(p, 3), _cuda_ms(k, 20),
+                                  _cuda_ms(k, 20), _cuda_ms(p, 3))
+        tk, tp = (t_k1 + t_k2) / 2, (t_p1 + t_p2) / 2
+        ms += tk
+        plain_ms += tp
+        nbytes = B * min(h, H - dy0) * min(w, W - dx0) * 48
+        print('phase 7 kernel region_over %dx%d @ (%d, %d), batch %d: cuda '
+              '%.4f ms (%.1f GB/s for %.1f MB), plain torch %.4f ms %s'
+              % (h, w, dy0, dx0, B, tk, nbytes / tk / 1e6, nbytes / 1e6, tp,
+                 tag), flush=True)
+    if err != 0.0:
+        raise AssertionError('region_over at the path shapes differs from '
+                             'plain by %r' % err)
+
+    return err, ms, plain_ms
+
+
 def main():
     sys.meta_path.insert(0, _NoJax())
     import numpy as np
@@ -145,6 +379,22 @@ def main():
     if got.dtype != torch.float16 or err_fin != 0.0:
         raise AssertionError('solid_fold finalize (%s) differs from plain '
                              'by %r' % (got.dtype, err_fin))
+    err_ro = 0.0
+    for (Hf, Wf, h, w, dy0, dx0) in ((H, W, 640, 1024, 448, 896),
+                                     (H, W, 704, 1152, 64, 512),
+                                     (540, 960, 384, 640, 192, 384)):
+        P, A, layer = on(*[rng.uniform(0.0, 1.0, s).astype(np.float32)
+                           for s in ((8, 3, Hf, Wf), (8, 1, Hf, Wf),
+                                     (8, 4, h, w))])
+        P2, A2 = P.clone(), A.clone()
+        outP, outA = cuda_ops.region_over(P, A, layer, dy0, dx0)
+        cuda_ops.region_over_plain(P2, A2, layer, dy0, dx0)
+        if outP is not P or outA is not A:
+            raise AssertionError('region_over did not update in place')
+        err_ro = max(err_ro, float((P - P2).abs().max()),
+                     float((A - A2).abs().max()))
+    if err_ro != 0.0:
+        raise AssertionError('region_over differs from plain by %r' % err_ro)
     err_reg = 0.0
     for (Hf, Wf, h, w, dy0, dx0) in ((H, W, 512, 1024, 576, 896),
                                      (540, 960, 384, 640, 192, 384)):
@@ -163,9 +413,11 @@ def main():
     print('phase 3 kernels vs plain: solid_fold mid L=6 B=8 1080p max diff '
           '%r, finalize L=2 base f16 max diff %r (both must be 0); '
           'region_over_sep 512x1024 @ (576, 896) of 1080p and 384x640 @ '
-          '(192, 384) of 540x960 max diff %.3g (atol 1e-6) %s'
-          % (err_mid, err_fin, err_reg, tag), flush=True)
-    del P, A, P2, A2, got, want, layers
+          '(192, 384) of 540x960 max diff %.3g (atol 1e-6); region_over '
+          '640x1024 @ (448, 896) and 704x1152 @ (64, 512) of 1080p, 384x640 '
+          '@ (192, 384) of 540x960, B=8, max diff %r (must be 0) %s'
+          % (err_mid, err_fin, err_reg, err_ro, tag), flush=True)
+    del P, A, P2, A2, got, want, layers, layer
 
     # 4. the slice, through the kernels
     ws = bench.build_timeline(1024)
@@ -174,8 +426,7 @@ def main():
     planner = RenderPlanner(ws, window)
     picked = {}
     n_frames = 0
-    cuda_ops.solid_fold.launches = 0
-    cuda_ops.region_over_sep.launches = 0
+    _zero_launch_counts()
     for s, n, out in planner.iter_batches(0, 256, batch=64):
         if (out.dtype != torch.float16
                 or tuple(out.shape) != (n, 4, H, W)
@@ -187,8 +438,8 @@ def main():
             if s <= i < s + n:
                 picked[i] = out[i - s].cpu().numpy()
         n_frames += n
-    launches = {'solid_fold': cuda_ops.solid_fold.launches,
-                'region_over_sep': cuda_ops.region_over_sep.launches}
+    launches = _launch_counts()
+    del launches['region_over']         # not on the headline path
     if n_frames != 256 or min(launches.values()) <= 0:
         raise AssertionError('slice rendered %d frames with launches %r'
                              % (n_frames, launches))
@@ -325,19 +576,34 @@ def main():
               % (name, B, tk, nbytes / tk / 1e6, nbytes / 1e6, tp, tag),
               flush=True)
 
+    del work, baseP, baseA, P1, A1, P2, A2
+    torch.cuda.empty_cache()
+
+    # 6-7. the mixed-content path
+    mixed, mixed_launches = _mixed_slice(tag, window)
+    err_ro_path, ro_ms, ro_plain_ms = _mixed_timing(tag, mixed, window)
+
+    total = {k: launches.get(k, 0) + mixed_launches[k]
+             for k in mixed_launches}
     kernels = [
         {'name': 'solid_fold', 'route': 'cuda',
          'source': 'canvas_tpu_torch/csrc/solid_fold.cu',
          'replaces': 'canvas_tpu/ops/pallas_ops.py:179',
-         'launches': launches['solid_fold'],
+         'launches': total['solid_fold'],
          'max_abs_err': max(err_mid, err_fin, err_main),
          'ms': fold_ms, 'plain_ms': fold_plain_ms},
         {'name': 'region_over_sep', 'route': 'cuda',
          'source': 'canvas_tpu_torch/csrc/region_over_sep.cu',
          'replaces': 'canvas_tpu/ops/pallas_ops.py:375',
-         'launches': launches['region_over_sep'],
+         'launches': total['region_over_sep'],
          'max_abs_err': err_reg,
          'ms': reg_ms, 'plain_ms': reg_plain_ms},
+        {'name': 'region_over', 'route': 'cuda',
+         'source': 'canvas_tpu_torch/csrc/region_over.cu',
+         'replaces': 'canvas_tpu/ops/pallas_ops.py:276',
+         'launches': total['region_over'],
+         'max_abs_err': max(err_ro, err_ro_path),
+         'ms': ro_ms, 'plain_ms': ro_plain_ms},
     ]
     if any(m.split('.')[0] in ('jax', 'jaxlib') for m in sys.modules):
         raise AssertionError('a JAX module was imported')

@@ -1,7 +1,9 @@
 """The PyTorch port never imports JAX: in a fresh interpreter whose
 import system refuses every ``jax``/``jaxlib`` module, it imports, plans
-the headline timeline and renders frames on the CPU, and nothing it runs
-even tries such an import (a refused attempt would be swallowed by
+and renders on the CPU the headline timeline, the mixed-content timeline
+(DV clips staged by the port, through animated scalers) and a graph
+whose source the planner host-stages, and nothing it runs even tries
+such an import (a refused attempt would be swallowed by
 ``canvas_tpu.backend``'s optional-JAX probe, so attempts are recorded)."""
 
 import os
@@ -38,6 +40,32 @@ SCRIPT = textwrap.dedent('''
     assert np.isfinite(out).all() and out[:, 3].max() > 0
     for _s, _n, batch in planner.iter_batches(2, 4, batch=2):
         assert tuple(batch.shape) == (2, 4, 180, 320)
+
+    import benchmarks
+    from canvas_tpu.frames import VideoSource
+    from canvas_tpu.sources import SolidColorVideoSource, VideoWorkspace
+    mixed = RenderPlanner(benchmarks._mixed_timeline(16),
+                          box2i(0, 0, 1919, 1079), device='cpu')
+    mixed.stage_cache_mb = 0
+    got = [(s, n) for s, n, out in mixed.iter_batches(0, 3, batch=2)
+           if np.isfinite(out.numpy()).all()]
+    assert got == [(0, 1), (1, 2)], got
+
+    class Custom(VideoSource):
+        def _render_f16(self, frame_index, frame):
+            data = np.full((4, frame.full_window.height,
+                            frame.full_window.width), 0.5, np.float16)
+            data[0] = frame_index * 0.125
+            frame.data = data
+            frame.current_window = frame.full_window
+
+    ws = VideoWorkspace()
+    ws.add(source=SolidColorVideoSource((0.1, 0.2, 0.3, 1.0)), x=0,
+           length=8, z=0)
+    ws.add(source=Custom(), x=0, length=8, z=1)
+    staged = RenderPlanner(ws, box2i(0, 0, 63, 31), device='cpu')
+    out = staged.render(0, 4)
+    assert out.shape == (4, 4, 32, 64) and out[3, 0, 0, 0] != out[0, 0, 0, 0]
     loaded = sorted(m for m in sys.modules
                     if m.split('.')[0] in ('jax', 'jaxlib'))
     assert not loaded, loaded

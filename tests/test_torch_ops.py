@@ -195,6 +195,79 @@ def test_region_over_plain_matches_jax():
     np.testing.assert_array_equal(gotA.numpy(), np.asarray(wantA))
 
 
+# (H, W, h, w, dy0, dx0): inside the frame; overhanging the bottom, the
+# right, and both edges; and the mixed timeline's three DV regions of
+# segment [1, 65) at 1080p (the last overhangs the bottom edge).
+REGION_OVER_CASES = {
+    'inside': (256, 512, 128, 256, 64, 128),
+    'overhang_bottom': (150, 384, 128, 256, 64, 128),
+    'overhang_right': (256, 300, 128, 256, 64, 128),
+    'overhang_both': (150, 300, 128, 256, 64, 128),
+    'path_640x1024_at_0_0': (1080, 1920, 640, 1024, 0, 0),
+    'path_704x1152_at_64_512': (1080, 1920, 704, 1152, 64, 512),
+    'path_640x1024_at_448_896': (1080, 1920, 640, 1024, 448, 896),
+}
+
+
+@pytest.mark.parametrize('case', sorted(REGION_OVER_CASES))
+def test_region_over_matches_jax(case, jax_mode):
+    """region_over on a CPU tensor (its plain version) against
+    pallas_ops.region_over at B=2: equal to the jnp fallback, within
+    atol 1e-6 of the interpreted kernel; updated in place, and untouched
+    outside the region."""
+    H, W, h, w, dy0, dx0 = REGION_OVER_CASES[case]
+    rng = np.random.default_rng(sorted(REGION_OVER_CASES).index(case) + 41)
+    B = 2
+    P = rng.uniform(0, 1, (B, 3, H, W)).astype(np.float32)
+    A = rng.uniform(0, 1, (B, 1, H, W)).astype(np.float32)
+    layer = rng.uniform(0, 1, (B, 4, h, w)).astype(np.float32)
+    wantP, wantA = po.region_over(jnp, jax, jnp.asarray(P), jnp.asarray(A),
+                                  jnp.asarray(layer), jnp.int32(dy0),
+                                  jnp.int32(dx0))
+    tP, tA = _t(P, A)
+    launches = co.region_over.launches
+    gotP, gotA = co.region_over(tP, tA, torch.from_numpy(layer), dy0, dx0)
+    assert co.region_over.launches == launches   # the CPU runs no kernel
+    assert gotP is tP and gotA is tA              # updated in place
+    for got, want in ((gotP, wantP), (gotA, wantA)):
+        if jax_mode == 'fallback':
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        else:
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=0, atol=ATOL)
+    ys, xs = slice(dy0, dy0 + h), slice(dx0, dx0 + w)
+    outside = np.ones((H, W), bool)
+    outside[ys, xs] = False
+    np.testing.assert_array_equal(gotP.numpy()[:, :, outside],
+                                  P[:, :, outside])
+    np.testing.assert_array_equal(gotA.numpy()[:, :, outside],
+                                  A[:, :, outside])
+    assert not np.array_equal(gotA.numpy()[:, :, ys, xs], A[:, :, ys, xs])
+
+
+@pytest.mark.parametrize('h, w, dy0, dx0', [
+    (60, 128, 0, 0),          # region not whole blocks
+    (64, 100, 0, 0),
+    (64, 128, 32, 0),         # offset off the block grid
+    (64, 128, 0, 64),
+    (64, 128, 256, 0),        # region past the (64, 128) envelope
+])
+def test_region_over_rejects_unaligned(h, w, dy0, dx0):
+    P = torch.zeros((1, 3, 128, 256))
+    A = torch.zeros((1, 1, 128, 256))
+    with pytest.raises(ValueError):
+        co.region_over(P, A, torch.zeros((1, 4, h, w)), dy0, dx0)
+
+
+def test_region_over_refuses_other_devices():
+    """A meta tensor is refused, not computed with the plain version."""
+    meta = torch.device('meta')
+    with pytest.raises(ValueError, match='unsupported device'):
+        co.region_over(torch.zeros((1, 3, 64, 128), device=meta),
+                       torch.zeros((1, 1, 64, 128), device=meta),
+                       torch.zeros((1, 4, 64, 128), device=meta), 0, 0)
+
+
 @pytest.mark.parametrize('h, w, dy0, dx0', [
     (60, 128, 0, 0),          # region not whole blocks
     (64, 100, 0, 0),
