@@ -8,6 +8,10 @@ only what runs on the device:
 - ``backend``: device resolution, host-to-device transfer, math mode;
 - ``ops.cuda_ops``: the hand-written CUDA kernels (``csrc/``) and their
   plain PyTorch versions;
+- ``ops.study_ops``: the CUDA kernels of the fold studies and the
+  roofline probe, beside their plain versions;
+- ``studies``: the port's counterparts of the TPU studies in
+  ``scripts/`` (fold variants, per-tile layer lists, the roofline);
 - ``ops.color``: f16 quantizers and transfer curves;
 - ``staging``: pipelined host-to-device staging on pinned memory;
 - ``plan``: the planning context, with the port's own device staging;

@@ -1,5 +1,6 @@
-"""Device resolution, host-to-device transfer and math mode for the
-PyTorch port (the counterpart of ``canvas_tpu/backend.py``).
+"""Device resolution, host-to-device transfer, math mode and CUDA-event
+timing for the PyTorch port (the counterpart of
+``canvas_tpu/backend.py``).
 
 Device resolution is explicit: the default device is CUDA, and a
 missing card raises instead of falling back. Only a caller that asks
@@ -13,7 +14,8 @@ import numpy as np
 import torch
 
 __all__ = ['resolve_device', 'is_torch_tensor', 'asnumpy', 'to_device',
-           'count_h2d', 'transfer_stats', 'ensure_initialized']
+           'count_h2d', 'transfer_stats', 'ensure_initialized', 'cuda_ms',
+           'paired_ms']
 
 
 def resolve_device(device=None):
@@ -82,3 +84,28 @@ def ensure_initialized():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision('highest')
+
+
+def cuda_ms(fn, reps):
+    """Mean device milliseconds of *fn* over *reps* back-to-back runs,
+    after one warm-up run (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def paired_ms(kernel, plain, reps, plain_reps):
+    """(kernel ms, plain ms), each the mean of two timings taken in the
+    order plain, kernel, kernel, plain."""
+    p1 = cuda_ms(plain, plain_reps)
+    k1 = cuda_ms(kernel, reps)
+    k2 = cuda_ms(kernel, reps)
+    p2 = cuda_ms(plain, plain_reps)
+    return (k1 + k2) / 2, (p1 + p2) / 2

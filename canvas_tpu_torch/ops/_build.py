@@ -12,6 +12,7 @@ nothing falls back.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -19,18 +20,23 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ['library', 'check', 'SOURCES', 'NVCC_FLAGS', 'build_info']
+__all__ = ['library', 'check', 'nvcc_release', 'SOURCES', 'NVCC_FLAGS',
+           'build_info']
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG / '_build'
-SOURCES = ('solid_fold.cu', 'region_over_sep.cu', 'region_over.cu')
+SOURCES = ('solid_fold.cu', 'region_over_sep.cu', 'region_over.cu',
+           'fold_study.cu', 'tile_fold.cu', 'fma_chain.cu')
+#: Headers the sources include; part of the library's hash.
+HEADERS = ('fold_tile.cuh',)
 #: Compile flags of each source (``-c``); the objects link with ``-shared``.
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '--fmad=false', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 _SIGNATURES = {
     # color, box, gain, offset, baseP, baseA, out0, outA,
     # L, B, H, W, mode, blocks_x, device, stream
@@ -39,6 +45,15 @@ _SIGNATURES = {
     'canvas_region_over_sep': (_P,) * 5 + (_I,) * 9 + (_P,),
     # layer, P, A, B, h, w, H, W, dy0, dx0, blocks_x, device, stream
     'canvas_region_over': (_P,) * 3 + (_I,) * 9 + (_P,),
+    # color, box, gain, offset, out, L, B, H, W, variant, device, stream
+    'canvas_fold_interior': (_P,) * 5 + (_I,) * 6 + (_P,),
+    # x, col, box, out, L, B, H, W, mult, device, stream
+    'canvas_roofline_fold': (_P,) * 4 + (_I,) * 6 + (_P,),
+    # color, box, gain, offset, baseP, baseA, out0, outA,
+    # L, B, H, W, mode, device, stream
+    'canvas_tile_fold': (_P,) * 8 + (_I,) * 6 + (_P,),
+    # x, c, out, n, k, blocks, device, stream
+    'canvas_fma_chain': (_P,) * 3 + (_LL,) + (_I,) * 3 + (_P,),
 }
 
 #: What the last build or load did: 'path', 'seconds' (0 for a cached
@@ -67,6 +82,16 @@ def _nvcc():
                        'of canvas_tpu_torch cannot be built' % (cands,))
 
 
+def nvcc_release():
+    """The release of the nvcc that builds the kernels, e.g. '12.8'."""
+    out = subprocess.run([_nvcc(), '--version'], capture_output=True,
+                         text=True, check=True, timeout=60).stdout
+    found = re.search(r'release (\d+\.\d+)', out)
+    if not found:
+        raise RuntimeError('no release in nvcc --version: %r' % out)
+    return found.group(1)
+
+
 def _run_all(cmds):
     """Run the commands at once; wait for all. Returns [(rc, output)]."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
@@ -79,7 +104,7 @@ def _run_all(cmds):
 def _build():
     srcs = [CSRC / s for s in SOURCES]
     digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + [CSRC / h for h in HEADERS]:
         digest.update(s.name.encode())
         digest.update(s.read_bytes())
     out = BUILD_DIR / ('libcanvas_kernels_%s.so' % digest.hexdigest()[:16])

@@ -95,8 +95,15 @@ def solid_fold_plain(P, A, color, box, gain, offset, H, W, finalize=False,
                      out_dtype=None):
     """Plain PyTorch ``solid_fold`` on any device: the JAX fallback
     branch of ``pallas_ops.solid_fold`` (pallas_ops.py:210-225)."""
-    B = color.shape[1]
     Pc, Ac = _fold_torch(P, A, color, box, gain, offset, H, W)
+    return _finish(Pc, Ac, color.shape[1], H, W, finalize, out_dtype)
+
+
+def _finish(Pc, Ac, B, H, W, finalize, out_dtype=None):
+    """The end of a plain fold: the per-channel accumulators ``[P0, P1,
+    P2], A`` (each (B, H, W), or (1, H, W) when no layer touched an empty
+    base) as ``(P (B, 3, H, W), A (B, 1, H, W))``, or with *finalize* the
+    un-premultiplied (B, 4, H, W) rgba in *out_dtype* (f32 by default)."""
     if not finalize:
         Ps = torch.stack(Pc, dim=1)
         As = Ac[:, None]

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (canvas_tpu_torch) on one CUDA card.
 
-Drives the port's two paths on the card: the headline render of bench.py
-(a 10-layer 1080p composite streamed by RenderPlanner.iter_batches) and
-the mixed-content timeline of benchmarks.py config7 (the headline with
-three DV clips, decoded on the host and staged by the port, through
-animated scalers). Each phase prints one line; any failure raises
+Drives the port's two render paths on the card, the headline render of
+bench.py (a 10-layer 1080p composite streamed by
+RenderPlanner.iter_batches) and the mixed-content timeline of
+benchmarks.py config7 (the headline with three DV clips, decoded on the
+host and staged by the port, through animated scalers), then the fold
+studies and the roofline probe. Each phase prints one line; any failure raises
 (traceback, nonzero exit, no result line):
 
 1. card: nvidia-smi's name and power limit, torch's device name;
@@ -29,12 +30,22 @@ animated scalers). Each phase prints one line; any failure raises
    3), the device busy time of the same batches replayed and the idle
    share, the replay's device time by kernel (torch.profiler),
    and region_over beside its plain version at the path's three region
-   shapes.
+   shapes;
+8. studies (canvas_tpu_torch.studies): the fold_interior kernel in all
+   four variants, tile_fold and roofline_fold bit-identical to their
+   plain versions, and the FMA chain within study_ops.fma_chain_tol of
+   its plain version, each at a small seeded size and at the scripts'
+   full size (B=32, 1080x1920 or 1088x1920); then the studies' timing
+   runs: each kernel beside its plain version and, for the two folds,
+   the shipped solid_fold on the same inputs, and the card's measured
+   bandwidth, FMA rate (with the SM clock, which must be read) and what
+   bounds solid_fold.
 
-Each path runs with every launch counter set to 0 just before it and
-read just after; the kernels line reports the launches of the two path
-runs together. The line before the last is the card's nvidia-smi line;
-the last line is ``{"ok": true, "device": {...}}``. Run from the
+Each path (the headline, the mixed timeline, the studies' timing runs)
+runs with every launch counter set to 0 just before it and read just
+after; the kernels line reports each kernel's launches in those runs.
+The line before the last is the card's nvidia-smi line; the last line
+is ``{"ok": true, "device": {...}}``. Run from the
 repository root with no arguments: ``python3 chip_smoke.py``. JAX is
 never imported (an import hook refuses it), so the pull path runs on
 NumPy.
@@ -68,22 +79,6 @@ def _card_line():
     return out.strip().splitlines()[0]
 
 
-def _cuda_ms(fn, reps):
-    """Mean device milliseconds of *fn* over *reps* back-to-back runs,
-    after one warm-up run (CUDA events)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    e1.synchronize()
-    return e0.elapsed_time(e1) / reps
-
-
 def _solid_layers(rng, L, B, H, W):
     """Seeded layer scalars: random boxes, one touching the bottom-right
     edge, one empty."""
@@ -109,10 +104,21 @@ def _launch_counts():
             'region_over': cuda_ops.region_over.launches}
 
 
+_STUDY_WRAPPERS = ('fold_variant', 'tile_fold', 'fma_chain', 'roofline_fold')
+
+
+def _study_launch_counts():
+    from canvas_tpu_torch.ops import study_ops
+    return {name: getattr(study_ops, name).launches
+            for name in _STUDY_WRAPPERS}
+
+
 def _zero_launch_counts():
-    from canvas_tpu_torch.ops import cuda_ops
+    from canvas_tpu_torch.ops import cuda_ops, study_ops
     for name in _launch_counts():
         getattr(cuda_ops, name).launches = 0
+    for name in _STUDY_WRAPPERS:
+        getattr(study_ops, name).launches = 0
 
 
 def _n_nodes(sig):
@@ -214,6 +220,7 @@ def _mixed_timing(tag, ws, window):
     import numpy as np
     import torch
 
+    from canvas_tpu_torch.backend import cuda_ms, paired_ms
     from canvas_tpu_torch.ops import cuda_ops
     from canvas_tpu_torch.render import RenderPlanner, params_to_torch, run
 
@@ -252,7 +259,7 @@ def _mixed_timing(tag, ws, window):
         for sig, tparams in work:
             run(sig, tparams, dev)
 
-    busy_ms = _cuda_ms(replay, 3)
+    busy_ms = cuda_ms(replay, 3)
     idle = 1.0 - busy_ms / (wall * 1e3)
     t0 = time.perf_counter()
     replay()
@@ -304,9 +311,7 @@ def _mixed_timing(tag, ws, window):
                   float((A - A2).abs().max()))
         k = lambda: cuda_ops.region_over(P, A, layer, dy0, dx0)
         p = lambda: cuda_ops.region_over_plain(P2, A2, layer, dy0, dx0)
-        t_p1, t_k1, t_k2, t_p2 = (_cuda_ms(p, 3), _cuda_ms(k, 20),
-                                  _cuda_ms(k, 20), _cuda_ms(p, 3))
-        tk, tp = (t_k1 + t_k2) / 2, (t_p1 + t_p2) / 2
+        tk, tp = paired_ms(k, p, 20, 3)
         ms += tk
         plain_ms += tp
         nbytes = B * min(h, H - dy0) * min(w, W - dx0) * 48
@@ -321,12 +326,126 @@ def _mixed_timing(tag, ws, window):
     return err, ms, plain_ms
 
 
+def _studies(tag):
+    """Phase 8: the fold studies and the roofline probe
+    (canvas_tpu_torch.studies). Each kernel and variant against its plain
+    version at a small seeded size and at the scripts' full size, then
+    the studies' timing runs with the launch counters zeroed before and
+    read after. Returns the four kernels' entries of the kernels line."""
+    import torch
+
+    from canvas_tpu_torch.ops import study_ops
+    from canvas_tpu_torch.studies import fold_interior_study as fis
+    from canvas_tpu_torch.studies import fold_tile_study as fts
+    from canvas_tpu_torch.studies import vpu_roofline as vr
+
+    dev = torch.device('cuda')
+    errs = fis.check(dev, 6, 32, sizes=[fis.CHECK_SIZE, fis.FULL_SIZE])
+    err_var = {v: max(e for (_h, _w, vv), e in errs.items() if vv == v)
+               for v in study_ops.VARIANTS}
+    print('phase 8 check fold_interior, L=6 B=32 at 240x512 and 1080x1920, '
+          'kernel vs plain vs solid_fold_plain, max diff %s (must be 0) %s'
+          % (json.dumps(err_var), tag), flush=True)
+    if any(err_var.values()):
+        raise AssertionError('a fold_interior variant differs: %r' % errs)
+    errs = fts.check(dev)
+    err_tile = max(errs.values())
+    print('phase 8 check tile_fold, the script\'s five cases and L=6 B=32 '
+          '1088x1920 mixed and full, kernel vs plain vs solid_fold_plain, '
+          'max diff %r (must be 0) %s' % (err_tile, tag), flush=True)
+    if err_tile != 0.0:
+        raise AssertionError('tile_fold differs: %r' % errs)
+    roof = {}
+    for shape in ((2, 136, 200), (32,) + vr.FULL_SIZE):
+        for name, (err, tol) in vr.check(dev, shape).items():
+            e0, t0 = roof.get(name, (0.0, float('inf')))
+            roof[name] = (max(e0, err), min(t0, tol))
+    print('phase 8 check roofline at 2x4x136x200 and 32x4x1088x1920, kernel '
+          'vs plain: %s %s' % ('; '.join(
+              '%s max diff %.3g (allowed %.3g)' % (name, e, t)
+              for name, (e, t) in roof.items()), tag), flush=True)
+    bad = {k: v for k, v in roof.items() if not v[0] <= v[1]}
+    if bad:
+        raise AssertionError('roofline kernels outside tolerance: %r' % bad)
+    torch.cuda.empty_cache()
+
+    _zero_launch_counts()
+    t_var = fis.timeit(dev, 6, 32)
+    t_tile = fts.timeit(dev)
+    r = vr.measure(dev, 32)
+    launches = _study_launch_counts()
+    if min(launches.values()) <= 0:
+        raise AssertionError('a study kernel did not launch: %r' % launches)
+    print('phase 8 studies: launches %s %s' % (json.dumps(launches), tag),
+          flush=True)
+    print('phase 8 fold_interior, L=6 B=32 1080x1920 finalize f32, %dx%d '
+          'tiles: solid_fold (shipped) %.4f ms; %s; plain %s %s' % (
+              study_ops.TILE + (t_var['solid_fold'], ', '.join(
+                  '%s %.4f ms' % kv for kv in t_var['kernel'].items()),
+                  ', '.join('%s %.3f ms' % kv
+                            for kv in t_var['plain'].items()), tag)),
+          flush=True)
+    for cover, t in t_tile.items():
+        print('phase 8 tile_fold %s, L=6 B=32 1088x1920 mid fold: solid_fold '
+              '(shipped) %.4f ms; tile_fold %.4f ms; plain %.3f ms %s' % (
+                  cover, t['solid_fold'], t['kernel'], t['plain'], tag),
+              flush=True)
+    for line in vr.report(r):
+        print('phase 8 roofline %s %s' % (line, tag), flush=True)
+    if r['sm_clock_mhz'] is None:
+        raise AssertionError('nvidia-smi gave no SM clock during the FMA '
+                             'chain')
+
+    k = 40
+    fma_err, fma_tol = roof['fma_chain k=%d' % k]
+    return [
+        {'name': 'fold_interior', 'route': 'cuda',
+         'source': 'canvas_tpu_torch/csrc/fold_study.cu',
+         'replaces': 'scripts/fold_interior_study.py:154',
+         'launches': launches['fold_variant'],
+         'max_abs_err': max(err_var.values()),
+         'ms': t_var['kernel']['current'],
+         'plain_ms': t_var['plain']['current'],
+         'solid_fold_ms': t_var['solid_fold'],
+         'variants': {v: {'ms': t_var['kernel'][v],
+                          'plain_ms': t_var['plain'][v]}
+                      for v in study_ops.VARIANTS}},
+        {'name': 'tile_fold', 'route': 'cuda',
+         'source': 'canvas_tpu_torch/csrc/tile_fold.cu',
+         'replaces': 'scripts/fold_tile_study.py:33',
+         'launches': launches['tile_fold'], 'max_abs_err': err_tile,
+         'ms': t_tile['mixed']['kernel'],
+         'plain_ms': t_tile['mixed']['plain'],
+         'solid_fold_ms': t_tile['mixed']['solid_fold'],
+         'full_coverage': {'ms': t_tile['full']['kernel'],
+                           'plain_ms': t_tile['full']['plain'],
+                           'solid_fold_ms': t_tile['full']['solid_fold']}},
+        {'name': 'roofline_fma', 'route': 'cuda',
+         'source': 'canvas_tpu_torch/csrc/fma_chain.cu',
+         'replaces': 'scripts/vpu_roofline.py:100',
+         'launches': launches['fma_chain'], 'max_abs_err': fma_err,
+         'tolerance': fma_tol, 'k': k, 'ms': r['chain_ms'][k],
+         'plain_ms': r['chain_plain_ms'][k], 'tflops': r['tflops'],
+         'copy_tbs': r['copy_tbs']},
+        {'name': 'roofline_fold', 'route': 'cuda',
+         'source': 'canvas_tpu_torch/csrc/fold_study.cu',
+         'replaces': 'scripts/vpu_roofline.py:197',
+         'launches': launches['roofline_fold'],
+         'max_abs_err': max(roof['roofline_fold select'][0],
+                            roof['roofline_fold mult'][0]),
+         'ms': r['fold_ms'][False], 'plain_ms': r['fold_plain_ms'][False],
+         'mult_ms': r['fold_ms'][True],
+         'mult_plain_ms': r['fold_plain_ms'][True]},
+    ]
+
+
 def main():
     sys.meta_path.insert(0, _NoJax())
     import numpy as np
     import torch
 
     import bench
+    from canvas_tpu_torch.backend import cuda_ms, paired_ms
     from canvas_tpu_torch.ops import _build, cuda_ops
     from canvas_tpu_torch.render import (RenderPlanner, _scale_solid_factors,
                                          box2i, params_to_torch, run)
@@ -489,7 +608,7 @@ def main():
         for sig, tparams in work:
             run(sig, tparams, dev)
 
-    busy_ms = _cuda_ms(replay, 3)
+    busy_ms = cuda_ms(replay, 3)
     idle = 1.0 - busy_ms / (wall * 1e3)
     print('phase 5 timing: 1080p_10layer_composite_fps_per_chip %.1f '
           '(best of 3 cold passes over frames %d..%d, batch %d; walls %s s); '
@@ -541,9 +660,7 @@ def main():
     for name, k, p, nbytes in (
             ('mid fold L=6', mid, mid_p, 16),
             ('finalize L=2 f16', fin, fin_p, 24)):
-        t_p1, t_k1, t_k2, t_p2 = (_cuda_ms(p, 2), _cuda_ms(k, 10),
-                                  _cuda_ms(k, 10), _cuda_ms(p, 2))
-        tk, tp = (t_k1 + t_k2) / 2, (t_p1 + t_p2) / 2
+        tk, tp = paired_ms(k, p, 10, 2)
         fold_ms += tk
         fold_plain_ms += tp
         rows.append((name, tk, tp, B * H * W * nbytes))
@@ -559,9 +676,7 @@ def main():
         k = lambda: cuda_ops.region_over_sep(P1, A1, color, ry, rx, dy0, dx0)
         p = lambda: cuda_ops.region_over_sep_plain(P2, A2, color, ry, rx,
                                                    dy0, dx0)
-        t_p1, t_k1, t_k2, t_p2 = (_cuda_ms(p, 3), _cuda_ms(k, 20),
-                                  _cuda_ms(k, 20), _cuda_ms(p, 3))
-        tk, tp = (t_k1 + t_k2) / 2, (t_p1 + t_p2) / 2
+        tk, tp = paired_ms(k, p, 20, 3)
         reg_ms += tk
         reg_plain_ms += tp
         px = B * min(h, H - dy0) * min(w, W - dx0)
@@ -582,6 +697,11 @@ def main():
     # 6-7. the mixed-content path
     mixed, mixed_launches = _mixed_slice(tag, window)
     err_ro_path, ro_ms, ro_plain_ms = _mixed_timing(tag, mixed, window)
+
+    # 8. the fold studies and the roofline probe
+    del mixed
+    torch.cuda.empty_cache()
+    study_kernels = _studies(tag)
 
     total = {k: launches.get(k, 0) + mixed_launches[k]
              for k in mixed_launches}
@@ -604,7 +724,7 @@ def main():
          'launches': total['region_over'],
          'max_abs_err': max(err_ro, err_ro_path),
          'ms': ro_ms, 'plain_ms': ro_plain_ms},
-    ]
+    ] + study_kernels
     if any(m.split('.')[0] in ('jax', 'jaxlib') for m in sys.modules):
         raise AssertionError('a JAX module was imported')
     print(json.dumps({'kernels': kernels}))

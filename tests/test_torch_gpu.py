@@ -7,8 +7,11 @@ so it also runs on a machine without JAX:
 
     python -m pytest --noconftest -q tests/test_torch_gpu.py
 
-Tolerances: solid_fold and region_over are bit-identical to their
-plain versions (both round after every operation, in the same order);
+Tolerances: solid_fold, region_over and the study folds (fold_variant,
+tile_fold, roofline_fold) are bit-identical to their plain versions
+(both round after every operation, in the same order); the FMA chain
+rounds once per step on the card and twice in its plain version, so the
+two are held to study_ops.fma_chain_tol (constants in (-0.9, 0.9));
 region_over_sep reassociates the rank-1 product, atol=1e-6 (about one
 f32 ulp on values in [0, 2], tests/test_pallas_interpret.py's
 tolerance); a rendered f16 frame may then differ by one f16 ulp
@@ -22,6 +25,7 @@ import pytest
 import torch
 
 from canvas_tpu_torch.ops import cuda_ops as co
+from canvas_tpu_torch.ops import study_ops as so
 
 ATOL = 1e-6
 
@@ -198,3 +202,109 @@ def test_render_on_card_matches_cpu(cuda):
         np.testing.assert_allclose(got.astype(np.float32),
                                    want.astype(np.float32), rtol=0,
                                    atol=1e-3)
+
+
+# Study kernels. Frame sizes that are not whole 16x128 tiles (1080 rows:
+# not a multiple of 16; 960 columns: not a multiple of 128; 1088 x 1000:
+# whole rows of tiles, part columns); _solid_layers puts a box on the
+# bottom-right edge and an empty box in each case.
+STUDY_SIZES = [(1080, 960), (1088, 1000)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('variant', so.VARIANTS)
+@pytest.mark.parametrize('H, W', STUDY_SIZES)
+def test_fold_variant_kernel_matches_plain(cuda, variant, H, W):
+    rng = np.random.default_rng(47)
+    args = _on(cuda, *_solid_layers(rng, 6, 2, H, W))
+    launches = so.fold_variant.launches
+    got = so.fold_variant(variant, *args, H, W)
+    torch.cuda.synchronize()
+    assert so.fold_variant.launches == launches + 1
+    want = so.fold_variant_plain(variant, *args, H, W)
+    assert got.shape == (2, 4, H, W) and torch.equal(got, want)
+    assert torch.equal(got, co.solid_fold_plain(None, None, *args, H, W,
+                                                finalize=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('with_base, finalize', [
+    (False, False), (True, False), (True, True), (False, True)])
+@pytest.mark.parametrize('H, W', STUDY_SIZES)
+def test_tile_fold_kernel_matches_plain(cuda, with_base, finalize, H, W):
+    rng = np.random.default_rng(53)
+    B = 2
+    args = _on(cuda, *_solid_layers(rng, 5, B, H, W))
+    P = A = None
+    if with_base:
+        P, A = _on(cuda, rng.uniform(0, 1, (B, 3, H, W)).astype(np.float32),
+                   rng.uniform(0, 1, (B, 1, H, W)).astype(np.float32))
+    launches = so.tile_fold.launches
+    got = so.tile_fold(P, A, *args, H, W, finalize=finalize)
+    torch.cuda.synchronize()
+    assert so.tile_fold.launches == launches + 1
+    for want in (so.tile_fold_plain(P, A, *args, H, W, finalize=finalize),
+                 co.solid_fold_plain(P, A, *args, H, W, finalize=finalize)):
+        got_l = [got] if finalize else list(got)
+        want_l = [want] if finalize else list(want)
+        for g, w in zip(got_l, want_l):
+            assert g.shape == w.shape and torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('mult', [False, True])
+@pytest.mark.parametrize('H, W', STUDY_SIZES)
+def test_roofline_fold_kernel_matches_plain(cuda, mult, H, W):
+    rng = np.random.default_rng(59)
+    x = rng.standard_normal((2, 4, H, W)).astype(np.float32)
+    col = (rng.uniform(0, 1, (6, 4)) * 0.1 + 0.4).astype(np.float32)
+    box = _solid_layers(rng, 6, 1, H, W)[1][:, 0]
+    x, col, box = _on(cuda, x, col, box)
+    launches = so.roofline_fold.launches
+    got = so.roofline_fold(x, col, box, mult)
+    torch.cuda.synchronize()
+    assert so.roofline_fold.launches == launches + 1
+    assert torch.equal(got, so.roofline_fold_plain(x, col, box, mult))
+    assert torch.equal(got, so.roofline_fold_plain(x, col, box, not mult))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('k', [0, 1, 7, 40, 1024])
+@pytest.mark.parametrize('shape', [(2, 4, 1088, 1920), (3, 1, 1079, 963)])
+def test_fma_chain_kernel_matches_plain(cuda, k, shape):
+    rng = np.random.default_rng(61)
+    x, c = _on(cuda, rng.standard_normal(shape).astype(np.float32),
+               rng.uniform(-0.9, 0.9, 1024).astype(np.float32))
+    launches = so.fma_chain.launches
+    got = so.fma_chain(x, c, k)
+    torch.cuda.synchronize()
+    assert so.fma_chain.launches == launches + 1
+    if k <= 40:
+        want = so.fma_chain_plain(x, c, k)
+        assert float((got - want).abs().max()) <= so.fma_chain_tol(x, c, k)
+    exact = x.double()
+    for i in range(k):
+        exact = exact * c[i].double() + x.double()
+    assert float((got.double() - exact).abs().max()) <= \
+        so.fma_chain_tol(x, c, k) / 2
+
+
+@pytest.mark.gpu
+def test_study_wrappers_refuse_noncontiguous(cuda):
+    H, W = 64, 128
+    color, box, gain, offset = _on(cuda, *_solid_layers(
+        np.random.default_rng(67), 2, 2, H, W))
+    color_t = color.transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError):
+        so.fold_variant('current', color_t, box, gain, offset, H, W)
+    with pytest.raises(ValueError):
+        so.tile_fold(None, None, color_t, box, gain, offset, H, W)
+    P = torch.zeros((2, 3, W, H), device=cuda).transpose(2, 3)
+    A = torch.zeros((2, 1, H, W), device=cuda)
+    with pytest.raises(ValueError):
+        so.tile_fold(P, A, color, box, gain, offset, H, W)
+    x = torch.zeros((2, 4, W, H), device=cuda).transpose(2, 3)
+    with pytest.raises(ValueError):
+        so.roofline_fold(x, color[:, 0], box[:, 0], False)
+    with pytest.raises(ValueError):
+        so.fma_chain(x, torch.zeros(8, device=cuda), 8)

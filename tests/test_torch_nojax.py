@@ -2,7 +2,8 @@
 import system refuses every ``jax``/``jaxlib`` module, it imports, plans
 and renders on the CPU the headline timeline, the mixed-content timeline
 (DV clips staged by the port, through animated scalers) and a graph
-whose source the planner host-stages, and nothing it runs even tries
+whose source the planner host-stages, and runs the studies' ``--check``
+entry points (canvas_tpu_torch.studies), and nothing it runs even tries
 such an import (a refused attempt would be swallowed by
 ``canvas_tpu.backend``'s optional-JAX probe, so attempts are recorded)."""
 
@@ -66,6 +67,14 @@ SCRIPT = textwrap.dedent('''
     staged = RenderPlanner(ws, box2i(0, 0, 63, 31), device='cpu')
     out = staged.render(0, 4)
     assert out.shape == (4, 4, 32, 64) and out[3, 0, 0, 0] != out[0, 0, 0, 0]
+    import torch
+    from canvas_tpu_torch.studies import (fold_interior_study,
+                                          fold_tile_study, vpu_roofline)
+    assert fold_interior_study.main(['--check', '--batch', '2']) == 0
+    assert fold_tile_study.main(['--check']) == 0
+    res = vpu_roofline.check(torch.device('cpu'), (1, 136, 256))
+    assert all(err <= tol for err, tol in res.values()), res
+
     loaded = sorted(m for m in sys.modules
                     if m.split('.')[0] in ('jax', 'jaxlib'))
     assert not loaded, loaded
