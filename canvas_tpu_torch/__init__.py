@@ -1,9 +1,23 @@
-"""Canvas on PyTorch and CUDA: the device side of ``canvas_tpu`` ported
-to an NVIDIA Hopper GPU.
+"""Canvas on PyTorch and CUDA: ``canvas_tpu`` ported to an NVIDIA Hopper
+GPU. The package stands on its own: it imports nothing of ``canvas_tpu``
+and keeps its own copy of the host side it needs. Its public import is
+``canvas_tpu_torch.process``.
 
-The host side (sources, frame functions, the render planner's NumPy
-planning) is reused from ``canvas_tpu`` by import; this package holds
-only what runs on the device:
+Host side (NumPy, the JAX package's NumPy arm, copied module for
+module):
+
+- ``basetypes``, ``framefuncs``, ``frames``, ``sources``, ``coded``:
+  sources, filters and frames with their NumPy pull path and their
+  emitters;
+- ``ir``: the planner's ``Node`` IR, signatures and window algebra;
+- ``plan``: the planning context and the persistent stage cache;
+- ``ops.window``, ``ops.mix``, ``ops.scale``, ``ops.chroma`` and the
+  host half of ``ops.color``: the pull path's pixel math and the
+  planner's tap builders;
+- ``profiling``: the planner's stage timers;
+- ``timelines``: the headline and mixed-content timelines.
+
+Device side:
 
 - ``backend``: device resolution, host-to-device transfer, math mode;
 - ``ops.cuda_ops``: the hand-written CUDA kernels (``csrc/``) and their
@@ -12,10 +26,8 @@ only what runs on the device:
   roofline probe, beside their plain versions;
 - ``studies``: the port's counterparts of the TPU studies in
   ``scripts/`` (fold variants, per-tile layer lists, the roofline);
-- ``ops.color``: f16 quantizers and transfer curves;
+- ``ops.color``: f16 quantizers, transfer curves and export conversions;
 - ``staging``: pipelined host-to-device staging on pinned memory;
-- ``plan``: the planning context, with the port's own device staging;
-- ``coded``: device staging of coded DV planes;
 - ``render``: the torch evaluator of the planner's IR and a
   ``RenderPlanner`` that streams batches through it.
 

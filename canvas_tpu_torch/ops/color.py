@@ -1,33 +1,386 @@
-"""f16 quantizers and transfer curves on torch tensors: the counterparts
-of ``canvas_tpu/ops/color.py``'s ``quantize_f16`` / ``quantize_f16_trunc``
-(color.py:422-471) and of ``canvas_tpu/render.py``'s ``_device_transfer``
-(render.py:715-746).
+"""Color on the host and on torch tensors: the port's counterpart of
+``canvas_tpu/ops/color.py`` (gammatab.c, color.c, half.c).
 
-The TPU recipe for the round-to-nearest quantize (``reduce_precision``
-plus an explicit subnormal grid) exists because XLA folds an
-f32 -> f16 -> f32 convert pair inside a fused program. Eager PyTorch
-folds nothing, and ``.to(torch.float16)`` rounds to nearest even with
-correct subnormals and overflow on the CPU and on CUDA, so the cast is
-the quantize here.
+The host half is the JAX package's NumPy code: the reference's
+truncating f32 -> f16 conversion, the 65536-entry f16 transfer tables
+built with libm's ``powf`` (bit-identical to the reference binary's),
+their gather, the gamma45 display ramp and the colour matrices. The
+pull path and the planner use it.
 
-``device_transfer`` applies a transfer curve as a gather from the
-65536-entry f16 table the NumPy pull path uses (``color_ops.get_lut``),
-indexed by the f16 bits: bit-exact with the pull path by construction.
-The TPU path computes the curve with direct ``pow`` math instead,
-because a gather is slow there. On an NVIDIA H100 (80GB HBM3, 700 W)
-the gather took 0.44 ms and the same ``pow`` math in eager torch
-1.16 ms on a (16, 4, 480, 720) DV batch (PERF.md).
+The torch half runs on the device:
+
+- ``quantize_f16`` / ``quantize_f16_trunc`` (color.py:422-471). The TPU
+  recipe for the round-to-nearest quantize (``reduce_precision`` plus an
+  explicit subnormal grid) exists because XLA folds an f32 -> f16 -> f32
+  convert pair inside a fused program. Eager PyTorch folds nothing, and
+  ``.to(torch.float16)`` rounds to nearest even with correct subnormals
+  and overflow on the CPU and on CUDA, so the cast is the quantize here.
+- ``device_transfer`` (render.py:715-746) applies a transfer curve as a
+  gather from the host's f16 table, indexed by the f16 bits: bit-exact
+  with the pull path by construction. The TPU path computes the curve
+  with direct ``pow`` math instead, because a gather is slow there. On
+  an NVIDIA H100 (80GB HBM3, 700 W) the gather took 0.44 ms and the same
+  ``pow`` math in eager torch 1.16 ms on a (16, 4, 480, 720) DV batch
+  (PERF.md).
+- ``POSTS``: the export conversions of ``iter_batches(post=...)``
+  (``_u8_math`` color.py:551-558, ``_yuv420_pack_studio_math``
+  628-656) in plain torch ops, applied to the f16 frames.
+
+Transfer curves (gammatab.c:38-250):
+  rec709_to_linear (scene):   x < 4.5*0.018 ? x/4.5 : ((x+0.099)/1.099)^(1/0.45)
+  rec709_to_linear (display): x < 0 ? 0 : x^2.5
+  linear_to_rec709:           x < 0.018 ? 4.5x : 1.099*x^0.45 - 0.099
+  linear_to_srgb:             x <= 0.0031308 ? 12.92x : 1.055*x^(1/2.4) - 0.055
+  gamma45 ramp (u8):          clamp(x^0.45 * 255, 0, 255)  (gammatab.c:8-10)
 """
 
 import math
 import threading
 
+import numpy as np
 import torch
 
-from canvas_tpu.ops import color as color_ops
+__all__ = [
+    'rec709_to_linear_scene', 'rec709_to_linear_display',
+    'linear_to_rec709', 'linear_to_srgb',
+    'transfer_rec709_to_linear_scene', 'transfer_rec709_to_linear_display',
+    'transfer_linear_to_rec709', 'transfer_linear_to_srgb',
+    'gamma45_ramp_u8', 'apply_gamma45_u8',
+    'RGB_TO_XYZ_SDTV', 'XYZ_TO_SRGB',
+    'color_matrix', 'rgb_to_xyz_sdtv_frame', 'xyz_to_srgb_frame',
+    'build_half_lut', 'apply_half_lut', 'float_to_half_trunc', 'get_lut',
+    'TRANSFERS', 'quantize_f16', 'quantize_f16_trunc', 'device_transfer',
+    'u8_interleaved', 'yuv420_pack_studio', 'POSTS',
+]
 
-__all__ = ['TRANSFERS', 'quantize_f16', 'quantize_f16_trunc',
-           'device_transfer']
+
+def float_to_half_trunc(f):
+    """The reference's f32 -> f16 conversion, which TRUNCATES the mantissa.
+
+    half_convert_from_float applies the van der Zijp base/shift tables
+    (half.c:36-48 via genhalf.py:27-56):
+    ``h = base[bits>>23] + ((bits & 0x7fffff) >> shift[bits>>23])`` —
+    round-toward-zero, not round-to-nearest. Every transfer LUT and every
+    f32->f16 frame conversion in the C engine uses it, so matching its
+    rounding is what makes our tables bit-identical to the reference
+    binary's (verified exhaustively in tests/test_cref_parity.py).
+
+    Reproduced here as arithmetic on the bit patterns (vectorized) rather
+    than the 512-entry tables. NaN payloads confined to the low 13
+    mantissa bits collapse to infinity — the reference's own artifact,
+    preserved.
+    """
+    bits = np.asarray(f, np.float32).view(np.uint32)
+    sign = ((bits >> np.uint32(16)) & np.uint32(0x8000)).astype(np.uint32)
+    e = ((bits >> np.uint32(23)) & np.uint32(0xff)).astype(np.int32) - 127
+    m = (bits & np.uint32(0x007fffff)).astype(np.uint32)
+
+    base = np.zeros_like(bits)
+    shift = np.full(bits.shape, 24, np.uint32)
+
+    sub = (e >= -24) & (e < -14)      # half-subnormal range
+    sub_amt = np.clip(-14 - e, 0, 31).astype(np.uint32)
+    base = np.where(sub, np.uint32(0x0400) >> sub_amt, base)
+    shift = np.where(sub, np.clip(-e - 1, 0, 31).astype(np.uint32), shift)
+
+    norm = (e >= -14) & (e <= 15)     # normal range
+    base = np.where(norm, (np.clip(e + 15, 0, 31).astype(np.uint32)
+                           << np.uint32(10)), base)
+    shift = np.where(norm, np.uint32(13), shift)
+
+    big = (e > 15) & (e < 128)        # overflow -> inf
+    base = np.where(big, np.uint32(0x7c00), base)
+    shift = np.where(big, np.uint32(24), shift)
+
+    infnan = (e == 128)               # inf/NaN keep (shifted) payload
+    base = np.where(infnan, np.uint32(0x7c00), base)
+    shift = np.where(infnan, np.uint32(13), shift)
+
+    h = (sign | base) + (m >> shift)
+    return h.astype(np.uint16).view(np.float16).reshape(np.shape(f))
+
+
+# libm's powf for LUT construction: the reference builds its tables at
+# runtime with powf (gammatab.c), and numpy's float32 power differs from
+# glibc powf in the last f32 ulp on a handful of the 65536 inputs — just
+# enough to flip one truncated f16 table entry. Table builds are one-time
+# and cached, so the per-element ctypes call cost is irrelevant.
+_powf = None
+
+
+def _libm_powf():
+    global _powf
+    if _powf is None:
+        try:
+            import ctypes
+            import ctypes.util
+            libm = ctypes.CDLL(ctypes.util.find_library('m') or 'libm.so.6')
+            cf = libm.powf
+            cf.restype = ctypes.c_float
+            cf.argtypes = [ctypes.c_float, ctypes.c_float]
+
+            def powf_elementwise(x, p):
+                x = np.asarray(x, np.float32)
+                out = np.empty_like(x)
+                flat_in = x.ravel()
+                flat_out = out.ravel()
+                for i in range(flat_in.size):
+                    flat_out[i] = cf(float(flat_in[i]), p)
+                return out
+
+            _powf = powf_elementwise
+        except Exception:  # pragma: no cover - no libm: keep np.power
+            _powf = lambda x, p: np.power(  # noqa: E731
+                np.asarray(x, np.float32), np.float32(p))
+    return _powf
+
+
+def _exact_lut_fns():
+    """Transfer formulas evaluated with libm powf, for table construction
+    only (the fast array paths keep np.power)."""
+    powf = _libm_powf()
+
+    def scene(x):
+        x = np.asarray(x, np.float32)
+        with np.errstate(all='ignore'):
+            hi = powf((x + np.float32(0.099)) / np.float32(1.099),
+                      1.0 / 0.45)
+        return np.where(x < np.float32(4.5) * np.float32(0.018),
+                        x / np.float32(4.5), hi).astype(np.float32)
+
+    def display(x):
+        x = np.asarray(x, np.float32)
+        with np.errstate(all='ignore'):
+            hi = powf(x, 2.5)
+        return np.where(x < 0.0, np.float32(0.0), hi).astype(np.float32)
+
+    def to709(x):
+        x = np.asarray(x, np.float32)
+        with np.errstate(all='ignore'):
+            hi = (np.float32(1.099) * powf(x, 0.45) - np.float32(0.099))
+        return np.where(x < np.float32(0.018),
+                        x * np.float32(4.5), hi).astype(np.float32)
+
+    def tosrgb(x):
+        x = np.asarray(x, np.float32)
+        a = np.float32(0.055)
+        with np.errstate(all='ignore'):
+            hi = (np.float32(1.0) + a) * powf(x, 1.0 / 2.4) - a
+        return np.where(x <= np.float32(0.0031308),
+                        x * np.float32(12.92), hi).astype(np.float32)
+
+    return {
+        'rec709_to_linear_scene': scene,
+        'rec709_to_linear_display': display,
+        'linear_to_rec709': to709,
+        'linear_to_srgb': tosrgb,
+    }
+
+
+# --- scalar transfer formulas (f32 in, f32 out) ------------------------------
+
+def rec709_to_linear_scene(x):
+    x = np.asarray(x, dtype=np.float32)
+    transition = np.float32(4.5) * np.float32(0.018)
+    with np.errstate(invalid='ignore', divide='ignore', over='ignore'):
+        lo = x / np.float32(4.5)
+        hi = np.power((x + np.float32(0.099)) / np.float32(1.099),
+                      np.float32(1.0) / np.float32(0.45))
+    return np.where(x < transition, lo, hi).astype(np.float32)
+
+
+def rec709_to_linear_display(x):
+    x = np.asarray(x, dtype=np.float32)
+    with np.errstate(invalid='ignore'):
+        hi = np.power(x, np.float32(2.5))
+    return np.where(x < 0.0, np.float32(0.0), hi).astype(np.float32)
+
+
+def linear_to_rec709(x):
+    x = np.asarray(x, dtype=np.float32)
+    with np.errstate(invalid='ignore'):
+        hi = np.float32(1.099) * np.power(x, np.float32(0.45)) - np.float32(0.099)
+    return np.where(x < np.float32(0.018),
+                    x * np.float32(4.5), hi).astype(np.float32)
+
+
+def linear_to_srgb(x):
+    x = np.asarray(x, dtype=np.float32)
+    a = np.float32(0.055)
+    with np.errstate(invalid='ignore'):
+        hi = (np.float32(1.0) + a) * np.power(x, np.float32(1.0 / 2.4)) - a
+    return np.where(x <= np.float32(0.0031308),
+                    x * np.float32(12.92), hi).astype(np.float32)
+
+
+def _gamma45_u8_of_f32(x):
+    """clamp(x**0.45 * 255, 0, 255) truncated to u8 (gammatab.c:8-10).
+
+    NaN (from pow of negative input) maps to 0 like the C clamp+cast does
+    on our targets.
+    """
+    with np.errstate(invalid='ignore'):
+        y = np.power(x.astype(np.float32), np.float32(0.45)) * np.float32(255.0)
+    y = np.clip(y, 0.0, 255.0)
+    return np.nan_to_num(y, nan=0.0).astype(np.uint8)
+
+
+# --- half-LUT machinery (half.c / gammatab.c table pattern) ------------------
+
+_ALL_HALF_BITS = None
+
+
+def _all_half_values():
+    """float32 value of every one of the 65536 f16 bit patterns."""
+    global _ALL_HALF_BITS
+    if _ALL_HALF_BITS is None:
+        _ALL_HALF_BITS = np.arange(65536, dtype=np.uint16).view(
+            np.float16).astype(np.float32)
+    return _ALL_HALF_BITS
+
+
+def build_half_lut(fn, out_dtype=np.float16):
+    """65536-entry table: out[bits] = out_dtype(fn(float(half_from_bits))).
+
+    Exactly the table-construction loop the reference uses for every
+    transfer curve (gammatab.c:85-105 etc.) — including its f32->f16
+    conversion, which TRUNCATES (float_to_half_trunc), so f16 tables come
+    out bit-identical to the reference binary's. Inf/NaN half inputs flow
+    through the same arithmetic as the C tables; their conversions are
+    intentionally unchecked."""
+    with np.errstate(invalid='ignore', over='ignore', divide='ignore'):
+        out = np.asarray(fn(_all_half_values()))
+        if np.dtype(out_dtype) == np.float16:
+            return float_to_half_trunc(out.astype(np.float32))
+        return out.astype(out_dtype)
+
+
+def apply_half_lut(arr, table):
+    """Gather table[bits(x)] over an f16 array (half_lookup,
+    half.c:98-107); result dtype = table dtype."""
+    arr = np.asarray(arr, dtype=np.float16)
+    return table[arr.view(np.uint16)]
+
+
+class _LutCache:
+    """Lazily-built named transfer LUTs (the reference's g_once statics).
+
+    The four named transfer curves build from the libm-powf exact
+    formulas (_exact_lut_fns) so the resulting tables match the
+    reference binary's bit-for-bit; ad-hoc tables use the fn given."""
+
+    def __init__(self):
+        self._tables = {}
+
+    def get(self, name, fn, out_dtype=np.float16):
+        key = (name, np.dtype(out_dtype).name)
+        table = self._tables.get(key)
+        if table is None:
+            exact = _exact_lut_fns().get(name)
+            table = build_half_lut(exact if exact is not None else fn,
+                                   out_dtype)
+            self._tables[key] = table
+        return table
+
+
+_luts = _LutCache()
+
+
+def get_lut(name, out_dtype=np.float16):
+    """Named transfer LUT from the shared cache (bit-identical to the
+    reference binary's tables for the four gammatab curves)."""
+    fns = {
+        'rec709_to_linear_scene': rec709_to_linear_scene,
+        'rec709_to_linear_display': rec709_to_linear_display,
+        'linear_to_rec709': linear_to_rec709,
+        'linear_to_srgb': linear_to_srgb,
+        'gamma45_u8': _gamma45_u8_of_f32,
+    }
+    return _luts.get(name, fns[name],
+                     np.uint8 if name.endswith('_u8') else out_dtype)
+
+
+def _transfer(arr, name, fn):
+    """Apply a named transfer curve with reference-exact semantics.
+
+    f16 input -> f16 LUT gather (bit-exact vs the C tables).
+    f32 input -> direct formula (float32 math).
+    """
+    dtype = np.dtype(getattr(arr, 'dtype', np.float32))
+    if dtype == np.float16:
+        return apply_half_lut(arr, _luts.get(name, fn))
+    return fn(np.asarray(arr, dtype=np.float32))
+
+
+def transfer_rec709_to_linear_scene(arr):
+    return _transfer(arr, 'rec709_to_linear_scene', rec709_to_linear_scene)
+
+
+def transfer_rec709_to_linear_display(arr):
+    return _transfer(arr, 'rec709_to_linear_display', rec709_to_linear_display)
+
+
+def transfer_linear_to_rec709(arr):
+    return _transfer(arr, 'linear_to_rec709', linear_to_rec709)
+
+
+def transfer_linear_to_srgb(arr):
+    return _transfer(arr, 'linear_to_srgb', linear_to_srgb)
+
+
+def gamma45_ramp_u8():
+    """The 65536-entry f16-bits -> u8 display ramp (gammatab.c:12-37)."""
+    return _luts.get('gamma45_u8', _gamma45_u8_of_f32, np.uint8)
+
+
+def apply_gamma45_u8(arr):
+    """f16 (or convertible) array -> u8 via the gamma45 ramp."""
+    return apply_half_lut(np.asarray(arr, dtype=np.float16),
+                          gamma45_ramp_u8())
+
+
+# --- color matrices ----------------------------------------------------------
+
+# Rows are output components, columns input components (color.c:35-43 is
+# column-major; these are the same matrices expressed row-major).
+RGB_TO_XYZ_SDTV = np.array([
+    [0.3936, 0.3652, 0.1916],
+    [0.2124, 0.7010, 0.0865],
+    [0.0187, 0.1119, 0.9582]], dtype=np.float32)
+
+XYZ_TO_SRGB = np.array([
+    [3.2410, -1.5374, -0.4986],
+    [-0.9692, 1.8760, 0.0416],
+    [0.0556, -0.2040, 1.0570]], dtype=np.float32)
+
+
+def color_matrix(data, matrix):
+    """Apply a 3x3 matrix to the rgb planes of (4, H, W) data in f32;
+    alpha passes through. Returns the input's dtype (f16 data is
+    converted f16->f32->matrix->f16 like color.c:134-141)."""
+    dtype = data.dtype
+    m = np.asarray(matrix, dtype=np.float32)
+    rgb = np.asarray(data[:3], dtype=np.float32)
+    out = np.einsum('ij,jhw->ihw', m, rgb)
+    return np.concatenate([out.astype(dtype), data[3:]], axis=0)
+
+
+def rgb_to_xyz_sdtv_frame(data):
+    """video_color_rgb_to_xyz_sdtv (color.c:104-142): rec709->linear scene
+    transfer on ALL FOUR channels, then the SDTV RGB->XYZ matrix on rgb.
+    data: (4, H, W) f16."""
+    lin = transfer_rec709_to_linear_scene(data)
+    return color_matrix(lin, RGB_TO_XYZ_SDTV)
+
+
+def xyz_to_srgb_frame(data):
+    """video_color_xyz_to_srgb (color.c:145-168): XYZ->sRGB matrix on rgb,
+    then linear->sRGB transfer on all four channels. data: (4, H, W) f16."""
+    out = color_matrix(data, XYZ_TO_SRGB)
+    return transfer_linear_to_srgb(out)
+
+
+# --- torch (device) half ----------------------------------------------------
 
 #: The four transfer curves of the batched path (gammatab.c).
 TRANSFERS = ('rec709_to_linear_scene', 'rec709_to_linear_display',
@@ -66,7 +419,7 @@ def _table(name, device):
     with _tables_lock:
         table = _tables.get(key)
         if table is None:
-            host = torch.from_numpy(color_ops.get_lut(name))
+            host = torch.from_numpy(get_lut(name))
             table = _tables[key] = host.to(device)
     return table
 
@@ -80,3 +433,63 @@ def device_transfer(name, x16):
     table = _table(name, x16.device)
     bits = x16.to(torch.float16).view(torch.int16).to(torch.int32) & 0xFFFF
     return table[bits].float()
+
+
+# --- export conversions (iter_batches(post=...)) ----------------------------
+
+def _gamma45_floor(x16):
+    """f16 frames -> the u8 values of the gamma45 ramp as f32:
+    floor(clip(x ** 0.45 * 255, 0, 255)), NaN -> 0 (color.py:553-556)."""
+    y = torch.pow(x16.float(), 0.45) * 255.0
+    return torch.floor(torch.clamp(torch.nan_to_num(y, nan=0.0), 0.0, 255.0))
+
+
+def u8_interleaved(x16, order):
+    """(B, 4, H, W) f16 frames -> (B, H, W*4) u8 rows, the channels
+    interleaved in *order* (``_u8_math``, color.py:551-558)."""
+    u8 = _gamma45_floor(x16).to(torch.uint8)[:, list(order)]
+    B, _c, H, W = u8.shape
+    return u8.permute(0, 2, 3, 1).reshape(B, H, W * 4)
+
+
+def _edge_pad_even(c):
+    """Repeat the last row and column of (B, H, W) up to even H and W."""
+    if c.shape[1] % 2:
+        c = torch.cat([c, c[:, -1:]], dim=1)
+    if c.shape[2] % 2:
+        c = torch.cat([c, c[:, :, -1:]], dim=2)
+    return c
+
+
+def yuv420_pack_studio(x16):
+    """(B, 4, H, W) f16 frames -> (B, H*W + 2*ceil(H/2)*ceil(W/2)) u8:
+    studio-range 4:2:0 (Y 16-235, Cb/Cr 16-240, BT.601 matrix) of the
+    gamma45 u8 RGB, chroma the 2x2 mean after an edge-replicate pad of
+    odd sizes (``_yuv420_pack_studio_math``, color.py:628-656)."""
+    u8f = _gamma45_floor(x16)
+    R, G, Bl = u8f[:, 0], u8f[:, 1], u8f[:, 2]
+    Ey = (0.299 * R + 0.587 * G + 0.114 * Bl) / 255.0
+    Y = 16.0 + 219.0 * Ey
+    Cb = 128.0 + 224.0 * 0.5 / 0.886 * (Bl / 255.0 - Ey)
+    Cr = 128.0 + 224.0 * 0.5 / 0.701 * (R / 255.0 - Ey)
+    B = Y.shape[0]
+
+    def sub(c):
+        c = _edge_pad_even(c)
+        h2, w2 = c.shape[1] // 2, c.shape[2] // 2
+        return c.reshape(B, h2, 2, w2, 2).mean(dim=(2, 4))
+
+    def q(c, hi):
+        return torch.round(torch.clamp(c, 16.0, hi)).to(torch.uint8) \
+            .reshape(B, -1)
+
+    return torch.cat([q(Y, 235.0), q(sub(Cb), 240.0), q(sub(Cr), 240.0)],
+                     dim=1)
+
+
+#: The export conversions of ``iter_batches(post=...)``, on f16 frames.
+POSTS = {
+    'rgba_u8': lambda x16: u8_interleaved(x16, (0, 1, 2, 3)),
+    'bgra_u8': lambda x16: u8_interleaved(x16, (2, 1, 0, 3)),
+    'yuv420': yuv420_pack_studio,
+}

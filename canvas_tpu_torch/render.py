@@ -1,39 +1,43 @@
-"""Batched rendering on PyTorch: evaluate the planner's IR on the device
-(the counterpart of ``canvas_tpu/render.py``).
+"""Batched rendering on PyTorch: the counterpart of
+``canvas_tpu/render.py``.
 
-The host side is ``canvas_tpu``'s, reused by import: sources plan a
-frame range into a ``Node`` tree with NumPy (the port's ``PlanContext``,
-``plan.py``, which stages host-pulled frames and coded planes onto the
-device itself), and the tree's signature plus its flat parameter list
+Sources plan a frame range on the host into a ``Node`` tree
+(``canvas_tpu_torch.ir``) through the port's ``PlanContext``
+(``plan.py``, which stages host-pulled frames and coded planes onto the
+device itself); the tree's signature plus its flat parameter list
 describe the whole computation. This module evaluates that signature
-with torch ops and the port's CUDA kernels. Nothing here touches JAX.
+with torch ops and the port's CUDA kernels, and ``RenderPlanner``
+streams frame ranges through it. Nothing here touches JAX.
 
-The slice covers the ops of the headline composite (``bench.py``
-``build_timeline``) and of the mixed-content timeline
-(``benchmarks._mixed_timeline``: DV clips through animated scalers):
+The slice covers the ops of the headline composite
+(``timelines.build_timeline``) and of the mixed-content timeline
+(``timelines.mixed_timeline``: DV clips through animated scalers):
 ``solid``, ``empty``, ``gain_offset``, ``mix``, ``solid_stack``,
 ``over_stack`` (f32 accumulators, quality 10), ``placed`` (rank-1
 regions through ``region_over_sep``, any other region through
 ``region_over``), ``scale_solid``, ``scale_solid_dyn``, ``scale``,
-``scale_taps_dyn``, ``place``, ``stage_rows`` and ``dv_recon_rows``.
-Every other op, and the quality <= 9 ``acc16`` accumulators, raises
+``scale_taps_dyn``, ``place``, ``stage_rows`` and ``dv_recon_rows``,
+and the export conversions of ``iter_batches(post=...)``. Every other
+op, and the quality <= 9 ``acc16`` accumulators, raises
 ``NotImplementedError`` naming the ROADMAP.md queue item that ports it.
 """
 
+import os
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from canvas_tpu import render as _ref
-from canvas_tpu.basetypes import box2i  # noqa: F401  (re-export for callers)
-from canvas_tpu.render import _BATCH_AXIS, _frame_params, windows_to_array
 from canvas_tpu_torch import backend
+from canvas_tpu_torch.basetypes import box2i
+from canvas_tpu_torch.ir import (_BATCH_AXIS, _frame_params, flat_params,
+                                 signature, sliced_signature,
+                                 windows_to_array)
 from canvas_tpu_torch.ops import color as color_ops
 from canvas_tpu_torch.ops import cuda_ops
-from canvas_tpu_torch.plan import PlanContext
+from canvas_tpu_torch.plan import PlanContext, StageLRU
 
-__all__ = ['RenderPlanner', 'flat_params', 'params_to_torch', 'run',
+__all__ = ['RenderPlanner', 'box2i', 'flat_params', 'params_to_torch', 'run',
            'signature', 'sliced_signature']
 
 #: Ops of the IR that the slice does not evaluate yet, with the
@@ -65,61 +69,6 @@ def _canonical(v):
     if a.dtype == np.int64:
         return a.astype(np.int32)
     return a
-
-
-def _dtype_num(v):
-    """NumPy dtype number of a param: torch tensors map their dtype to
-    NumPy's; anything else as ``Node.signature`` reads it."""
-    if isinstance(v, torch.Tensor):
-        return torch.empty((), dtype=v.dtype).numpy().dtype.num
-    return np.dtype(getattr(v, 'dtype', None) or np.asarray(v).dtype).num
-
-
-def sliced_signature(node, N, B):
-    """``canvas_tpu.render._sliced_signature`` (render.py:1270-1299) of a
-    node whose params may hold device tensors (the staged stacks): the
-    structure signature after the frame axes are cut from N to B frames,
-    with the same tuples for NumPy params and torch dtypes given NumPy's
-    dtype numbers. ``N=None`` cuts nothing (``Node.signature``)."""
-    child_sigs = tuple(sliced_signature(c, N, B) for c in node.children)
-    ax = _BATCH_AXIS.get(node.op, 0)
-    fp = _frame_params(node.op) if N is not None else ()
-    shapes = []
-    for k, v in node.params.items():
-        shp = tuple(v.shape) if isinstance(v, torch.Tensor) else np.shape(v)
-        if k in fp:
-            if len(shp) <= ax or shp[ax] != N:
-                raise ValueError(
-                    'op %r frame param %r has shape %r; expected axis %d '
-                    'of length %d' % (node.op, k, shp, ax, N))
-            shp = shp[:ax] + (B,) + shp[ax + 1:]
-        shapes.append((k, shp, _dtype_num(v)))
-    static = node.static
-    if node.op == 'empty' and N is not None:
-        if static[0] != N:
-            raise ValueError("'empty' static batch %r != segment length %d"
-                             % (static[0], N))
-        static = (B,) + static[1:]
-    return (node.op, static, tuple(sorted(shapes)), child_sigs)
-
-
-def signature(node):
-    """``Node.signature()`` of a node whose params may hold device
-    tensors."""
-    return sliced_signature(node, None, None)
-
-
-def flat_params(node, out=None):
-    """Depth-first list of each node's params, the order ``_eval`` visits
-    them: ``Node.flat_params`` with torch tensors (the staged stacks)
-    passed through untouched where it passes JAX arrays, and without its
-    probe for JAX arrays (which imports JAX)."""
-    out = [] if out is None else out
-    out.append({k: (v if isinstance(v, torch.Tensor) else np.asarray(v))
-                for k, v in node.params.items()})
-    for c in node.children:
-        flat_params(c, out)
-    return out
 
 
 def params_to_torch(plist, device):
@@ -397,22 +346,23 @@ def _over_stack(static, child_sigs, params_iter, device):
     return torch.cat([rgb, A], dim=1)
 
 
-def run(signature, params, device):
-    """Evaluate *signature* over tensor *params* (``params_to_torch``)
-    and return the (B, 4, H, W) f16 frames (render.py:1476-1480)."""
-    return _eval(signature, iter(params), device).to(torch.float16)
+def run(sig, params, device, post=None):
+    """Evaluate *sig* over tensor *params* (``params_to_torch``) and return
+    the (B, 4, H, W) f16 frames (render.py:1476-1480), or their export
+    conversion ``post`` (``color.POSTS``, render.py:1481-1487)."""
+    out = _eval(sig, iter(params), device).to(torch.float16)
+    return out if post is None else color_ops.POSTS[post](out)
 
 
-class RenderPlanner(_ref.RenderPlanner):
-    """Plans frame ranges on the host with ``canvas_tpu``'s planner and
-    renders them on a torch device.
+class RenderPlanner:
+    """Plans frame ranges of *source* on the host and renders them on a
+    torch device (the counterpart of ``canvas_tpu.render.RenderPlanner``).
 
     ``device=None`` is CUDA and raises when there is none;
     ``device='cpu'`` runs the kernels' plain PyTorch versions. Plans are
     not cached across calls: every ``iter_batches``/``render`` plans its
-    segments anew (``plan_cache_segments`` is not read). Staged stacks
-    (host-pulled frames, coded planes) live in the inherited
-    ``persistent_cache`` between calls; ``stage_cache_mb = 0`` turns
+    segments anew. Staged stacks (host-pulled frames, coded planes) live
+    in ``persistent_cache`` between calls; ``stage_cache_mb = 0`` turns
     that off.
     """
 
@@ -421,10 +371,50 @@ class RenderPlanner(_ref.RenderPlanner):
     #: (None off CUDA). See ``staging.py``.
     render_stream = None
 
+    #: The mesh the staged stacks target: None until multi-device is
+    #: ported (ROADMAP.md queue 1 item 8).
+    _plan_mesh = None
+
+    #: Device-byte budget for the persistent staging cache
+    #: (CANVAS_STAGE_CACHE_MB env overrides; 0 disables).
+    stage_cache_mb = None
+
+    #: Planning-span cap: structure segments longer than this split into
+    #: chunks, which bounds host staging memory and the time to the first
+    #: frame of a long export.
+    max_plan_frames = 256
+
+    #: Pipeline-chunk span: long segments also split into chunks of this
+    #: many frames, so the prepare thread stages chunk k+1 while the
+    #: device renders chunk k.
+    pipeline_chunk = 64
+
     def __init__(self, source, window, quality=10, device=None):
-        super().__init__(source, window, quality)
+        self.source = source
+        self.window = box2i(window)
+        #: Render-quality hint, the reference's 1-11 scale (10 = normal
+        #: best, framework.h:510-513); quality >= 10 is bit-exact with
+        #: the pull path.
+        self.quality = int(quality)
         self.device = backend.resolve_device(device)
         backend.ensure_initialized()
+
+    def set_quality(self, quality):
+        """Change the quality hint; drops staged device data."""
+        quality = int(quality)
+        if quality != self.quality:
+            self.quality = quality
+            self.invalidate_display_cache()
+
+    @property
+    def persistent_cache(self):
+        cache = getattr(self, '_persistent_cache', None)
+        if cache is None:
+            mb = self.stage_cache_mb
+            if mb is None:
+                mb = float(os.environ.get('CANVAS_STAGE_CACHE_MB', '1536'))
+            cache = self._persistent_cache = StageLRU(mb * (1 << 20))
+        return cache
 
     def _note_render_stream(self):
         if self.device.type == 'cuda':
@@ -436,9 +426,72 @@ class RenderPlanner(_ref.RenderPlanner):
         s0, s1 = seg
         self._stage_cache = {}
         self._frame_hints = {}
-        self._plan_mesh = None
         frames = np.arange(s0, s1, dtype=np.int64)
         return PlanContext(self, frames, self.window).plan(self.source)
+
+    def explain(self, start, stop):
+        """Human-readable plan report for [start, stop): per segment, the
+        IR tree (op, static geometry, param shapes with ``@dev`` on
+        tensors already on the device, per-frame window coverage), then
+        the stage cache's size. Planning is real: it stages what a first
+        render would, into the same caches."""
+        lines = []
+        area = float(self.window.width * self.window.height)
+
+        def walk(n, depth):
+            parts = [n.op]
+            if n.static:
+                parts.append('static=%r' % (n.static,))
+            if n.params:
+                ps = []
+                for k in sorted(n.params):
+                    v = n.params[k]
+                    shape = tuple(np.shape(v) if not isinstance(
+                        v, torch.Tensor) else v.shape)
+                    ps.append('%s%s%s' % (
+                        k, shape if shape else '',
+                        '@dev' if isinstance(v, torch.Tensor) else ''))
+                parts.append(' '.join(ps))
+            if n.windows is not None and area:
+                w = windows_to_array(n.windows)
+                ww = np.maximum(w[:, 2] - w[:, 0] + 1, 0)
+                hh = np.maximum(w[:, 3] - w[:, 1] + 1, 0)
+                cov = float(np.mean(ww * hh)) / area
+                parts.append('cover=%.0f%%' % (100.0 * cov))
+            lines.append('  ' * (depth + 1) + '  '.join(parts))
+            for c in n.children:
+                walk(c, depth + 1)
+
+        self._drain_plan_pool()
+        for (s0, s1) in self.segments(start, stop):
+            node = self._plan((s0, s1))
+            lines.append('segment [%d, %d)  %d frames' % (s0, s1, s1 - s0))
+            walk(node, 0)
+        cache = self.persistent_cache
+        lines.append('stage cache: %d entries, %.1f MB of %.1f MB'
+                     % (len(cache), cache.bytes / 1e6, cache.budget / 1e6))
+        return '\n'.join(lines)
+
+    def segments(self, start, stop, min_span=0):
+        """Split [start, stop) at graph-structure boundaries (and the
+        planning-span/pipeline-chunk caps). Empty/reversed ranges are
+        empty, not a zero-length segment. ``min_span`` raises the
+        chunk cap so a caller's batch size is honored (still bounded by
+        max_plan_frames, the memory cap)."""
+        if stop <= start:
+            return []
+        span = min(self.max_plan_frames,
+                   max(self.pipeline_chunk, min_span))
+        cuts = sorted(set(
+            c for c in self.source.plan_cuts(start, stop) if start < c < stop))
+        edges = [start] + cuts + [stop]
+        out = []
+        for lo, hi in zip(edges[:-1], edges[1:]):
+            while hi - lo > span:
+                out.append((lo, lo + span))
+                lo += span
+            out.append((lo, hi))
+        return out
 
     def _prepare(self, seg, batch):
         """Plan one segment and cut its params into per-batch lists
@@ -481,24 +534,31 @@ class RenderPlanner(_ref.RenderPlanner):
     def iter_batches(self, start, stop, batch=16, device_out=True,
                      mesh=None, post=None, max_inflight=None):
         """Yield ``(frame_start, n_valid, out)`` for [start, stop) in
-        fixed-size batches, ``out`` a (B, 4, H, W) f16 tensor on the
+        fixed-size batches: ``out`` a (B, 4, H, W) f16 tensor on the
         device (a numpy array with ``device_out=False``). The tail batch
         of a segment repeats its last frame and reports
         ``n_valid < batch``; ``out`` is cut to the valid frames.
 
+        ``post`` converts each batch on the device for export
+        (render.py:1445-1489): 'rgba_u8' / 'bgra_u8' give (B, H, W*4)
+        interleaved u8 through the gamma45 ramp, 'yuv420' gives
+        (B, H*W + 2*ceil(H/2)*ceil(W/2)) packed studio-range 4:2:0 u8.
+
         Each structure segment is planned once, one segment ahead, on a
         worker thread; host-to-device copies and launches happen on the
-        calling thread. ``mesh``, ``post`` and ``max_inflight`` are not
-        ported yet (ROADMAP.md queue 1 items 8, 5 and 6) and must be
-        None."""
+        calling thread. ``mesh`` and ``max_inflight`` are not ported yet
+        (ROADMAP.md queue 1 items 8 and 6) and must be None."""
         for name, value, item in (('mesh', mesh, 'queue 1 item 8'),
-                                  ('post', post, 'queue 1 item 5'),
                                   ('max_inflight', max_inflight,
                                    'queue 1 item 6')):
             if value is not None:
                 raise _not_ported('iter_batches(%s=...)' % (name,), item)
+        if post is not None and post not in color_ops.POSTS:
+            raise ValueError('post must be one of %s, not %r'
+                             % (sorted(color_ops.POSTS), post))
         segs = self.segments(start, stop, min_span=batch)
         self._drain_plan_pool()
+        self._watch_frames_updated()
         self._note_render_stream()
         pool = self._plan_pool = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix='canvas-torch-plan')
@@ -510,7 +570,7 @@ class RenderPlanner(_ref.RenderPlanner):
                     fut = pool.submit(self._prepare, segs[i + 1], batch)
                 for (pos, take, cut_params) in batches:
                     out = run(sig, params_to_torch(cut_params, self.device),
-                              self.device)
+                              self.device, post)
                     if take < out.shape[0]:
                         out = out[:take]
                     if not device_out:
@@ -528,6 +588,7 @@ class RenderPlanner(_ref.RenderPlanner):
         per-frame current_window as a (B, 4) int64 [x0, y0, x1, y1]
         array (empty encoded max < min)."""
         self._drain_plan_pool()
+        self._watch_frames_updated()
         self._note_render_stream()
         outs = []
         windows = []
@@ -550,3 +611,54 @@ class RenderPlanner(_ref.RenderPlanner):
 
     def render_display(self, *args, **kwargs):
         raise _not_ported('render_display', 'queue 1 item 5')
+
+    def invalidate_display_cache(self, *args):
+        """Drop staged device data (the graph changed).
+
+        Sources edited through a signal-bearing layer call this through
+        their ``frames_updated`` signal; code that mutates a raw graph
+        directly must call it, or use a fresh planner, before rendering
+        again. With a frame range (``frames_updated(lo, hi)``, hi
+        inclusive), staged stacks that only ever served root segments
+        outside it stay resident; without one, everything drops."""
+        # bools are ints in Python: a trailing positional flag must not
+        # read as the range's end
+        ints = [a for a in args
+                if isinstance(a, (int, np.integer))
+                and not isinstance(a, (bool, np.bool_))]
+        cache = getattr(self, '_persistent_cache', None)
+        if cache is None:
+            return
+        if len(ints) >= 2:
+            cache.invalidate_range(int(ints[-2]), int(ints[-1]))
+        else:
+            cache.clear()
+
+    def _watch_frames_updated(self):
+        if getattr(self, '_watching_updates', False):
+            return
+        updated = getattr(self.source, 'frames_updated', None)
+        if updated is not None:
+            updated.connect(self.invalidate_display_cache)
+        self._watching_updates = True
+
+    def _drain_plan_pool(self):
+        """Wait out an abandoned iterator's in-flight prepare thread (it
+        mutates the planner's per-segment staging state) before anything
+        else touches those fields."""
+        pool = getattr(self, '_plan_pool', None)
+        if pool is not None:
+            self._plan_pool = None
+            pool.shutdown(wait=True, cancel_futures=True)
+
+    def close(self):
+        """Deterministic teardown: disconnect from the source's
+        frames_updated signal and drop staged stacks."""
+        self._drain_plan_pool()
+        if getattr(self, '_watching_updates', False):
+            updated = getattr(self.source, 'frames_updated', None)
+            if updated is not None:
+                updated.disconnect(self.invalidate_display_cache)
+            self._watching_updates = False
+        self.invalidate_display_cache()
+        self._stage_cache = {}

@@ -11,9 +11,10 @@ of ``canvas_tpu_torch.ops.study_ops``:
   probe's fold, and what bounds the shipped ``solid_fold``,
   ``scripts/vpu_roofline.py``.
 
-Each runs as ``python -m canvas_tpu_torch.studies.<name> --check`` (the
-plain versions on the CPU, or each kernel against its plain version on
-a card) or ``--time`` (a card only; raises without one). They carry the
+Each runs as ``python -m canvas_tpu_torch.studies.<name> --check`` (each
+kernel against its plain version on the card; ``--device cpu`` runs the
+plain versions on the CPU instead) or ``--time`` (a card only). Both
+raise without a card unless the CPU is asked for. They carry the
 scripts' seeded input generators over and import neither ``scripts/``
 nor JAX. The render path is unchanged: it keeps ``cuda_ops.solid_fold``.
 """
@@ -25,10 +26,11 @@ from canvas_tpu_torch import backend
 __all__ = ['check_device', 'time_device', 'on_device', 'max_diff']
 
 
-def check_device():
-    """The device of a ``--check`` run: the card if there is one, else the
-    CPU (plain versions only)."""
-    return torch.device('cuda' if torch.cuda.is_available() else 'cpu')
+def check_device(device=None):
+    """The device of a ``--check`` run: the card (``device=None``, raises
+    without one, as ``backend.resolve_device``), or the CPU when the
+    caller asks for it with ``device='cpu'`` (plain versions only)."""
+    return backend.resolve_device(device)
 
 
 def time_device():

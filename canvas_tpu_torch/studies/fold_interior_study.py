@@ -8,12 +8,12 @@ layer's box takes the unmasked step) and ``switch`` (a tile the box
 misses also skips the layer). All four must give the same bits, and the
 same bits as the shipped ``cuda_ops.solid_fold_plain``.
 
-    python -m canvas_tpu_torch.studies.fold_interior_study --check
+    python -m canvas_tpu_torch.studies.fold_interior_study --check [--device cpu]
     python -m canvas_tpu_torch.studies.fold_interior_study --time
 
-``--check`` runs the plain versions on the CPU (or, on a card, each
-kernel against its plain version at the script's check size and at
-1080p). ``--time`` times each form's kernel beside its plain version and
+``--check`` runs each kernel against its plain version on the card at
+the script's check size and at 1080p (with ``--device cpu``, the plain
+versions on the CPU). ``--time`` times each form's kernel beside its plain version and
 the shipped ``solid_fold`` (finalize to f32) on the same inputs, at
 B=32, L=6, 1080x1920.
 """
@@ -99,6 +99,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--check', action='store_true')
     ap.add_argument('--time', action='store_true')
+    ap.add_argument('--device', choices=('cuda', 'cpu'), default=None,
+                    help='--check on the CPU (plain versions) with cpu; '
+                    'default the card')
     ap.add_argument('--batch', type=int, default=32)
     ap.add_argument('--layers', type=int, default=6)
     ap.add_argument('--reps', type=int, default=20)
@@ -106,7 +109,7 @@ def main(argv=None):
     if not (args.check or args.time):
         ap.error('give --check or --time')
     if args.check:
-        dev = check_device()
+        dev = check_device(args.device)
         errs = check(dev, args.layers, args.batch)
         for (H, W, v), err in sorted(errs.items()):
             print('%-8s %dx%d B=%d L=%d on %s: max diff %r (must be 0)'

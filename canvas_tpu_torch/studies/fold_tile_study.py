@@ -5,12 +5,13 @@ counterpart of ``scripts/fold_tile_study.py``.
 meets the tile, in z order; skipping the others is bit-exact, so it
 must equal the shipped ``cuda_ops.solid_fold_plain``.
 
-    python -m canvas_tpu_torch.studies.fold_tile_study --check
+    python -m canvas_tpu_torch.studies.fold_tile_study --check [--device cpu]
     python -m canvas_tpu_torch.studies.fold_tile_study --time
 
-``--check`` runs the script's five cases with the plain version on the
-CPU (or, on a card, the kernel against its plain version and against
-``solid_fold_plain``, there also at B=32 and 1088x1920). ``--time``
+``--check`` runs the script's five cases on the card, the kernel against
+its plain version and against ``solid_fold_plain``, and also at B=32 and
+1088x1920 (with ``--device cpu``, the five cases with the plain version
+on the CPU). ``--time``
 times the kernel, its plain version, and the shipped ``solid_fold`` on
 the same inputs: the mid fold (no base, f32 accumulators) of L=6 layers
 at B=32, 1088x1920, with ``mixed`` and ``full`` coverage.
@@ -112,12 +113,15 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--check', action='store_true')
     ap.add_argument('--time', action='store_true')
+    ap.add_argument('--device', choices=('cuda', 'cpu'), default=None,
+                    help='--check on the CPU (plain versions) with cpu; '
+                    'default the card')
     ap.add_argument('--reps', type=int, default=20)
     args = ap.parse_args(argv)
     if not (args.check or args.time):
         ap.error('give --check or --time')
     if args.check:
-        dev = check_device()
+        dev = check_device(args.device)
         errs = check(dev)
         for (L, B, H, W, cover, base, fin), err in errs.items():
             print('L=%d B=%d %dx%d %-5s base=%d fin=%d on %s: max diff %r '

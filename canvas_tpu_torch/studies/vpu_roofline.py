@@ -30,7 +30,7 @@ each 1088x1920 plane unwritten while its byte count took the whole
 plane; the kernels here cover the whole plane and the bytes counted are
 the bytes moved.
 
-    python -m canvas_tpu_torch.studies.vpu_roofline --check
+    python -m canvas_tpu_torch.studies.vpu_roofline --check [--device cpu]
     python -m canvas_tpu_torch.studies.vpu_roofline --time
 """
 
@@ -314,13 +314,16 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--check', action='store_true')
     ap.add_argument('--time', action='store_true')
+    ap.add_argument('--device', choices=('cuda', 'cpu'), default=None,
+                    help='--check on the CPU (plain versions) with cpu; '
+                    'default the card')
     ap.add_argument('--batch', type=int, default=32)
     ap.add_argument('--reps', type=int, default=10)
     args = ap.parse_args(argv)
     if not (args.check or args.time):
         ap.error('give --check or --time')
     if args.check:
-        dev = check_device()
+        dev = check_device(args.device)
         res = check(dev)
         for name, (err, tol) in res.items():
             print('%-22s on %s: max diff %.3g (allowed %.3g)'

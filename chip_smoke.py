@@ -1,27 +1,30 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (canvas_tpu_torch) on one CUDA card.
 
-Drives the port's two render paths on the card, the headline render of
-bench.py (a 10-layer 1080p composite streamed by
-RenderPlanner.iter_batches) and the mixed-content timeline of
-benchmarks.py config7 (the headline with three DV clips, decoded on the
-host and staged by the port, through animated scalers), then the fold
-studies and the roofline probe. Each phase prints one line; any failure raises
-(traceback, nonzero exit, no result line):
+Drives the port's two render paths on the card, the headline render (a
+10-layer 1080p composite streamed by RenderPlanner.iter_batches,
+``canvas_tpu_torch.timelines.build_timeline``, bench.py's timeline) and
+the mixed-content timeline (``timelines.mixed_timeline``, benchmarks.py
+config7's: the headline with three DV clips, decoded on the host and
+staged by the port, through animated scalers), then the fold studies and
+the roofline probe, then the headline's export conversions. Each phase
+prints one line; any failure raises (traceback, nonzero exit, no result
+line):
 
 1. card: nvidia-smi's name and power limit, torch's device name;
 2. build: compile the CUDA kernels from the checkout's sources;
 3. kernels vs plain: each kernel against its plain PyTorch version on
    the card, on seeded inputs (solid_fold and region_over bit-identical;
    region_over_sep within atol 1e-6, f32 reassociation);
-4. headline slice: frames 0..255 through iter_batches; its kernels'
+4. headline slice: frames 0..255 of timelines.build_timeline(1024)
+   through iter_batches; its kernels'
    launch counters must rise; finite f16 (B, 4, 1080, 1920) batches;
    frames 0, 130 and 1000 against the NumPy pull path at atol 2e-3;
 5. headline timing: cold streaming fps of frames 128..511 in 128-frame
    batches, the device's busy time for the same batches (device idle
    share), and each kernel's time beside its plain version's at the
    main path's shapes;
-6. mixed slice: frames 0..127 of benchmarks._mixed_timeline(256) through
+6. mixed slice: frames 0..127 of timelines.mixed_timeline(256) through
    iter_batches(batch=16); all three kernels' launch counters must rise;
    finite f16 batches; frames 0, 1 and 70 against the NumPy pull path at
    atol 1e-2 with at least 99% of values bit-equal;
@@ -39,16 +42,30 @@ studies and the roofline probe. Each phase prints one line; any failure raises
    runs: each kernel beside its plain version and, for the two folds,
    the shipped solid_fold on the same inputs, and the card's measured
    bandwidth, FMA rate (with the SM clock, which must be read) and what
-   bounds solid_fold.
+   bounds solid_fold;
+9. export posts: headline frames 128..383 through
+   iter_batches(batch=128, post='bgra_u8') and (post='yuv420'), each
+   batch against the same conversion run on the CPU over the post=None
+   f16 frames of the range (the share of u8 values that differ and the
+   largest difference, at most 1 on at most 0.1% of values); the
+   conversions' device time on one batch; the headline's cold fps with
+   post='yuv420' beside post=None's, timed in turns under phase 5's
+   protocol.
 
-Each path (the headline, the mixed timeline, the studies' timing runs)
-runs with every launch counter set to 0 just before it and read just
-after; the kernels line reports each kernel's launches in those runs.
-The line before the last is the card's nvidia-smi line; the last line
-is ``{"ok": true, "device": {...}}``. Run from the
-repository root with no arguments: ``python3 chip_smoke.py``. JAX is
-never imported (an import hook refuses it), so the pull path runs on
-NumPy.
+Each path (the headline, the mixed timeline, the studies' timing runs,
+the export posts) runs with every launch counter set to 0 just before
+it and read just after; the kernels line reports each kernel's launches
+in those runs, its time, its plain version's, and its bound: the larger
+of the bytes it must move over the card's published memory rate and its
+f32 operations over the published f32 rate (PEAK_BYTES_PER_S,
+PEAK_F32_PER_S), from this run's shapes. No single PyTorch call computes
+what any of the kernels computes, so ``library_ms`` is null throughout.
+The line before the last is the card's nvidia-smi line; the last line is
+``{"ok": true, "device": {...}}``. Run from the repository root with no
+arguments: ``python3 chip_smoke.py``. An import hook refuses JAX, the
+JAX package (``canvas_tpu``) and the root scripts (``bench``,
+``benchmarks``, ``scripts``): the port runs on its own, and its pull
+path on NumPy.
 """
 
 import importlib.abc
@@ -61,13 +78,50 @@ import time
 SEED = 20261016
 WINDOW = (0, 0, 1919, 1079)
 
+#: Top-level modules this process may not import: JAX, the JAX package
+#: and the repository's root scripts.
+REFUSED = ('jax', 'jaxlib', 'canvas_tpu', 'bench', 'benchmarks', 'scripts')
 
-class _NoJax(importlib.abc.MetaPathFinder):
-    """Refuse every JAX import in this process."""
+#: Published peaks of one NVIDIA H100 SXM at 700 W (NVIDIA's data sheet):
+#: HBM bytes per second and f32 operations per second outside the tensor
+#: cores. A kernel's bound is the larger of its bytes and its operations
+#: over these.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+
+#: f32 operations per pixel the kernels do (multiplies, adds, divides;
+#: integer compares not counted): one premultiplied-over step of a solid
+#: layer is a*m, 1 - a*m, three P*k + c*a*m and A*k + a*m (10); the
+#: finalize divides three channels by A (3); a rank-1 region builds its
+#: layer (ry*rx, then four channels, 5) before its over step (12); the
+#: FMA chain does 2 per step and element.
+FOLD_OPS_PER_LAYER = 10
+FINALIZE_OPS = 3
+OVER_OPS = 12
+RANK1_OPS = 5
+
+
+def _bound(nbytes, ops):
+    """(bound ms, 'bytes' or 'operations'): the least time the card could
+    take to move *nbytes* and do *ops* f32 operations."""
+    byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    op_ms = ops / PEAK_F32_PER_S * 1e3
+    return (byte_ms, 'bytes') if byte_ms >= op_ms else (op_ms, 'operations')
+
+
+def _fold_params_bytes(L, B):
+    """Bytes of a fold's per-layer scalars: color and box (L, B, 4) f32 /
+    int32, gain and offset (L, B) f32."""
+    return L * B * 40
+
+
+class _Refuse(importlib.abc.MetaPathFinder):
+    """Refuse every import of a REFUSED module in this process."""
 
     def find_spec(self, name, path, target=None):
-        if name.split('.')[0] in ('jax', 'jaxlib'):
-            raise ImportError('chip_smoke.py runs without JAX (%s)' % name)
+        if name.split('.')[0] in REFUSED:
+            raise ImportError('chip_smoke.py runs without JAX, canvas_tpu '
+                              'and the root scripts (%s)' % name)
         return None
 
 
@@ -147,11 +201,11 @@ def _mixed_slice(tag, window):
     import numpy as np
     import torch
 
-    import benchmarks
+    from canvas_tpu_torch import timelines
     from canvas_tpu_torch.render import RenderPlanner
 
     H, W = window.height, window.width
-    ws = benchmarks._mixed_timeline(256)
+    ws = timelines.mixed_timeline(256)
     planner = RenderPlanner(ws, window)
     picked = {}
     n_frames = 0
@@ -182,7 +236,7 @@ def _mixed_slice(tag, window):
             raise AssertionError('mixed frame %d differs from the pull path '
                                  'by %r (%.5f bit-equal)'
                                  % (i, errs[i], shares[i]))
-    print('phase 6 mixed slice: 128 frames of benchmarks._mixed_timeline(256) '
+    print('phase 6 mixed slice: 128 frames of timelines.mixed_timeline(256) '
           'at 1080p via iter_batches(0, 128, batch=16), finite f16; launches '
           '%s; vs the NumPy pull path frame 0 max diff %.3g (%.5f bit-equal), '
           '1 %.3g (%.5f), 70 %.3g (%.5f) (atol 1e-2, >= 0.99) %s'
@@ -216,7 +270,8 @@ def _profile_kernels(fn):
 def _mixed_timing(tag, ws, window):
     """Phase 7: cold streaming fps, host prepare time, device busy and
     idle share, the replay's kernels, region_over vs plain. Returns
-    region_over's (max diff, ms, plain ms) at the path's shapes."""
+    region_over's (max diff, ms, plain ms, bound ms, bound by) at the
+    path's shapes."""
     import numpy as np
     import torch
 
@@ -300,6 +355,7 @@ def _mixed_timing(tag, ws, window):
     B = batch
     err = 0.0
     ms = plain_ms = 0.0
+    px_all = 0
     for (h, w), dy0, dx0 in regions:
         P, A, layer = [torch.from_numpy(rng.uniform(0, 1, s).astype(
             np.float32)).to(dev) for s in ((B, 3, H, W), (B, 1, H, W),
@@ -314,7 +370,9 @@ def _mixed_timing(tag, ws, window):
         tk, tp = paired_ms(k, p, 20, 3)
         ms += tk
         plain_ms += tp
-        nbytes = B * min(h, H - dy0) * min(w, W - dx0) * 48
+        px = B * min(h, H - dy0) * min(w, W - dx0)
+        px_all += px
+        nbytes = px * 48
         print('phase 7 kernel region_over %dx%d @ (%d, %d), batch %d: cuda '
               '%.4f ms (%.1f GB/s for %.1f MB), plain torch %.4f ms %s'
               % (h, w, dy0, dx0, B, tk, nbytes / tk / 1e6, nbytes / 1e6, tp,
@@ -323,7 +381,8 @@ def _mixed_timing(tag, ws, window):
         raise AssertionError('region_over at the path shapes differs from '
                              'plain by %r' % err)
 
-    return err, ms, plain_ms
+    # per pixel: the layer read (16 B), P and A read and written (32 B)
+    return (err, ms, plain_ms) + _bound(px_all * 48, px_all * OVER_OPS)
 
 
 def _studies(tag):
@@ -398,6 +457,23 @@ def _studies(tag):
 
     k = 40
     fma_err, fma_tol = roof['fma_chain k=%d' % k]
+    # Bounds from the timed shapes: the interior study finalizes L=6
+    # layers to (B, 4, H, W) f32 at B=32 1080p; the tile study writes the
+    # mid fold's P and A at B=32 1088p (the ops count takes every layer
+    # in every pixel, more than its tiles fold); the roofline's chain and
+    # fold read and write the (B, 4, H, W) f32 image.
+    L, B, (H, W) = 6, 32, fis.FULL_SIZE
+    px = B * H * W
+    var_bound = _bound(px * 16 + _fold_params_bytes(L, B),
+                       px * (L * FOLD_OPS_PER_LAYER + FINALIZE_OPS))
+    L, B, H, W = fts.FULL
+    px = B * H * W
+    tile_bound = _bound(px * 16 + _fold_params_bytes(L, B),
+                        px * L * FOLD_OPS_PER_LAYER)
+    n = r['B'] * 4 * r['H'] * r['W']
+    fma_bound = _bound(r['bytes'] + 4 * k, 2 * k * n)
+    fold_bound = _bound(r['bytes'] + 32 * vr.L,
+                        n // 4 * vr.L * FOLD_OPS_PER_LAYER)
     return [
         {'name': 'fold_interior', 'route': 'cuda',
          'source': 'canvas_tpu_torch/csrc/fold_study.cu',
@@ -406,6 +482,8 @@ def _studies(tag):
          'max_abs_err': max(err_var.values()),
          'ms': t_var['kernel']['current'],
          'plain_ms': t_var['plain']['current'],
+         'bound_ms': var_bound[0], 'bound_by': var_bound[1],
+         'library_ms': None,
          'solid_fold_ms': t_var['solid_fold'],
          'variants': {v: {'ms': t_var['kernel'][v],
                           'plain_ms': t_var['plain'][v]}
@@ -416,6 +494,8 @@ def _studies(tag):
          'launches': launches['tile_fold'], 'max_abs_err': err_tile,
          'ms': t_tile['mixed']['kernel'],
          'plain_ms': t_tile['mixed']['plain'],
+         'bound_ms': tile_bound[0], 'bound_by': tile_bound[1],
+         'library_ms': None,
          'solid_fold_ms': t_tile['mixed']['solid_fold'],
          'full_coverage': {'ms': t_tile['full']['kernel'],
                            'plain_ms': t_tile['full']['plain'],
@@ -425,7 +505,9 @@ def _studies(tag):
          'replaces': 'scripts/vpu_roofline.py:100',
          'launches': launches['fma_chain'], 'max_abs_err': fma_err,
          'tolerance': fma_tol, 'k': k, 'ms': r['chain_ms'][k],
-         'plain_ms': r['chain_plain_ms'][k], 'tflops': r['tflops'],
+         'plain_ms': r['chain_plain_ms'][k],
+         'bound_ms': fma_bound[0], 'bound_by': fma_bound[1],
+         'library_ms': None, 'tflops': r['tflops'],
          'copy_tbs': r['copy_tbs']},
         {'name': 'roofline_fold', 'route': 'cuda',
          'source': 'canvas_tpu_torch/csrc/fold_study.cu',
@@ -434,17 +516,112 @@ def _studies(tag):
          'max_abs_err': max(roof['roofline_fold select'][0],
                             roof['roofline_fold mult'][0]),
          'ms': r['fold_ms'][False], 'plain_ms': r['fold_plain_ms'][False],
+         'bound_ms': fold_bound[0], 'bound_by': fold_bound[1],
+         'library_ms': None,
          'mult_ms': r['fold_ms'][True],
          'mult_plain_ms': r['fold_plain_ms'][True]},
     ]
 
 
+def _stream_wall(planner, start, stop, batch, post=None):
+    """Wall seconds of one streaming pass over [start, stop), until the
+    card has finished the last batch (phase 5's protocol)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _out in planner.iter_batches(start, stop, batch=batch, post=post):
+        pass
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _posts(tag, window):
+    """Phase 9: the headline's export conversions. Frames 128..383 through
+    iter_batches(batch=128) with post='bgra_u8' and post='yuv420', each
+    batch against the same conversion run on the CPU over the post=None
+    f16 frames of the range; the conversions' device time on one batch;
+    the cold fps with post='yuv420' beside post=None's, in turns. Returns
+    the path's launches."""
+    import torch
+
+    from canvas_tpu_torch import timelines
+    from canvas_tpu_torch.backend import cuda_ms
+    from canvas_tpu_torch.ops import color as color_ops
+    from canvas_tpu_torch.render import RenderPlanner
+
+    H, W = window.height, window.width
+    start, stop, batch = 128, 384, 128
+    planner = RenderPlanner(timelines.build_timeline(1024), window)
+    f16 = {s: out.cpu()
+           for s, _n, out in planner.iter_batches(start, stop, batch=batch)}
+    sizes = {'bgra_u8': (H, W * 4),
+             'yuv420': (H * W + 2 * ((H + 1) // 2) * ((W + 1) // 2),)}
+    agree = {}
+    _zero_launch_counts()
+    for post, size in sizes.items():
+        n_diff = n_all = worst = 0
+        for s, n, out in planner.iter_batches(start, stop, batch=batch,
+                                              post=post):
+            if out.dtype != torch.uint8 or tuple(out.shape) != (n,) + size:
+                raise AssertionError('post %s batch at %d: %s %s' % (
+                    post, s, out.dtype, tuple(out.shape)))
+            got = out.cpu()
+            for i in range(0, n, 16):
+                want = color_ops.POSTS[post](f16[s][i:i + 16])
+                d = (got[i:i + 16].int() - want.int()).abs()
+                n_diff += int((d != 0).sum())
+                n_all += d.numel()
+                worst = max(worst, int(d.max()))
+        agree[post] = (n_diff / n_all, worst)
+    launches = _launch_counts()
+    if (launches['solid_fold'] <= 0 or launches['region_over_sep'] <= 0
+            or launches['region_over'] != 0):
+        raise AssertionError('export posts ran with launches %r' % launches)
+    print('phase 9 posts: frames %d..%d at %dx%d via iter_batches(batch=%d, '
+          'post=...), against the same conversion on the CPU over the '
+          'post=None f16 frames: %s (at most 1 on at most 0.1%%); launches '
+          '%s %s' % (start, stop - 1, W, H, batch, '; '.join(
+              '%s %.4g of u8 values differ, max |diff| %d' % (p, sh, wd)
+              for p, (sh, wd) in agree.items()), json.dumps(launches), tag),
+          flush=True)
+    if any(wd > 1 or sh > 1e-3 for sh, wd in agree.values()):
+        raise AssertionError('posts differ from the CPU: %r' % agree)
+
+    x16 = next(planner.iter_batches(start, start + batch, batch=batch))[2]
+    px = batch * H * W
+    for post, per_px in (('bgra_u8', 4), ('yuv420', 1.5)):
+        ms = cuda_ms(lambda: color_ops.POSTS[post](x16), 5)
+        print('phase 9 post %s on one batch of %d %dx%d f16 frames: %.3f ms '
+              'on the card (%.1f GB/s for the f16 read and the u8 write) %s'
+              % (post, batch, W, H, ms, px * (8 + per_px) / ms / 1e6, tag),
+              flush=True)
+    del x16, f16
+
+    start, stop = 128, 512
+    for post in (None, 'yuv420'):
+        _stream_wall(planner, 0, batch, batch, post)
+    walls = {None: [], 'yuv420': []}
+    for _rep in range(3):
+        for post in (None, 'yuv420'):
+            walls[post].append(_stream_wall(planner, start, stop, batch,
+                                            post))
+    print('phase 9 timing: 1080p_10layer_composite_fps_per_chip with '
+          'post=yuv420 %.1f beside post=None %.1f (best of 3 cold passes '
+          'each, in turns, over frames %d..%d, batch %d; walls %s s and '
+          '%s s) %s' % (
+              (stop - start) / min(walls['yuv420']),
+              (stop - start) / min(walls[None]), start, stop - 1, batch,
+              ', '.join('%.4f' % w for w in walls['yuv420']),
+              ', '.join('%.4f' % w for w in walls[None]), tag), flush=True)
+    return launches
+
+
 def main():
-    sys.meta_path.insert(0, _NoJax())
+    sys.meta_path.insert(0, _Refuse())
     import numpy as np
     import torch
 
-    import bench
+    from canvas_tpu_torch import timelines
     from canvas_tpu_torch.backend import cuda_ms, paired_ms
     from canvas_tpu_torch.ops import _build, cuda_ops
     from canvas_tpu_torch.render import (RenderPlanner, _scale_solid_factors,
@@ -539,7 +716,7 @@ def main():
     del P, A, P2, A2, got, want, layers, layer
 
     # 4. the slice, through the kernels
-    ws = bench.build_timeline(1024)
+    ws = timelines.build_timeline(1024)
     window = box2i(*WINDOW)
     H, W = window.height, window.width
     planner = RenderPlanner(ws, window)
@@ -579,19 +756,10 @@ def main():
                               errs[1000], tag), flush=True)
 
     # 5. timing: cold streaming, device busy time, kernels vs plain
-    planner.plan_cache_segments = 0
     start, stop, batch = 128, 512, 128
     for _ in planner.iter_batches(0, batch, batch=batch):
         pass
-    walls = []
-    for _rep in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        n = 0
-        for _s, k, _out in planner.iter_batches(start, stop, batch=batch):
-            n += k
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
+    walls = [_stream_wall(planner, start, stop, batch) for _rep in range(3)]
     wall = min(walls)
     fps = (stop - start) / wall
 
@@ -657,13 +825,20 @@ def main():
                              'from plain by %r' % err_main)
     rows = []
     fold_ms = fold_plain_ms = reg_ms = reg_plain_ms = 0.0
-    for name, k, p, nbytes in (
-            ('mid fold L=6', mid, mid_p, 16),
-            ('finalize L=2 f16', fin, fin_p, 24)):
+    fold_bytes = fold_ops = reg_bytes = reg_ops = 0
+    for name, k, p, nbytes, fp in (
+            ('mid fold L=6', mid, mid_p, 16, folds[0]),
+            ('finalize L=2 f16', fin, fin_p, 24, folds[1])):
         tk, tp = paired_ms(k, p, 10, 2)
         fold_ms += tk
         fold_plain_ms += tp
         rows.append((name, tk, tp, B * H * W * nbytes))
+        # the mid fold writes P and A (16 B/px); the finalize reads them
+        # and writes f16 frames (24 B/px)
+        L = fp['color'].shape[0]
+        fold_bytes += B * H * W * nbytes + _fold_params_bytes(L, B)
+        fold_ops += B * H * W * (L * FOLD_OPS_PER_LAYER
+                                 + (FINALIZE_OPS if nbytes == 24 else 0))
     for j, (pl, (color, ry, rx)) in enumerate(regions):
         dy0, dx0 = pl['dy0'], pl['dx0']
         h, w = ry.shape[1], rx.shape[1]
@@ -682,6 +857,9 @@ def main():
         px = B * min(h, H - dy0) * min(w, W - dx0)
         rows.append(('region %d %dx%d @ (%d, %d)' % (j, h, w, dy0, dx0),
                      tk, tp, px * 32))
+        # P and A read and written in the region; color, ry, rx read
+        reg_bytes += px * 32 + B * (4 + h + w) * 4
+        reg_ops += px * (RANK1_OPS + OVER_OPS)
     if not err_reg <= 1e-6:
         raise AssertionError('region_over_sep at the main path shapes '
                              'differs from plain by %r' % err_reg)
@@ -696,37 +874,54 @@ def main():
 
     # 6-7. the mixed-content path
     mixed, mixed_launches = _mixed_slice(tag, window)
-    err_ro_path, ro_ms, ro_plain_ms = _mixed_timing(tag, mixed, window)
+    err_ro_path, ro_ms, ro_plain_ms, ro_bound, ro_by = _mixed_timing(
+        tag, mixed, window)
 
     # 8. the fold studies and the roofline probe
     del mixed
     torch.cuda.empty_cache()
     study_kernels = _studies(tag)
 
-    total = {k: launches.get(k, 0) + mixed_launches[k]
+    # 9. the export conversions of the headline
+    torch.cuda.empty_cache()
+    post_launches = _posts(tag, window)
+
+    total = {k: launches.get(k, 0) + mixed_launches[k] + post_launches[k]
              for k in mixed_launches}
+    fold_bound, fold_by = _bound(fold_bytes, fold_ops)
+    reg_bound, reg_by = _bound(reg_bytes, reg_ops)
     kernels = [
         {'name': 'solid_fold', 'route': 'cuda',
          'source': 'canvas_tpu_torch/csrc/solid_fold.cu',
          'replaces': 'canvas_tpu/ops/pallas_ops.py:179',
          'launches': total['solid_fold'],
          'max_abs_err': max(err_mid, err_fin, err_main),
-         'ms': fold_ms, 'plain_ms': fold_plain_ms},
+         'ms': fold_ms, 'plain_ms': fold_plain_ms,
+         'bound_ms': fold_bound, 'bound_by': fold_by, 'library_ms': None},
         {'name': 'region_over_sep', 'route': 'cuda',
          'source': 'canvas_tpu_torch/csrc/region_over_sep.cu',
          'replaces': 'canvas_tpu/ops/pallas_ops.py:375',
          'launches': total['region_over_sep'],
          'max_abs_err': err_reg,
-         'ms': reg_ms, 'plain_ms': reg_plain_ms},
+         'ms': reg_ms, 'plain_ms': reg_plain_ms,
+         'bound_ms': reg_bound, 'bound_by': reg_by, 'library_ms': None},
         {'name': 'region_over', 'route': 'cuda',
          'source': 'canvas_tpu_torch/csrc/region_over.cu',
          'replaces': 'canvas_tpu/ops/pallas_ops.py:276',
          'launches': total['region_over'],
          'max_abs_err': max(err_ro, err_ro_path),
-         'ms': ro_ms, 'plain_ms': ro_plain_ms},
+         'ms': ro_ms, 'plain_ms': ro_plain_ms,
+         'bound_ms': ro_bound, 'bound_by': ro_by, 'library_ms': None},
     ] + study_kernels
-    if any(m.split('.')[0] in ('jax', 'jaxlib') for m in sys.modules):
-        raise AssertionError('a JAX module was imported')
+    for k in kernels:
+        print('kernel %s: %d launches, %.4f ms against a bound of %.4f ms '
+              '(%s, %.0f%%), plain %.4f ms %s'
+              % (k['name'], k['launches'], k['ms'], k['bound_ms'],
+                 k['bound_by'], 100 * k['bound_ms'] / k['ms'],
+                 k['plain_ms'], tag), flush=True)
+    if any(m.split('.')[0] in REFUSED for m in sys.modules):
+        raise AssertionError('a refused module was imported: %r' % sorted(
+            m for m in sys.modules if m.split('.')[0] in REFUSED))
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

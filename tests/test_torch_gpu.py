@@ -157,9 +157,9 @@ def test_mixed_render_on_card_matches_cpu(cuda):
     """Frames of the mixed-content timeline at 960x540 (DV clips staged
     by the port, static and animated scalers, region_over) on the card
     against the plain versions on the CPU."""
-    import benchmarks
+    from canvas_tpu_torch import timelines
     from canvas_tpu_torch.render import RenderPlanner, box2i
-    ws = benchmarks._mixed_timeline(256)
+    ws = timelines.mixed_timeline(256)
     window = box2i(0, 0, 959, 539)
     launches = co.region_over.launches
     got = RenderPlanner(ws, window).render(0, 5)
@@ -191,9 +191,9 @@ def test_kernel_wrappers_refuse_noncontiguous(cuda):
 def test_render_on_card_matches_cpu(cuda):
     """The headline timeline at 960x540 through the kernels on the card
     against the plain versions on the CPU."""
-    import bench
+    from canvas_tpu_torch import timelines
     from canvas_tpu_torch.render import RenderPlanner, box2i
-    ws = bench.build_timeline(1024)
+    ws = timelines.build_timeline(1024)
     window = box2i(0, 0, 959, 539)
     for start, stop in ((0, 1), (128, 136), (1000, 1003)):
         got = RenderPlanner(ws, window).render(start, stop)

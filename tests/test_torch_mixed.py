@@ -1,6 +1,8 @@
 """The port's mixed-content slice against the JAX package, on the CPU:
-DV clips through animated scalers (``benchmarks._mixed_timeline``) and
-host-staged sources.
+DV clips through animated scalers and host-staged sources. The JAX side
+gets the JAX package's timeline (``benchmarks._mixed_timeline``) and
+classes; the port gets its own (``canvas_tpu_torch.timelines``), built
+from the same code and seeds.
 
 Covered: the new ``_eval`` ops on nodes planned once by ``canvas_tpu``
 (their params ``np.asarray``'d into the port); the port's staging
@@ -31,26 +33,40 @@ import jax.numpy as jnp
 import torch
 
 import benchmarks
+from canvas_tpu import coded as ref_coded
+from canvas_tpu import framefuncs as ref_framefuncs
+from canvas_tpu import frames as ref_frames
 from canvas_tpu import render as ref_render
-from canvas_tpu.basetypes import box2i
-from canvas_tpu.coded import (CodedImage, CodedImageSource,
-                              DVReconstructionFilter)
-from canvas_tpu.frames import VideoSource
-from canvas_tpu.framefuncs import LerpFunc
-from canvas_tpu.sources import (SolidColorVideoSource, VideoScaler,
-                                VideoWorkspace)
+from canvas_tpu import sources as ref_sources
+from canvas_tpu.basetypes import box2i as ref_box2i
+from canvas_tpu_torch import coded as port_coded
+from canvas_tpu_torch import framefuncs as port_framefuncs
+from canvas_tpu_torch import frames as port_frames
 from canvas_tpu_torch import plan as port_plan
 from canvas_tpu_torch import render as port
-from canvas_tpu_torch import staging
+from canvas_tpu_torch import sources as port_sources
+from canvas_tpu_torch import staging, timelines
+from canvas_tpu_torch.basetypes import box2i
 from canvas_tpu_torch.ops import cuda_ops
 
 CPU = torch.device('cpu')
-W540 = box2i(0, 0, 959, 539)
-W1080 = box2i(0, 0, 1919, 1079)
+W540 = (0, 0, 959, 539)
+W1080 = (0, 0, 1919, 1079)
+
+#: Each package's modules, so a graph builds the same from either.
+REF = dict(box2i=ref_box2i, coded=ref_coded, framefuncs=ref_framefuncs,
+           frames=ref_frames, sources=ref_sources)
+PORT = dict(box2i=box2i, coded=port_coded, framefuncs=port_framefuncs,
+            frames=port_frames, sources=port_sources)
 
 
 @pytest.fixture(scope='module')
 def mixed():
+    return timelines.mixed_timeline(256)
+
+
+@pytest.fixture(scope='module')
+def ref_mixed():
     return benchmarks._mixed_timeline(256)
 
 
@@ -64,6 +80,7 @@ def _walk(node, out=None):
 
 def _ref_plan(source, window, start, stop):
     """A segment planned by canvas_tpu (staging through JAX on the CPU)."""
+    window = ref_box2i(*window)
     planner = ref_render.RenderPlanner(source, window)
     planner.stage_cache_mb = 0
     return ref_render.PlanContext(planner, np.arange(start, stop),
@@ -71,6 +88,7 @@ def _ref_plan(source, window, start, stop):
 
 
 def _port_plan(source, window, start, stop, **kw):
+    window = box2i(*window)
     planner = port.RenderPlanner(source, window, device='cpu', **kw)
     return port_plan.PlanContext(planner, np.arange(start, stop),
                                  window).plan(source), planner
@@ -85,29 +103,34 @@ def _f16_close(got, want, atol, share):
     assert equal >= share, equal
 
 
-class Custom(VideoSource):
-    """A source with no emit: the planner host-stages it."""
+def _custom(lib):
+    """A source with no emit, on *lib*'s VideoSource: the planner
+    host-stages it."""
 
-    def __init__(self):
-        self.pulls = []
+    class Custom(lib['frames'].VideoSource):
+        def __init__(self):
+            self.pulls = []
 
-    def _render_f16(self, frame_index, frame):
-        self.pulls.append(frame_index)
-        h, w = frame.full_window.height, frame.full_window.width
-        rng = np.random.RandomState(frame_index)
-        data = (rng.rand(4, h, w) * 0.9).astype(np.float16)
-        data[3] = 0.75
-        frame.data = data
-        frame.current_window = frame.full_window
+        def _render_f16(self, frame_index, frame):
+            self.pulls.append(frame_index)
+            h, w = frame.full_window.height, frame.full_window.width
+            rng = np.random.RandomState(frame_index)
+            data = (rng.rand(4, h, w) * 0.9).astype(np.float16)
+            data[3] = 0.75
+            frame.data = data
+            frame.current_window = frame.full_window
+
+    return Custom()
 
 
-def _staged_graph():
-    ws = VideoWorkspace()
-    ws.add(source=SolidColorVideoSource((0.1, 0.2, 0.3, 1.0)), x=0,
+def _staged_graph(lib=PORT):
+    src = lib['sources']
+    ws = src.VideoWorkspace()
+    ws.add(source=src.SolidColorVideoSource((0.1, 0.2, 0.3, 1.0)), x=0,
            length=64, z=0)
-    src = Custom()
-    ws.add(source=src, x=0, length=64, z=1)
-    return ws, src
+    custom = _custom(lib)
+    ws.add(source=custom, x=0, length=64, z=1)
+    return ws, custom
 
 
 # (op, segment, window): the first node of that op in the plan of the
@@ -119,21 +142,21 @@ OP_CASES = {
     'place': ('place', (1, 3), W540),
     'dv_recon_rows': ('dv_recon_rows', (1, 3), W540),
     'placed_region': ('placed', (1, 3), W540),
-    'stage_rows': ('stage_rows', (3, 6), box2i(0, 0, 255, 127)),
+    'stage_rows': ('stage_rows', (3, 6), (0, 0, 255, 127)),
 }
 
 
 @pytest.mark.parametrize('case', sorted(OP_CASES))
-def test_op_matches_jax(mixed, case):
+def test_op_matches_jax(ref_mixed, case):
     op, (start, stop), window = OP_CASES[case]
-    source = _staged_graph()[0] if op == 'stage_rows' else mixed
+    source = _staged_graph(REF)[0] if op == 'stage_rows' else ref_mixed
     node = _ref_plan(source, window, start, stop)
     pick = [n for n in _walk(node) if n.op == op
             and not (op == 'placed'
                      and n.children[0].op.startswith('scale_solid'))][0]
     if op == 'placed':
         pick = ref_render.Node('over_stack',
-                               static=(window.height, window.width),
+                               static=(window[3] + 1, window[2] + 1),
                                children=[pick])
     sig = pick.signature()
     params = pick.flat_params([])
@@ -182,8 +205,8 @@ def test_stager_refuses_a_mesh():
         staging.SlabStager([((2,), np.uint8)], 1, CPU, mesh=object())
 
 
-def test_dv_plane_stack_matches_jax(mixed):
-    ref = _ref_plan(mixed, W540, 1, 11)
+def test_dv_plane_stack_matches_jax(mixed, ref_mixed):
+    ref = _ref_plan(ref_mixed, W540, 1, 11)
     got, _planner = _port_plan(mixed, W540, 1, 11)
     ref_nodes = [n for n in _walk(ref) if n.op == 'dv_recon_rows']
     got_nodes = [n for n in _walk(got) if n.op == 'dv_recon_rows']
@@ -199,10 +222,11 @@ def test_dv_plane_stack_matches_jax(mixed):
 
 
 def test_plan_context_keeps_its_class(mixed):
-    planner = port.RenderPlanner(mixed, W540, device='cpu')
+    window = box2i(*W540)
+    planner = port.RenderPlanner(mixed, window, device='cpu')
     frames = np.arange(4, 8)
-    ctx = port_plan.PlanContext(planner, frames, W540)
-    base = ref_render.PlanContext(planner, frames, W540)
+    ctx = port_plan.PlanContext(planner, frames, window)
+    base = ref_render.PlanContext(planner, frames, window)
     box = box2i(0, 0, 127, 63)
     sem = np.tile([0, 0, 99, 49], (4, 1))
     for name, args in (('with_frames', (frames + 3,)),
@@ -250,14 +274,15 @@ def test_signature_of_device_tensors_matches_canvas():
     assert isinstance(tparams[1]['rows'], torch.Tensor)
 
 
-def test_host_staged_graph_matches_jax_and_pull(numpy_backend):
+def test_host_staged_graph_matches_jax_and_pull():
     ws, src = _staged_graph()
-    window = box2i(0, 0, 255, 127)
-    node, _planner = _port_plan(ws, window, 2, 9)
+    node, _planner = _port_plan(ws, (0, 0, 255, 127), 2, 9)
     assert 'stage_rows' in [n.op for n in _walk(node)]
+    window = box2i(0, 0, 255, 127)
     got = port.RenderPlanner(ws, window, device='cpu').render(2, 9)
     assert sorted(src.pulls) == sorted(list(range(2, 9)) * 2)  # 2 plans
-    want = np.asarray(ref_render.render_frames(ws, window, 2, 9))
+    want = np.asarray(ref_render.render_frames(
+        _staged_graph(REF)[0], ref_box2i(0, 0, 255, 127), 2, 9))
     np.testing.assert_array_equal(got, want)
     for i in (2, 8):
         pull = np.asarray(ws.get_frame_f16(i, window).data, np.float16)
@@ -285,7 +310,7 @@ def test_stage_cache_replays_and_can_be_disabled():
 def mixed_1080p(mixed):
     """Frames 0..3 of the mixed timeline at 1080p through the port on the
     CPU: segment [0, 1) plans static ``scale``, [1, 4) ``scale_taps_dyn``."""
-    planner = port.RenderPlanner(mixed, W1080, device='cpu')
+    planner = port.RenderPlanner(mixed, box2i(*W1080), device='cpu')
     launches = (cuda_ops.solid_fold.launches,
                 cuda_ops.region_over_sep.launches,
                 cuda_ops.region_over.launches)
@@ -308,57 +333,71 @@ def test_mixed_timeline_plans_every_kernel_path(mixed):
         assert len([r for r in regions if r.startswith('scale_solid')]) == 1
 
 
-def test_mixed_timeline_1080p_matches_jax(mixed, mixed_1080p):
-    want = np.asarray(ref_render.render_frames(mixed, W1080, 0, 4))
+def test_mixed_timeline_1080p_matches_jax(ref_mixed, mixed_1080p):
+    want = np.asarray(ref_render.render_frames(ref_mixed,
+                                               ref_box2i(*W1080), 0, 4))
     assert mixed_1080p.dtype == np.float16
     assert mixed_1080p.shape == (4, 4, 1080, 1920)
     _f16_close(mixed_1080p, want, 1e-2, 0.99)
 
 
 @pytest.mark.parametrize('frame', [0, 3])
-def test_mixed_timeline_1080p_matches_pull(mixed, mixed_1080p, frame,
-                                           numpy_backend):
-    pull = np.asarray(mixed.get_frame_f16(frame, W1080).data, np.float16)
+def test_mixed_timeline_1080p_matches_pull(mixed, mixed_1080p, frame):
+    pull = np.asarray(mixed.get_frame_f16(frame, box2i(*W1080)).data,
+                      np.float16)
     _f16_close(mixed_1080p[frame], pull, 1e-2, 0.99)
 
 
-class Rolled(CodedImageSource):
-    """Seeded 720x480 4:1:1 planes, rolled by the frame index."""
+def _rolled(lib):
+    """Seeded 720x480 4:1:1 planes, rolled by the frame index, on *lib*'s
+    CodedImageSource."""
 
-    def __init__(self):
-        rng = np.random.RandomState(79)
-        self.planes = (rng.randint(16, 236, (480, 720)).astype(np.uint8),
-                       rng.randint(16, 241, (480, 180)).astype(np.uint8),
-                       rng.randint(16, 241, (480, 180)).astype(np.uint8))
-        self.decodes = 0
+    class Rolled(lib['coded'].CodedImageSource):
+        def __init__(self):
+            rng = np.random.RandomState(79)
+            self.planes = (
+                rng.randint(16, 236, (480, 720)).astype(np.uint8),
+                rng.randint(16, 241, (480, 180)).astype(np.uint8),
+                rng.randint(16, 241, (480, 180)).astype(np.uint8))
+            self.decodes = 0
 
-    def get_frame(self, frame_index, quality=0):
-        self.decodes += 1
-        return CodedImage([np.roll(p, frame_index, axis=0)
-                           for p in self.planes])
+        def get_frame(self, frame_index, quality=0):
+            self.decodes += 1
+            return lib['coded'].CodedImage([np.roll(p, frame_index, axis=0)
+                                            for p in self.planes])
+
+    return Rolled()
 
 
-def test_small_dv_graph_matches_jax_and_pull(numpy_backend):
-    """A 1280x720 workspace with one DV clip scaled 0.5 and animated: a
-    placed region over a solid background."""
-    rolled = Rolled()
-    clip = VideoScaler(DVReconstructionFilter(rolled),
-                       target_point=LerpFunc((100, 50), (400, 200), 16),
-                       source_point=(0.0, -1.0), scale_factors=(0.5, 0.5),
-                       source_rect=box2i(0, -1, 719, 478))
-    ws = VideoWorkspace()
-    ws.add(source=SolidColorVideoSource((0.2, 0.3, 0.4, 1.0)), x=0,
+def _small_dv_graph(lib):
+    rolled = _rolled(lib)
+    src = lib['sources']
+    clip = src.VideoScaler(
+        lib['coded'].DVReconstructionFilter(rolled),
+        target_point=lib['framefuncs'].LerpFunc((100, 50), (400, 200), 16),
+        source_point=(0.0, -1.0), scale_factors=(0.5, 0.5),
+        source_rect=lib['box2i'](0, -1, 719, 478))
+    ws = src.VideoWorkspace()
+    ws.add(source=src.SolidColorVideoSource((0.2, 0.3, 0.4, 1.0)), x=0,
            length=16, z=0)
     ws.add(source=clip, x=0, length=16, z=1)
-    window = box2i(0, 0, 1279, 719)
-    node, _planner = _port_plan(ws, window, 2, 5)
+    return ws, rolled
+
+
+def test_small_dv_graph_matches_jax_and_pull():
+    """A 1280x720 workspace with one DV clip scaled 0.5 and animated: a
+    placed region over a solid background."""
+    ws, rolled = _small_dv_graph(PORT)
+    node, _planner = _port_plan(ws, (0, 0, 1279, 719), 2, 5)
     placed = [c for c in node.children if c.op == 'placed']
     assert placed and placed[0].children[0].op == 'scale_taps_dyn'
+    window = box2i(0, 0, 1279, 719)
     planner = port.RenderPlanner(ws, window, device='cpu')
     got = np.concatenate([out for _s, _n, out in planner.iter_batches(
         2, 5, batch=2, device_out=False)])
     assert rolled.decodes > 0
-    want = np.asarray(ref_render.render_frames(ws, window, 2, 5))
+    want = np.asarray(ref_render.render_frames(
+        _small_dv_graph(REF)[0], ref_box2i(0, 0, 1279, 719), 2, 5))
     _f16_close(got, want, 1e-2, 0.99)
     for i in (2, 4):
         pull = np.asarray(ws.get_frame_f16(i, window).data, np.float16)

@@ -1,11 +1,15 @@
-"""The PyTorch port never imports JAX: in a fresh interpreter whose
-import system refuses every ``jax``/``jaxlib`` module, it imports, plans
-and renders on the CPU the headline timeline, the mixed-content timeline
-(DV clips staged by the port, through animated scalers) and a graph
-whose source the planner host-stages, and runs the studies' ``--check``
-entry points (canvas_tpu_torch.studies), and nothing it runs even tries
-such an import (a refused attempt would be swallowed by
-``canvas_tpu.backend``'s optional-JAX probe, so attempts are recorded)."""
+"""The PyTorch port stands on its own: in a fresh interpreter whose
+import system refuses every ``jax``/``jaxlib`` module, the JAX package
+(``canvas_tpu``) and the repository's root scripts and studies
+(``bench``, ``benchmarks``, ``scripts``), it imports, plans and renders
+on the CPU the headline timeline, the mixed-content timeline (DV clips
+staged by the port, through animated scalers) and a graph whose source
+the planner host-stages, all built from the port's own classes
+(``canvas_tpu_torch.timelines``, ``canvas_tpu_torch.process``), and
+runs the studies' ``--check --device cpu`` entry points
+(canvas_tpu_torch.studies); and nothing it runs even tries such an
+import (a refused attempt could be swallowed by an optional-import
+probe, so attempts are recorded)."""
 
 import os
 import subprocess
@@ -20,9 +24,12 @@ SCRIPT = textwrap.dedent('''
 
     ATTEMPTS = []
 
+    REFUSED = ('jax', 'jaxlib', 'canvas_tpu', 'bench', 'benchmarks',
+               'scripts')
+
     class NoJax(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path, target=None):
-            if name.split('.')[0] in ('jax', 'jaxlib'):
+            if name.split('.')[0] in REFUSED:
                 ATTEMPTS.append(name)
                 raise ImportError('blocked: ' + name)
             return None
@@ -32,9 +39,9 @@ SCRIPT = textwrap.dedent('''
     import canvas_tpu_torch
     import canvas_tpu_torch.ops.cuda_ops
     from canvas_tpu_torch.render import RenderPlanner, box2i
-    import bench
+    from canvas_tpu_torch import process, timelines
 
-    ws = bench.build_timeline(64)
+    ws = timelines.build_timeline(64)
     planner = RenderPlanner(ws, box2i(0, 0, 319, 179), device='cpu')
     out = planner.render(0, 2)
     assert out.shape == (2, 4, 180, 320) and out.dtype == np.float16
@@ -42,17 +49,14 @@ SCRIPT = textwrap.dedent('''
     for _s, _n, batch in planner.iter_batches(2, 4, batch=2):
         assert tuple(batch.shape) == (2, 4, 180, 320)
 
-    import benchmarks
-    from canvas_tpu.frames import VideoSource
-    from canvas_tpu.sources import SolidColorVideoSource, VideoWorkspace
-    mixed = RenderPlanner(benchmarks._mixed_timeline(16),
+    mixed = RenderPlanner(timelines.mixed_timeline(16),
                           box2i(0, 0, 1919, 1079), device='cpu')
     mixed.stage_cache_mb = 0
     got = [(s, n) for s, n, out in mixed.iter_batches(0, 3, batch=2)
            if np.isfinite(out.numpy()).all()]
     assert got == [(0, 1), (1, 2)], got
 
-    class Custom(VideoSource):
+    class Custom(process.VideoSource):
         def _render_f16(self, frame_index, frame):
             data = np.full((4, frame.full_window.height,
                             frame.full_window.width), 0.5, np.float16)
@@ -60,8 +64,8 @@ SCRIPT = textwrap.dedent('''
             frame.data = data
             frame.current_window = frame.full_window
 
-    ws = VideoWorkspace()
-    ws.add(source=SolidColorVideoSource((0.1, 0.2, 0.3, 1.0)), x=0,
+    ws = process.VideoWorkspace()
+    ws.add(source=process.SolidColorVideoSource((0.1, 0.2, 0.3, 1.0)), x=0,
            length=8, z=0)
     ws.add(source=Custom(), x=0, length=8, z=1)
     staged = RenderPlanner(ws, box2i(0, 0, 63, 31), device='cpu')
@@ -70,13 +74,12 @@ SCRIPT = textwrap.dedent('''
     import torch
     from canvas_tpu_torch.studies import (fold_interior_study,
                                           fold_tile_study, vpu_roofline)
-    assert fold_interior_study.main(['--check', '--batch', '2']) == 0
-    assert fold_tile_study.main(['--check']) == 0
-    res = vpu_roofline.check(torch.device('cpu'), (1, 136, 256))
-    assert all(err <= tol for err, tol in res.values()), res
+    assert fold_interior_study.main(['--check', '--batch', '2',
+                                     '--device', 'cpu']) == 0
+    assert fold_tile_study.main(['--check', '--device', 'cpu']) == 0
+    assert vpu_roofline.main(['--check', '--device', 'cpu']) == 0
 
-    loaded = sorted(m for m in sys.modules
-                    if m.split('.')[0] in ('jax', 'jaxlib'))
+    loaded = sorted(m for m in sys.modules if m.split('.')[0] in REFUSED)
     assert not loaded, loaded
     assert not ATTEMPTS, ATTEMPTS
     print('NOJAX_OK')

@@ -33,6 +33,7 @@ import torch
 
 from canvas_tpu_torch.ops import cuda_ops as co
 from canvas_tpu_torch.ops import study_ops as so
+from canvas_tpu_torch.studies import check_device
 from canvas_tpu_torch.studies import fold_interior_study as fis
 from canvas_tpu_torch.studies import fold_tile_study as fts
 from canvas_tpu_torch.studies import vpu_roofline as vr
@@ -286,9 +287,9 @@ def test_roofline_inputs_follow_the_script_draw_order():
 # --- the entry points and the wrappers' refusals ---------------------------
 
 @pytest.mark.parametrize('module, argv', [
-    (fis, ['--check', '--batch', '2']),
-    (fts, ['--check']),
-    (vr, ['--check']),
+    (fis, ['--check', '--batch', '2', '--device', 'cpu']),
+    (fts, ['--check', '--device', 'cpu']),
+    (vr, ['--check', '--device', 'cpu']),
 ], ids=['fold_interior_study', 'fold_tile_study', 'vpu_roofline'])
 def test_check_entry_points_run_on_cpu(module, argv, capsys):
     assert module.main(argv) == 0
@@ -303,6 +304,18 @@ def test_time_entry_points_need_a_card(module, monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='CUDA'):
         module.main(['--time'])
+
+
+@pytest.mark.parametrize('module', [fis, fts, vr],
+                         ids=['fold_interior_study', 'fold_tile_study',
+                              'vpu_roofline'])
+def test_check_entry_points_need_a_card_unless_cpu(module, monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        module.main(['--check'])
+    with pytest.raises(RuntimeError, match='CUDA'):
+        check_device()
+    assert check_device('cpu') == torch.device('cpu')
 
 
 def test_study_wrappers_refuse_bad_arguments():
