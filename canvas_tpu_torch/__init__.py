@@ -15,7 +15,9 @@ module):
   host half of ``ops.color``: the pull path's pixel math and the
   planner's tap builders;
 - ``profiling``: the planner's stage timers;
-- ``timelines``: the headline and mixed-content timelines.
+- ``timelines``: the headline and mixed-content timelines;
+- ``clock``, ``signal``: presentation clocks and the weakref signal a
+  source's ``frames_updated`` is.
 
 Device side:
 
@@ -26,10 +28,13 @@ Device side:
   roofline probe, beside their plain versions;
 - ``studies``: the port's counterparts of the TPU studies in
   ``scripts/`` (fold variants, per-tile layer lists, the roofline);
-- ``ops.color``: f16 quantizers, transfer curves and export conversions;
+- ``ops.color``: f16 quantizers, transfer curves, export conversions and
+  display transports;
 - ``staging``: pipelined host-to-device staging on pinned memory;
 - ``render``: the torch evaluator of the planner's IR and a
-  ``RenderPlanner`` that streams batches through it.
+  ``RenderPlanner`` that streams batches through it and pulls single
+  display frames (``render_display``);
+- ``playback``: the clock-driven ``VideoPlaybackEngine``.
 
 Nothing here imports JAX.
 """

@@ -14,8 +14,8 @@ import numpy as np
 import torch
 
 __all__ = ['resolve_device', 'is_torch_tensor', 'asnumpy', 'to_device',
-           'count_h2d', 'transfer_stats', 'ensure_initialized', 'cuda_ms',
-           'paired_ms']
+           'to_host', 'count_h2d', 'transfer_stats', 'ensure_initialized',
+           'cuda_ms', 'paired_ms']
 
 
 def resolve_device(device=None):
@@ -67,6 +67,18 @@ def to_device(host_array, device):
         transfer_stats['h2d_bytes'] += t.numel() * t.element_size()
         transfer_stats['h2d_calls'] += 1
     return out
+
+
+def to_host(t):
+    """A CPU copy of tensor *t*: a CUDA tensor goes through pinned memory
+    (PyTorch's caching host allocator), one copy at the link's rate,
+    where ``.cpu()`` into pageable memory moves the bytes through a
+    staging buffer. The copy waits for the device; a CPU tensor is
+    returned as it is."""
+    if t.device.type != 'cuda':
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return host.copy_(t)
 
 
 def count_h2d(nbytes, calls):

@@ -9,33 +9,50 @@
 // `input_output_aliases`, become an in-place update here).
 //
 // What bounds it on an H100: device-memory bytes. Each region pixel
-// reads and writes P (3 x f32) and A (f32): 32 B/px, about 16.8 MB per
-// 1080p frame for a 512x1024 region. The layer itself is never
+// reads and writes P (3 channels) and A: 32 B/px with f32 accumulators,
+// 16 B/px with the quality <= 9 tier's bf16 ones (about 16.8 or 8.4 MB
+// per 1080p frame for a 512x1024 region). The layer itself is never
 // materialised: per frame the kernel reads only h + w weights and four
 // color scalars (all served from L1/L2).
 //
 // Design: one thread per region pixel (b, y, x), x fastest, so a warp
 // reads and writes 32 neighbouring pixels of one row of each channel
-// plane. The thread rebuilds wt = ry[b,y]*rx[b,x] and la = color[b,3]*wt
-// and applies the math of pallas_ops.py:416-424 in that order. Pixels
-// past H or W are skipped: that is the edge clipping the TPU kernel does
-// on store. Everything outside the region is untouched.
+// plane. The thread rebuilds the layer value of its pixel,
+// l[c] = (color[b,c]*ry[b,y])*rx[b,x], and applies the over step of
+// pallas_ops.py:416-424, P = l[c]*la + P*(1-la) and A = la + A*(1-la)
+// with la = l[3]. Pixels past H or W are skipped: that is the edge
+// clipping the TPU kernel does on store. Everything outside the region
+// is untouched. AccT is the accumulators' stored type (float, or
+// __nv_bfloat16 for the quality <= 9 tier, pallas_ops.py:421-424): the
+// math is f32 either way, a bf16 store rounds to nearest even.
 //
-// Numerics: explicitly rounded intrinsics and --fmad=false keep the
-// TPU kernel's op order uncontracted. The plain version materialises
-// (color*ry)*rx instead, so the two agree within f32 reassociation
-// (about one ulp).
+// Numerics: explicitly rounded intrinsics and --fmad=false, in the op
+// order of the plain version (cuda_ops.region_over_sep_plain, which
+// materialises (color*ry)*rx as the JAX fallback does,
+// pallas_ops.py:396-398): the two are bit-identical in both storage
+// types.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+template <typename AccT>
 __global__ void region_over_sep_kernel(const float* __restrict__ color,
                                        const float* __restrict__ ry,
                                        const float* __restrict__ rx,
-                                       float* __restrict__ P,
-                                       float* __restrict__ A, int h, int w,
+                                       AccT* __restrict__ P,
+                                       AccT* __restrict__ A, int h, int w,
                                        int H, int W, int dy0, int dx0) {
   const int b = blockIdx.y;
   const int64_t hw = (int64_t)h * w;
@@ -52,18 +69,21 @@ __global__ void region_over_sep_kernel(const float* __restrict__ color,
     const int gy = dy0 + y;
     const int gx = dx0 + x;
     if (gy >= H || gx >= W) continue;
-    const float wt = __fmul_rn(ry[(int64_t)b * h + y], rx[(int64_t)b * w + x]);
-    const float la = __fmul_rn(c3, wt);
+    const float wy = ry[(int64_t)b * h + y];
+    const float wx = rx[(int64_t)b * w + x];
+    const float la = __fmul_rn(__fmul_rn(c3, wy), wx);
     const float keep = __fsub_rn(1.f, la);
     const int64_t o = (int64_t)gy * W + gx;
-    float* p = P + (int64_t)b * 3 * HW + o;
-    p[0] = __fadd_rn(__fmul_rn(__fmul_rn(c0, wt), la), __fmul_rn(p[0], keep));
-    p[HW] = __fadd_rn(__fmul_rn(__fmul_rn(c1, wt), la),
-                      __fmul_rn(p[HW], keep));
-    p[2 * HW] = __fadd_rn(__fmul_rn(__fmul_rn(c2, wt), la),
-                          __fmul_rn(p[2 * HW], keep));
-    float* a = A + (int64_t)b * HW + o;
-    a[0] = __fadd_rn(la, __fmul_rn(a[0], keep));
+    AccT* p = P + (int64_t)b * 3 * HW + o;
+    store(&p[0], __fadd_rn(__fmul_rn(__fmul_rn(__fmul_rn(c0, wy), wx), la),
+                           __fmul_rn(to_f32(p[0]), keep)));
+    store(&p[HW], __fadd_rn(__fmul_rn(__fmul_rn(__fmul_rn(c1, wy), wx), la),
+                            __fmul_rn(to_f32(p[HW]), keep)));
+    store(&p[2 * HW],
+          __fadd_rn(__fmul_rn(__fmul_rn(__fmul_rn(c2, wy), wx), la),
+                    __fmul_rn(to_f32(p[2 * HW]), keep)));
+    AccT* a = A + (int64_t)b * HW + o;
+    store(&a[0], __fadd_rn(la, __fmul_rn(to_f32(a[0]), keep)));
   }
 }
 
@@ -71,18 +91,27 @@ __global__ void region_over_sep_kernel(const float* __restrict__ color,
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 = launched).
+// Returns cudaGetLastError() after the launch (0 = launched). bf16 = 1:
+// P and A are bf16, else f32.
 int canvas_region_over_sep(const void* color, const void* ry, const void* rx,
                            void* P, void* A, int B, int h, int w, int H,
-                           int W, int dy0, int dx0, int blocks_x, int device,
-                           void* stream) {
+                           int W, int dy0, int dx0, int bf16, int blocks_x,
+                           int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(blocks_x, B);
-  region_over_sep_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(color), static_cast<const float*>(ry),
-      static_cast<const float*>(rx), static_cast<float*>(P),
-      static_cast<float*>(A), h, w, H, W, dy0, dx0);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* c = static_cast<const float*>(color);
+  const float* y = static_cast<const float*>(ry);
+  const float* x = static_cast<const float*>(rx);
+  if (bf16)
+    region_over_sep_kernel<__nv_bfloat16><<<grid, 256, 0, s>>>(
+        c, y, x, static_cast<__nv_bfloat16*>(P),
+        static_cast<__nv_bfloat16*>(A), h, w, H, W, dy0, dx0);
+  else
+    region_over_sep_kernel<float><<<grid, 256, 0, s>>>(
+        c, y, x, static_cast<float*>(P), static_cast<float*>(A), h, w, H, W,
+        dy0, dx0);
   return (int)cudaGetLastError();
 }
 

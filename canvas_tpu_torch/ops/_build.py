@@ -39,12 +39,13 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     # color, box, gain, offset, baseP, baseA, out0, outA,
-    # L, B, H, W, mode, blocks_x, device, stream
-    'canvas_solid_fold': (_P,) * 8 + (_I,) * 7 + (_P,),
-    # color, ry, rx, P, A, B, h, w, H, W, dy0, dx0, blocks_x, device, stream
-    'canvas_region_over_sep': (_P,) * 5 + (_I,) * 9 + (_P,),
-    # layer, P, A, B, h, w, H, W, dy0, dx0, blocks_x, device, stream
-    'canvas_region_over': (_P,) * 3 + (_I,) * 9 + (_P,),
+    # L, B, H, W, mode, base_bf16, blocks_x, device, stream
+    'canvas_solid_fold': (_P,) * 8 + (_I,) * 8 + (_P,),
+    # color, ry, rx, P, A, B, h, w, H, W, dy0, dx0, bf16, blocks_x,
+    # device, stream
+    'canvas_region_over_sep': (_P,) * 5 + (_I,) * 10 + (_P,),
+    # layer, P, A, B, h, w, H, W, dy0, dx0, bf16, blocks_x, device, stream
+    'canvas_region_over': (_P,) * 3 + (_I,) * 10 + (_P,),
     # color, box, gain, offset, out, L, B, H, W, variant, device, stream
     'canvas_fold_interior': (_P,) * 5 + (_I,) * 6 + (_P,),
     # x, col, box, out, L, B, H, W, mult, device, stream

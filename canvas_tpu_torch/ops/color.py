@@ -25,6 +25,11 @@ The torch half runs on the device:
 - ``POSTS``: the export conversions of ``iter_batches(post=...)``
   (``_u8_math`` color.py:551-558, ``_yuv420_pack_studio_math``
   628-656) in plain torch ops, applied to the f16 frames.
+- The display transports of ``render_display`` and the playback
+  engine: ``display_u8`` (``_display_u8_math``, color.py:521-533),
+  ``yuv420_pack`` (``_yuv420_pack_math``, 575-608) and the gamma45
+  ``u8_interleaved``, with their host inverses ``rgb24_unpack`` and
+  ``yuv420_unpack`` and the host display ramp (``apply_display_u8``).
 
 Transfer curves (gammatab.c:38-250):
   rec709_to_linear (scene):   x < 4.5*0.018 ? x/4.5 : ((x+0.099)/1.099)^(1/0.45)
@@ -51,6 +56,8 @@ __all__ = [
     'build_half_lut', 'apply_half_lut', 'float_to_half_trunc', 'get_lut',
     'TRANSFERS', 'quantize_f16', 'quantize_f16_trunc', 'device_transfer',
     'u8_interleaved', 'yuv420_pack_studio', 'POSTS',
+    'display_ramp_u8', 'apply_display_u8', 'display_u8', 'yuv420_pack',
+    'rgb24_unpack', 'yuv420_unpack', 'yuv420_unpack_batch',
 ]
 
 
@@ -339,6 +346,86 @@ def apply_gamma45_u8(arr):
                           gamma45_ramp_u8())
 
 
+def display_ramp_u8(intent):
+    """The widget display ramp: 65536-entry f16-bits -> u8 table
+    ``lrint(clamp(pow(f, intent) * 255, 0, 255))``
+    (widget_gl_set_rendering_intent, widget_gl.c:950-969; default
+    intent 1.25)."""
+    def fn(x):
+        with np.errstate(invalid='ignore'):
+            y = np.power(x.astype(np.float32), np.float32(intent))
+        y = np.clip(y * np.float32(255.0), 0.0, 255.0)
+        return np.rint(np.nan_to_num(y, nan=0.0)).astype(np.uint8)
+    return _luts.get('display_u8_%r' % (float(intent),), fn, np.uint8)
+
+
+def apply_display_u8(arr, intent=1.25):
+    """Host widget_gl soft-mode display conversion: linear f16 -> sRGB
+    transfer (all 4 channels, the LUT quirk) -> rendering-intent ramp ->
+    u8 (widget_gl.c:291-308). Returns u8, same shape."""
+    srgb = transfer_linear_to_srgb(arr)
+    return apply_half_lut(srgb, display_ramp_u8(intent))
+
+
+def rgb24_unpack(flat3, order=(2, 1, 0, 3)):
+    """Host inverse of the rgb24 display transport: (..., W*3) u8
+    color-only rows -> (..., W, 4) u8 in channel *order*, alpha forced
+    255. The device packed the color channels in order-minus-alpha, so
+    the color bytes land at the non-alpha positions of *order*.
+    ``render_display`` and the playback engine share it. *flat3* is
+    numpy or a CPU tensor; the copy runs as torch ops, which spread over
+    the host's cores (the playback engine unpacks every frame here)."""
+    rgb = torch.as_tensor(flat3)
+    rgb = rgb.reshape(rgb.shape[:-1] + (-1, 3))
+    out = torch.empty(rgb.shape[:-1] + (4,), dtype=torch.uint8)
+    colors = iter(range(3))
+    for i, c in enumerate(order):
+        out[..., i] = 255 if c == 3 else rgb[..., next(colors)]
+    return out.numpy()
+
+
+def yuv420_unpack(flat, h, w, order=(2, 1, 0, 3)):
+    """Host inverse of ``yuv420_pack`` for ONE frame: (N,) u8 ->
+    (h, w, 4) u8 in channel *order*, alpha forced 255."""
+    return yuv420_unpack_batch(np.asarray(flat)[None], h, w, order)[0]
+
+
+def yuv420_unpack_batch(packed, h, w, order=(2, 1, 0, 3)):
+    """``yuv420_unpack`` of every frame of (B, N) u8 host bytes (numpy or
+    a CPU tensor) -> (B, h, w, 4) u8 numpy.
+
+    The JAX package's f32 math (color.py:674-688) value for value, run
+    as torch ops on the CPU, which spread over its cores (the playback
+    engine unpacks every frame of its quality <= 5 preview here). The
+    chroma terms are computed at 2x2-block resolution and spread over
+    their blocks, and each channel is rounded straight into the output:
+    the same bytes."""
+    f = torch.as_tensor(packed)
+    B = f.shape[0]
+    h2, w2 = (h + 1) // 2, (w + 1) // 2
+
+    def chroma(lo, scale):
+        c = (f[:, lo:lo + h2 * w2].reshape(B, h2, w2).float() - 128.0) / scale
+        return c[:, :, None, :, None].expand(B, h2, 2, w2, 2).reshape(
+            B, 2 * h2, 2 * w2)[:, :h, :w].contiguous()
+
+    # In place where the JAX expression allows it (a + b is b + a in
+    # IEEE f32): every full-frame temporary is a fresh allocation the
+    # host pays for in page faults.
+    Y = f[:, :h * w].reshape(B, h, w).float()
+    R = chroma(h * w + h2 * w2, 0.713).add_(Y)
+    Bl = chroma(h * w, 0.564).add_(Y)
+    t = torch.mul(R, 0.299)
+    G = Y.sub_(t).sub_(torch.mul(Bl, 0.114, out=t)).div_(0.587)
+    out = torch.empty((B, h, w, 4), dtype=torch.uint8)
+    for i, c in enumerate(order):
+        if c == 3:
+            out[..., i] = 255
+        else:
+            out[..., i] = (R, G, Bl)[c].round_().clamp_(0.0, 255.0)
+    return out.numpy()
+
+
 # --- color matrices ----------------------------------------------------------
 
 # Rows are output components, columns input components (color.c:35-43 is
@@ -440,16 +527,22 @@ def device_transfer(name, x16):
 def _gamma45_floor(x16):
     """f16 frames -> the u8 values of the gamma45 ramp as f32:
     floor(clip(x ** 0.45 * 255, 0, 255)), NaN -> 0 (color.py:553-556)."""
-    y = torch.pow(x16.float(), 0.45) * 255.0
-    return torch.floor(torch.clamp(torch.nan_to_num(y, nan=0.0), 0.0, 255.0))
+    return torch.floor(_display_levels(x16, None))
+
+
+def _interleave(u8, order):
+    """(B, 4, H, W) u8 -> (B, H, W*len(order)) rows of the channels in
+    *order*."""
+    u8 = u8[:, list(order)]
+    B, C, H, W = u8.shape
+    return u8.permute(0, 2, 3, 1).reshape(B, H, W * C)
 
 
 def u8_interleaved(x16, order):
-    """(B, 4, H, W) f16 frames -> (B, H, W*4) u8 rows, the channels
-    interleaved in *order* (``_u8_math``, color.py:551-558)."""
-    u8 = _gamma45_floor(x16).to(torch.uint8)[:, list(order)]
-    B, _c, H, W = u8.shape
-    return u8.permute(0, 2, 3, 1).reshape(B, H, W * 4)
+    """(B, 4, H, W) f16 frames -> (B, H, W*len(order)) u8 rows, the
+    channels interleaved in *order* (``_u8_math``, color.py:551-558);
+    three channels for the rgb24 display transport."""
+    return _interleave(_gamma45_floor(x16).to(torch.uint8), order)
 
 
 def _edge_pad_even(c):
@@ -485,6 +578,59 @@ def yuv420_pack_studio(x16):
 
     return torch.cat([q(Y, 235.0), q(sub(Cb), 240.0), q(sub(Cr), 240.0)],
                      dim=1)
+
+
+# --- display transports (render_display, the playback engine) ------------
+
+def _display_levels(x16, intent):
+    """f16 frames -> the display's u8 levels as unrounded f32 in
+    [0, 255]: the gamma45 ramp for ``intent=None``; else the widget_gl
+    soft mode, linear -> sRGB quantized to the f16 grid by truncation
+    like a hit in the host's sRGB table, then ``pow(intent)``
+    (color.py:524-530, 578-587). ``torch.pow`` lands within two f32
+    ulps of XLA's (libm's ``powf``), and over every f16 value the u8 results
+    come out equal (tests/test_torch_display.py)."""
+    x = x16.float()
+    if intent is None:
+        y = torch.pow(x, 0.45) * 255.0
+    else:
+        s = torch.where(x <= 0.0031308, x * 12.92,
+                        1.055 * torch.pow(x, 1.0 / 2.4) - 0.055)
+        y = torch.pow(quantize_f16_trunc(s), float(intent)) * 255.0
+    return torch.clamp(torch.nan_to_num(y, nan=0.0), 0.0, 255.0)
+
+
+def display_u8(x16, intent=1.25, order=(2, 1, 0, 3)):
+    """(B, 4, H, W) f16 frames -> (B, H, W*len(order)) interleaved u8
+    display rows in channel *order*: the widget_gl soft-mode conversion
+    (``_display_u8_math``, color.py:521-533) rounded half to even."""
+    return _interleave(torch.round(_display_levels(x16, intent))
+                       .to(torch.uint8), order)
+
+
+def yuv420_pack(x16, intent=None):
+    """(B, 4, H, W) f16 frames -> (B, H*W + 2*ceil(H/2)*ceil(W/2)) u8:
+    the LOSSY display transport, full-range BT.601 Y at full resolution
+    and the 2x2 mean of Cb/Cr (odd sizes edge-replicated) over the
+    display levels of ``intent`` (None: the gamma45 ramp)
+    (``_yuv420_pack_math``, color.py:575-608)."""
+    y = _display_levels(x16, intent)
+    R, G, Bl = y[:, 0], y[:, 1], y[:, 2]
+    Y = 0.299 * R + 0.587 * G + 0.114 * Bl
+    Cb = 128.0 + (Bl - Y) * 0.564
+    Cr = 128.0 + (R - Y) * 0.713
+    B = Y.shape[0]
+
+    def q(c):
+        return torch.round(c).to(torch.uint8).reshape(B, -1)
+
+    def sub(c):
+        c = _edge_pad_even(c)
+        h2, w2 = c.shape[1] // 2, c.shape[2] // 2
+        return torch.clamp(c.reshape(B, h2, 2, w2, 2).mean(dim=(2, 4)),
+                           0.0, 255.0)
+
+    return torch.cat([q(Y), q(sub(Cb)), q(sub(Cr))], dim=1)
 
 
 #: The export conversions of ``iter_batches(post=...)``, on f16 frames.

@@ -8,16 +8,22 @@ inclusive and relative to the frame; ``y1 < y0`` encodes an empty box.
 Dispatch is by the device of the tensors: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel (``canvas_tpu_torch/csrc/``,
 built on first use by ``ops._build``) or raises. Nothing falls back
-from the kernel to the plain version. Each kernel wrapper counts its
-launches in a plain integer attribute (``solid_fold.launches``,
-``region_over_sep.launches``, ``region_over.launches``) so a run can
-show that the main path went through the kernels.
+from the kernel to the plain version.
+
+Each kernel has two forms: f32 accumulators (quality 10) and the
+quality <= 9 tier's bf16 ones (pallas_ops.py:135-138, 193-196, 334-343:
+the pass-boundary (P, A), and ``region_over``'s layer, are stored as
+bf16 while the math stays f32). The form follows the dtypes of the
+tensors passed. Each wrapper counts its launches in plain integer
+attributes, one per form (``solid_fold.launches`` and
+``solid_fold.launches_bf16``, likewise for ``region_over_sep`` and
+``region_over``), so a run can show that its path went through each.
 
 The plain versions keep the op order of the JAX fallbacks, rounding
 after every operation (PyTorch never contracts separate ops into an
-FMA), so on the card ``solid_fold`` and ``region_over`` are
-bit-identical to their plain versions and ``region_over_sep`` agrees
-with ``region_over_sep_plain`` within f32 reassociation.
+FMA) and storing bf16 with ``.to(torch.bfloat16)`` (round to nearest
+even, as the kernels' ``__float2bfloat16_rn``), so on the card every
+form of every kernel is bit-identical to its plain version.
 """
 
 import operator
@@ -33,6 +39,9 @@ __all__ = ['solid_fold', 'solid_stack', 'region_over', 'region_over_sep',
 # The damage-region block grid (planner quantization, sources.py).
 _QR, _QC = 64, 128
 _THREADS = 256
+#: The stored types of the (P, A) accumulators: f32, or bf16 for the
+#: quality <= 9 tier.
+_ACC_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _blocks(n, per_thread):
@@ -55,6 +64,22 @@ def _need(t, name, dtype, shape, device):
 
 def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _acc_dtype(name, t):
+    """The accumulator dtype of *t*, which must be f32 or bf16."""
+    if t.dtype not in _ACC_DTYPES:
+        raise ValueError('%s: accumulators are f32 or bf16, not %s'
+                         % (name, t.dtype))
+    return t.dtype
+
+
+def _count(fn, bf16):
+    """Add one launch to *fn*'s counter of the f32 or the bf16 form."""
+    if bf16:
+        fn.launches_bf16 += 1
+    else:
+        fn.launches += 1
 
 
 # --- solid_fold ---------------------------------------------------------
@@ -92,21 +117,25 @@ def _fold_torch(P, A, color, box, gain, offset, H, W):
 
 
 def solid_fold_plain(P, A, color, box, gain, offset, H, W, finalize=False,
-                     out_dtype=None):
+                     out_dtype=None, acc_dtype=None):
     """Plain PyTorch ``solid_fold`` on any device: the JAX fallback
     branch of ``pallas_ops.solid_fold`` (pallas_ops.py:210-225)."""
     Pc, Ac = _fold_torch(P, A, color, box, gain, offset, H, W)
-    return _finish(Pc, Ac, color.shape[1], H, W, finalize, out_dtype)
+    return _finish(Pc, Ac, color.shape[1], H, W, finalize, out_dtype,
+                   acc_dtype)
 
 
-def _finish(Pc, Ac, B, H, W, finalize, out_dtype=None):
+def _finish(Pc, Ac, B, H, W, finalize, out_dtype=None, acc_dtype=None):
     """The end of a plain fold: the per-channel accumulators ``[P0, P1,
     P2], A`` (each (B, H, W), or (1, H, W) when no layer touched an empty
-    base) as ``(P (B, 3, H, W), A (B, 1, H, W))``, or with *finalize* the
-    un-premultiplied (B, 4, H, W) rgba in *out_dtype* (f32 by default)."""
+    base) as ``(P (B, 3, H, W), A (B, 1, H, W))`` stored in *acc_dtype*
+    (f32 by default), or with *finalize* the un-premultiplied
+    (B, 4, H, W) rgba in *out_dtype* (f32 by default)."""
     if not finalize:
         Ps = torch.stack(Pc, dim=1)
         As = Ac[:, None]
+        if acc_dtype is not None:
+            Ps, As = Ps.to(acc_dtype), As.to(acc_dtype)
         if Ps.shape[0] != B:             # degenerate all-empty fold
             Ps = Ps.expand(B, 3, H, W).contiguous()
             As = As.expand(B, 1, H, W).contiguous()
@@ -121,15 +150,18 @@ def _finish(Pc, Ac, B, H, W, finalize, out_dtype=None):
 
 
 def solid_fold(P, A, color, box, gain, offset, H, W, finalize=False,
-               out_dtype=None):
+               out_dtype=None, acc_dtype=None):
     """Fold L solid(+gain/offset) layers over the premultiplied base
     (P, A), bottom to top.
 
     color (L, B, 4) f32, box (L, B, 4) int32, gain/offset (L, B) f32.
-    P (B, 3, H, W) / A (B, 1, H, W) f32, or both None for an empty base.
-    Returns new (P, A) f32 accumulators, or with ``finalize=True`` the
-    un-premultiplied (B, 4, H, W) rgba in ``out_dtype`` (f32 by default,
-    or f16: the kernel rounds to nearest on store, as ``.half()`` does).
+    P (B, 3, H, W) / A (B, 1, H, W) f32 or bf16 (one dtype), or both
+    None for an empty base. Returns new (P, A) accumulators stored in
+    ``acc_dtype`` (f32 by default, or bf16), or with ``finalize=True``
+    the un-premultiplied (B, 4, H, W) rgba in ``out_dtype`` (f32 by
+    default, or f16). The math is f32; the kernel rounds to nearest even
+    on a narrow store, as ``.half()`` and ``.to(torch.bfloat16)`` do.
+    A bf16 base or bf16 accumulators make the launch the bf16 form's.
 
     CUDA kernel ``csrc/solid_fold.cu`` on a CUDA tensor (bit-identical to
     ``solid_fold_plain``), the plain version on a CPU tensor.
@@ -137,7 +169,8 @@ def solid_fold(P, A, color, box, gain, offset, H, W, finalize=False,
     dev = color.device
     if dev.type == 'cpu':
         return solid_fold_plain(P, A, color, box, gain, offset, H, W,
-                                finalize=finalize, out_dtype=out_dtype)
+                                finalize=finalize, out_dtype=out_dtype,
+                                acc_dtype=acc_dtype)
     if dev.type != 'cuda':
         raise ValueError('solid_fold: unsupported device %s' % (dev,))
     L, B = color.shape[0], color.shape[1]
@@ -148,9 +181,11 @@ def solid_fold(P, A, color, box, gain, offset, H, W, finalize=False,
     if (P is None) != (A is None):
         raise ValueError('solid_fold: P and A must both be given or both '
                          'be None')
+    base_dtype = None
     if P is not None:
-        _need(P, 'P', torch.float32, (B, 3, H, W), dev)
-        _need(A, 'A', torch.float32, (B, 1, H, W), dev)
+        base_dtype = _acc_dtype('solid_fold', P)
+        _need(P, 'P', base_dtype, (B, 3, H, W), dev)
+        _need(A, 'A', base_dtype, (B, 1, H, W), dev)
     if L > 1024 or B > 65535:
         raise ValueError('solid_fold: L=%d layers (max 1024), B=%d frames '
                          '(max 65535)' % (L, B))
@@ -163,9 +198,14 @@ def solid_fold(P, A, color, box, gain, offset, H, W, finalize=False,
         outA = None
         mode = 1 if out_dtype == torch.float32 else 2
     else:
-        out0 = torch.empty((B, 3, H, W), dtype=torch.float32, device=dev)
-        outA = torch.empty((B, 1, H, W), dtype=torch.float32, device=dev)
-        mode = 0
+        acc_dtype = torch.float32 if acc_dtype is None else acc_dtype
+        if acc_dtype not in _ACC_DTYPES:
+            raise ValueError('solid_fold: accumulators are f32 or bf16, not '
+                             '%s' % (acc_dtype,))
+        out0 = torch.empty((B, 3, H, W), dtype=acc_dtype, device=dev)
+        outA = torch.empty((B, 1, H, W), dtype=acc_dtype, device=dev)
+        mode = 0 if acc_dtype == torch.float32 else 3
+    base_bf16 = base_dtype == torch.bfloat16
     if B and H and W:
         lib = _build.library()
         rc = lib.canvas_solid_fold(
@@ -174,13 +214,15 @@ def solid_fold(P, A, color, box, gain, offset, H, W, finalize=False,
             P.data_ptr() if P is not None else None,
             A.data_ptr() if A is not None else None,
             out0.data_ptr(), outA.data_ptr() if outA is not None else None,
-            L, B, H, W, mode, _blocks(H * W, 4), dev.index, _stream(dev))
+            L, B, H, W, mode, int(base_bf16), _blocks(H * W, 4), dev.index,
+            _stream(dev))
         _build.check(lib, 'solid_fold', rc)
-        solid_fold.launches += 1
+        _count(solid_fold, base_bf16 or mode == 3)
     return out0 if finalize else (out0, outA)
 
 
 solid_fold.launches = 0
+solid_fold.launches_bf16 = 0
 
 
 def solid_stack(color, box, gain, offset, H, W):
@@ -246,14 +288,15 @@ def region_over_plain(P, A, layer, dy0, dx0):
 
 
 def region_over(P, A, layer, dy0, dx0):
-    """Composite a materialised region *layer* (B, 4, h, w) f32 over the
+    """Composite a materialised region *layer* (B, 4, h, w) over the
     premultiplied accumulators (P, A) at block-aligned offsets.
 
     h % 64 == 0 and w % 128 == 0; dy0/dx0 host ints, block-aligned, the
     region inside the frame's (64, 128) envelope (it may overhang the
     bottom and right edges; those pixels are clipped). P (B, 3, H, W) /
-    A (B, 1, H, W) f32 are updated IN PLACE, where the TPU kernel
-    aliased them to its outputs; returns (P, A).
+    A (B, 1, H, W) are updated IN PLACE, where the TPU kernel aliased
+    them to its outputs; returns (P, A). The layer, P and A are all f32,
+    or all bf16 (the quality <= 9 form; the blend math stays f32).
 
     CUDA kernel ``csrc/region_over.cu`` on a CUDA tensor (bit-identical
     to ``region_over_plain``), the plain version on a CPU tensor.
@@ -267,23 +310,26 @@ def region_over(P, A, layer, dy0, dx0):
         raise ValueError('region_over: unsupported device %s' % (dev,))
     H, W = P.shape[2], P.shape[3]
     dy0, dx0 = _check_offsets('region_over', dy0, dx0, h, w, H, W)
-    _need(layer, 'layer', torch.float32, (B, 4, h, w), dev)
-    _need(P, 'P', torch.float32, (B, 3, H, W), dev)
-    _need(A, 'A', torch.float32, (B, 1, H, W), dev)
+    dtype = _acc_dtype('region_over', P)
+    _need(layer, 'layer', dtype, (B, 4, h, w), dev)
+    _need(P, 'P', dtype, (B, 3, H, W), dev)
+    _need(A, 'A', dtype, (B, 1, H, W), dev)
     if B > 65535:
         raise ValueError('region_over: B=%d frames (max 65535)' % (B,))
+    bf16 = dtype == torch.bfloat16
     n_px = max(0, min(h, H - dy0)) * max(0, min(w, W - dx0))
     if B and n_px:
         lib = _build.library()
         rc = lib.canvas_region_over(
             layer.data_ptr(), P.data_ptr(), A.data_ptr(), B, h, w, H, W,
-            dy0, dx0, _blocks(n_px, 4), dev.index, _stream(dev))
+            dy0, dx0, int(bf16), _blocks(n_px, 4), dev.index, _stream(dev))
         _build.check(lib, 'region_over', rc)
-        region_over.launches += 1
+        _count(region_over, bf16)
     return P, A
 
 
 region_over.launches = 0
+region_over.launches_bf16 = 0
 
 
 def region_over_sep_plain(P, A, color, ry, rx, dy0, dx0):
@@ -304,12 +350,14 @@ def region_over_sep(P, A, color, ry, rx, dy0, dx0):
     color (B, 4) f32; ry (B, h), rx (B, w) f32 with h % 64 == 0 and
     w % 128 == 0; dy0/dx0 host ints, block-aligned, the region inside
     the frame's (64, 128) envelope (it may overhang the bottom and right
-    edges; those pixels are clipped). P (B, 3, H, W) / A (B, 1, H, W)
-    f32 are updated IN PLACE, where the TPU kernel aliased them to its
+    edges; those pixels are clipped). P (B, 3, H, W) / A (B, 1, H, W),
+    both f32 or both bf16 (the quality <= 9 form; the math stays f32),
+    are updated IN PLACE, where the TPU kernel aliased them to its
     outputs (``input_output_aliases``); returns (P, A).
 
     CUDA kernel ``csrc/region_over_sep.cu`` on a CUDA tensor, the plain
-    version on a CPU tensor; the two agree within f32 reassociation.
+    version on a CPU tensor; the kernel rebuilds each pixel's layer value
+    in the plain version's order, so the two are bit-identical.
     """
     B, h = ry.shape
     w = rx.shape[1]
@@ -324,19 +372,22 @@ def region_over_sep(P, A, color, ry, rx, dy0, dx0):
     _need(color, 'color', torch.float32, (B, 4), dev)
     _need(ry, 'ry', torch.float32, (B, h), dev)
     _need(rx, 'rx', torch.float32, (B, w), dev)
-    _need(P, 'P', torch.float32, (B, 3, H, W), dev)
-    _need(A, 'A', torch.float32, (B, 1, H, W), dev)
+    dtype = _acc_dtype('region_over_sep', P)
+    _need(P, 'P', dtype, (B, 3, H, W), dev)
+    _need(A, 'A', dtype, (B, 1, H, W), dev)
     if B > 65535:
         raise ValueError('region_over_sep: B=%d frames (max 65535)' % (B,))
+    bf16 = dtype == torch.bfloat16
     if B and H and W:
         lib = _build.library()
         rc = lib.canvas_region_over_sep(
             color.data_ptr(), ry.data_ptr(), rx.data_ptr(), P.data_ptr(),
-            A.data_ptr(), B, h, w, H, W, dy0, dx0, _blocks(h * w, 4),
-            dev.index, _stream(dev))
+            A.data_ptr(), B, h, w, H, W, dy0, dx0, int(bf16),
+            _blocks(h * w, 4), dev.index, _stream(dev))
         _build.check(lib, 'region_over_sep', rc)
-        region_over_sep.launches += 1
+        _count(region_over_sep, bf16)
     return P, A
 
 
 region_over_sep.launches = 0
+region_over_sep.launches_bf16 = 0

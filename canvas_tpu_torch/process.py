@@ -7,8 +7,10 @@ module surface, src/process/main.c:331-407)::
     solid = process.SolidColorVideoSource((1, 0, 0, 1))
     frame = solid.get_frame_f32(0, process.box2i(0, 0, 719, 479))
 
-Batched rendering on the card is ``canvas_tpu_torch.render.RenderPlanner``.
-Audio, the presentation clock and the pull queue are not ported yet
+Batched rendering on the card is ``canvas_tpu_torch.render.RenderPlanner``
+(``render_display`` for one display frame); clock-driven playback is
+``canvas_tpu_torch.playback.VideoPlaybackEngine`` on the presentation
+clocks exported here. Audio and the pull queue are not ported yet
 (ROADMAP.md queue 1).
 """
 
@@ -26,6 +28,8 @@ from canvas_tpu_torch.sources import (  # noqa: F401
 from canvas_tpu_torch.coded import (  # noqa: F401
     CodecPacketSource, CodedImage, CodedImageSource,
     DVReconstructionFilter)
+from canvas_tpu_torch.clock import (  # noqa: F401
+    ClockCallbackHandle, PresentationClock, SystemPresentationClock)
 
 NS_PER_SEC = 1000000000
 

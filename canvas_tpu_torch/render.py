@@ -13,16 +13,20 @@ The slice covers the ops of the headline composite
 (``timelines.build_timeline``) and of the mixed-content timeline
 (``timelines.mixed_timeline``: DV clips through animated scalers):
 ``solid``, ``empty``, ``gain_offset``, ``mix``, ``solid_stack``,
-``over_stack`` (f32 accumulators, quality 10), ``placed`` (rank-1
-regions through ``region_over_sep``, any other region through
-``region_over``), ``scale_solid``, ``scale_solid_dyn``, ``scale``,
-``scale_taps_dyn``, ``place``, ``stage_rows`` and ``dv_recon_rows``,
-and the export conversions of ``iter_batches(post=...)``. Every other
-op, and the quality <= 9 ``acc16`` accumulators, raises
+``over_stack`` (f32 accumulators at quality 10, the bf16 ``acc16``
+accumulators at quality <= 9), ``placed`` (rank-1 regions through
+``region_over_sep``, any other region through ``region_over``),
+``scale_solid``, ``scale_solid_dyn``, ``scale``, ``scale_taps_dyn``
+(with the quality <= 5 ``lq`` taps), ``place``, ``stage_rows`` and
+``dv_recon_rows``; the export conversions of ``iter_batches(post=...)``;
+and the editor's display pull, ``render_display``, with its viewport
+resample and its u8, rgb24 and yuv420 transports. Every other op raises
 ``NotImplementedError`` naming the ROADMAP.md queue item that ports it.
 """
 
+import functools
 import os
+from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -35,10 +39,17 @@ from canvas_tpu_torch.ir import (_BATCH_AXIS, _frame_params, flat_params,
                                  windows_to_array)
 from canvas_tpu_torch.ops import color as color_ops
 from canvas_tpu_torch.ops import cuda_ops
+from canvas_tpu_torch.ops import scale as scale_ops
 from canvas_tpu_torch.plan import PlanContext, StageLRU
 
-__all__ = ['RenderPlanner', 'box2i', 'flat_params', 'params_to_torch', 'run',
-           'signature', 'sliced_signature']
+__all__ = ['RenderPlanner', 'box2i', 'display_matrices_host', 'flat_params',
+           'params_to_torch', 'run', 'signature', 'sliced_signature']
+
+#: The transports of ``RenderPlanner.render_display``.
+DISPLAY_TRANSPORTS = ('u8', 'rgb24', 'yuv420')
+
+#: Viewport sizes whose device resample matrices a planner keeps.
+_DISPLAY_MATS_KEPT = 8
 
 #: Ops of the IR that the slice does not evaluate yet, with the
 #: ROADMAP.md queue-1 item that ports each.
@@ -168,11 +179,14 @@ def _dv_recon_math(y8, cb8, cr8, U, M):
     return color_ops.device_transfer('rec709_to_linear_scene', rgba16)
 
 
-def _eval(node_sig, params_iter, device):
+def _eval(node_sig, params_iter, device, out_dtype=torch.float32):
     """Rebuild the computation from the structure signature on *device*,
     visiting nodes in the depth-first order of ``Node.flat_params``.
     Each op follows the matching branch of ``canvas_tpu.render._eval``
-    (render.py:786-1127)."""
+    (render.py:786-1127). An ``over_stack`` at the root whose last child
+    is a solid run finalizes straight to *out_dtype*, which ``run`` sets
+    to f16 (the root's f16 store folded into the kernel); everything else
+    is f32."""
     op, static, _, child_sigs = node_sig
     params = next(params_iter)
 
@@ -215,7 +229,8 @@ def _eval(node_sig, params_iter, device):
         return torch.cat([rgb, out_a[:, None]], dim=1)
 
     if op == 'over_stack':
-        return _over_stack(static, child_sigs, params_iter, device)
+        return _over_stack(static, child_sigs, params_iter, device,
+                           out_dtype)
 
     if op in ('scale_solid', 'scale_solid_dyn'):
         color, ry, rx = _scale_solid_factors(op, static, params)
@@ -259,12 +274,12 @@ def _eval(node_sig, params_iter, device):
 
     if op == 'scale_taps_dyn':
         # animated resample: per-frame taps from scalar params, densified
-        # to (B, T, S) matrices and contracted (render.py:1053-1094)
+        # to (B, T, S) matrices and contracted (render.py:1053-1094).
+        # The quality <= 5 'lq' taps are bilinear; their products stay at
+        # full f32 like the others (the JAX package's precision=None
+        # would allow less, see PERF.md section 7).
         child = _eval(child_sigs[0], params_iter, device)
         (Ky, Kx, Ty, Tx, lq) = static
-        if lq:
-            raise _not_ported("quality <= 5 ('lq' scaler taps)",
-                              'queue 1 item 4')
         Sy, Sx = child.shape[2], child.shape[3]
         iy, wy = _dyn_axis_taps(params['fy'], params['tpy'], params['spy'],
                                 params['yl'], params['yh'], params['tly'],
@@ -280,31 +295,46 @@ def _eval(node_sig, params_iter, device):
     raise ValueError('unknown op: %r' % (op,))
 
 
-def _over_stack(static, child_sigs, params_iter, device):
-    """Premultiplied-alpha fold of the children (render.py:869-1015),
-    f32 (P, A) accumulators. Solid runs fold through the ``solid_fold``
-    kernel (the last one finalizes straight to the f16 output); each
-    placed rank-1 region composites through ``region_over_sep`` in
-    place, any other placed region layer through ``region_over`` in
-    place; any other child is a layer blended with torch ops."""
-    if len(static) > 2 and static[2] == 'acc16':
-        raise _not_ported("quality <= 9 ('acc16' accumulators)",
-                          'queue 1 item 4')
+def _over_stack(static, child_sigs, params_iter, device, out_dtype):
+    """Premultiplied-alpha fold of the children (render.py:869-1015).
+    Solid runs fold through the ``solid_fold`` kernel (the last one
+    finalizes straight to *out_dtype*); each placed rank-1 region
+    composites through ``region_over_sep`` in place, any other placed
+    region layer through ``region_over`` in place; any other child is a
+    layer blended with torch ops.
+
+    The (P, A) accumulators are f32, or at quality <= 9 (the ``acc16``
+    tag) bf16 at every pass boundary: the kernels store them as bf16,
+    the region layer of ``region_over`` is rounded to bf16 too, while
+    all blend math stays f32. A torch-blended layer works on upcast
+    accumulators (render.py:1008-1011), and the un-premultiply at the
+    end runs in f32."""
     H, W = static[0], static[1]
+    acc16 = len(static) > 2 and static[2] == 'acc16'
+    acc_dt = torch.bfloat16 if acc16 else torch.float32
+
+    def to_acc(x):
+        # the kernels take contiguous accumulators of the tier's dtype;
+        # a first torch-blended layer leaves A as a strided f32 view
+        return x.to(acc_dt).contiguous()
+
     P = A = None
     for i, cs in enumerate(child_sigs):
         c_op = cs[0]
         if c_op == 'solid_stack':
             c_params = next(params_iter)
+            if P is not None:
+                P, A = P.contiguous(), A.contiguous()
             if i == len(child_sigs) - 1:
-                # The root's f16 store folds into the finalize.
                 return cuda_ops.solid_fold(
                     P, A, c_params['color'], c_params['box'],
                     c_params['gain'], c_params['offset'], H, W,
-                    finalize=True, out_dtype=torch.float16)
+                    finalize=True, out_dtype=out_dtype)
             P, A = cuda_ops.solid_fold(
-                P, A, c_params['color'], c_params['box'], c_params['gain'],
-                c_params['offset'], H, W)
+                to_acc(P) if P is not None else None,
+                to_acc(A) if A is not None else None,
+                c_params['color'], c_params['box'], c_params['gain'],
+                c_params['offset'], H, W, acc_dtype=acc_dt)
             continue
         if c_op == 'placed':
             pl_params = next(params_iter)
@@ -318,19 +348,15 @@ def _over_stack(static, child_sigs, params_iter, device):
                 layer = _eval(inner, params_iter, device).contiguous()
                 B = layer.shape[0]
             if P is None:
-                P = torch.zeros((B, 3, H, W), dtype=torch.float32,
-                                device=device)
-                A = torch.zeros((B, 1, H, W), dtype=torch.float32,
-                                device=device)
-            # The kernels update contiguous accumulators in place; A can
-            # still be a strided view of a first, non-solid layer.
+                P = torch.zeros((B, 3, H, W), dtype=acc_dt, device=device)
+                A = torch.zeros((B, 1, H, W), dtype=acc_dt, device=device)
             if layer is None:
                 P, A = cuda_ops.region_over_sep(
-                    P.contiguous(), A.contiguous(), color, ry, rx,
+                    to_acc(P), to_acc(A), color, ry, rx,
                     pl_params['dy0'], pl_params['dx0'])
             else:
                 P, A = cuda_ops.region_over(
-                    P.contiguous(), A.contiguous(), layer,
+                    to_acc(P), to_acc(A), to_acc(layer),
                     pl_params['dy0'], pl_params['dx0'])
             continue
         layer = _eval(cs, params_iter, device)
@@ -339,8 +365,9 @@ def _over_stack(static, child_sigs, params_iter, device):
             P = layer[:, :3] * la
             A = la
         else:
-            P = layer[:, :3] * la + P * (1.0 - la)
-            A = la + A * (1.0 - la)
+            P = layer[:, :3] * la + P.float() * (1.0 - la)
+            A = la + A.float() * (1.0 - la)
+    P, A = P.float(), A.float()
     nz = A != 0.0
     rgb = torch.where(nz, P / torch.where(nz, A, 1.0), 0.0)
     return torch.cat([rgb, A], dim=1)
@@ -350,8 +377,55 @@ def run(sig, params, device, post=None):
     """Evaluate *sig* over tensor *params* (``params_to_torch``) and return
     the (B, 4, H, W) f16 frames (render.py:1476-1480), or their export
     conversion ``post`` (``color.POSTS``, render.py:1481-1487)."""
-    out = _eval(sig, iter(params), device).to(torch.float16)
+    out = _eval(sig, iter(params), device, torch.float16).to(torch.float16)
     return out if post is None else color_ops.POSTS[post](out)
+
+
+def display_run(sig, params, device, mats, order, intent, transport):
+    """The display program of ``render_display`` (render.py:2193-2213):
+    the frame rendered, resampled to the viewport by *mats* (Dy, Dx) when
+    given (two f32 contractions of the f32 composite, then the f16
+    quantize), and converted for *transport*: 'u8' interleaves the
+    channels of *order* (the gamma45 ramp for ``intent=None``, else the
+    sRGB + intent conversion), 'rgb24' the same without alpha, 'yuv420'
+    the lossy 4:2:0 pack. Returns the (B, ...) u8 tensor on *device*."""
+    if mats is None:
+        out = run(sig, params, device)
+    else:
+        dy, dx = mats
+        out = _eval(sig, iter(params), device)
+        out = torch.einsum('yh,bchw->bcyw', dy, out)
+        out = torch.einsum('xw,bcyw->bcyx', dx, out).to(torch.float16)
+    if transport == 'yuv420':
+        return color_ops.yuv420_pack(out, intent)
+    if transport == 'rgb24':
+        # only the color channels cross to the host; alpha pads there
+        order = tuple(c for c in order if c != 3)
+    if intent is None:
+        return color_ops.u8_interleaved(out, order)
+    return color_ops.display_u8(out, intent, order)
+
+
+@functools.lru_cache(maxsize=16)
+def _display_matrices_host(window_h, window_w, dh, dw):
+    mats = []
+    for d, n in ((dh, window_h), (dw, window_w)):
+        m, _touched = scale_ops.axis_matrix(d / n, 0, d - 1, 0, n - 1,
+                                            0.0, 0.0)
+        m.setflags(write=False)       # shared by every caller
+        mats.append(m)
+    return tuple(mats)
+
+
+def display_matrices_host(window_h, window_w, display_size):
+    """Host (dh, H), (dw, W) f32 triangle-FIR viewport-resample matrices
+    for ``display_size=(dw, dh)`` (the filter.c:24-77 family, anchored at
+    the window origin like VideoScaler's point convention;
+    render.py:2365-2384). ``render_display`` and the playback engine
+    both resample through these. The arrays are cached and read-only."""
+    return _display_matrices_host(int(window_h), int(window_w),
+                                  int(display_size[1]),
+                                  int(display_size[0]))
 
 
 class RenderPlanner:
@@ -378,6 +452,14 @@ class RenderPlanner:
     #: Device-byte budget for the persistent staging cache
     #: (CANVAS_STAGE_CACHE_MB env overrides; 0 disables).
     stage_cache_mb = None
+
+    #: The cached plan of ``render_display``'s current segment (None
+    #: until the first call; dropped by ``invalidate_display_cache``).
+    _display_seg = None
+
+    #: Device viewport-resample matrices by display size, an LRU of
+    #: ``_DISPLAY_MATS_KEPT`` entries (``_display_matrices``).
+    _display_mats = None
 
     #: Planning-span cap: structure segments longer than this split into
     #: chunks, which bounds host staging memory and the time to the first
@@ -609,30 +691,136 @@ class RenderPlanner:
             out = out.cpu().numpy()
         return (out, wins) if with_windows else out
 
-    def render_display(self, *args, **kwargs):
-        raise _not_ported('render_display', 'queue 1 item 5')
+    def render_display(self, frame_index, order=(2, 1, 0, 3), intent=None,
+                       display_size=None, transport='u8'):
+        """Low-latency single-frame display pull (render.py:2105-2241):
+        the frame is rendered AND converted to u8 on the device, and only
+        display bytes cross to the host, in one copy. Returns an
+        (h, w, 4) uint8 array in channel *order* (default BGRA).
+
+        ``intent=None`` uses the gamma45 ramp (the to_argb_string
+        contract, gammatab.c:12-37); a float uses the widget_gl soft
+        mode, the sRGB transfer then that rendering intent
+        (widget_gl.c:291-308, 1.25 there by default).
+
+        ``display_size=(w, h)`` resamples the composite to the viewport
+        on the device before the conversion (linear-light triangle
+        filter, ``display_matrices_host``), so only w*h pixels cross.
+
+        ``transport``: 'u8' fetches the channels of *order*; 'rgb24'
+        (lossless) only the three color channels, alpha padded to 255 on
+        the host; 'yuv420' (lossy, preview only) full-range BT.601 Y and
+        2x2-mean Cb/Cr, 1.5 bytes/px, unpacked on the host with alpha
+        255.
+
+        Scrub-friendly: the pipeline-chunk segment holding the frame is
+        planned once and its params go to the device once; later frames
+        of the segment slice their params out of those tensors. Edits
+        drop the cached segment through the source's ``frames_updated``
+        signal (subscribed automatically) or
+        ``invalidate_display_cache()``."""
+        if transport not in DISPLAY_TRANSPORTS:
+            raise ValueError('transport must be one of %s, not %r'
+                             % (DISPLAY_TRANSPORTS, transport))
+        order = tuple(int(c) for c in order)
+        frame_index = int(frame_index)
+        seg = self._display_seg
+        if seg is None or not seg['lo'] <= frame_index < seg['hi']:
+            seg = self._plan_display_seg(frame_index)
+        if display_size is not None:
+            display_size = (int(display_size[0]), int(display_size[1]))
+        pos = frame_index - seg['lo']
+        params = [{k: (_frame_slice(v, _BATCH_AXIS.get(op, 0), pos)
+                       if k in _frame_params(op) else v)
+                   for k, v in p.items()}
+                  for p, op in zip(seg['params'], seg['ops'])]
+        flat = backend.to_host(display_run(
+            seg['sig1'], params, self.device,
+            self._display_matrices(display_size), order,
+            None if intent is None else float(intent), transport))
+        if transport == 'yuv420':
+            dw, dh = display_size or (self.window.width, self.window.height)
+            return color_ops.yuv420_unpack_batch(flat, dh, dw, order)[0]
+        if transport == 'rgb24':
+            return color_ops.rgb24_unpack(flat[0], order)
+        # a copy: the fetched bytes sit in pinned memory, which is not
+        # for the caller to keep
+        return flat.numpy().reshape(flat.shape[1], -1, len(order)).copy()
+
+    def _plan_display_seg(self, frame_index):
+        """Plan the pipeline-chunk segment holding *frame_index* once and
+        put its params on the device (render.py:2156-2180)."""
+        self._drain_plan_pool()
+        self._watch_frames_updated()
+        self._note_render_stream()
+        chunk = self.pipeline_chunk
+        lo0 = (frame_index // chunk) * chunk
+        lo, hi = next((s0, s1) for s0, s1 in self.segments(lo0, lo0 + chunk)
+                      if s0 <= frame_index < s1)
+        node = self._plan((lo, hi))
+        seg = self._display_seg = {
+            'lo': lo, 'hi': hi,
+            'params': params_to_torch(flat_params(node), self.device),
+            'ops': node.flat_ops([]),
+            'sig1': sliced_signature(node, hi - lo, 1),
+        }
+        return seg
+
+    def _display_matrices(self, display_size):
+        """(Dy (dh, H), Dx (dw, W)) viewport-resample matrices for this
+        planner's window on its device, kept per size in an LRU of
+        ``_DISPLAY_MATS_KEPT`` (render.py:2243-2266); None for a
+        full-size display."""
+        if display_size is None:
+            return None
+        display_size = (int(display_size[0]), int(display_size[1]))
+        cache = self._display_mats
+        if cache is None:
+            cache = self._display_mats = OrderedDict()
+        got = cache.get(display_size)
+        if got is not None:
+            cache.move_to_end(display_size)
+            return got
+        # interactive resizes sweep through many sizes; each pair is a
+        # few MB on the device
+        while len(cache) >= _DISPLAY_MATS_KEPT:
+            cache.popitem(last=False)
+        Dy, Dx = display_matrices_host(self.window.height, self.window.width,
+                                       display_size)
+        got = cache[display_size] = (backend.to_device(Dy, self.device),
+                                     backend.to_device(Dx, self.device))
+        return got
 
     def invalidate_display_cache(self, *args):
-        """Drop staged device data (the graph changed).
+        """Drop the cached display segment and staged device data (the
+        graph changed).
 
         Sources edited through a signal-bearing layer call this through
         their ``frames_updated`` signal; code that mutates a raw graph
         directly must call it, or use a fresh planner, before rendering
         again. With a frame range (``frames_updated(lo, hi)``, hi
-        inclusive), staged stacks that only ever served root segments
-        outside it stay resident; without one, everything drops."""
+        inclusive), a display segment outside it and staged stacks that
+        only ever served root segments outside it stay; without one,
+        everything drops (render.py:2288-2308)."""
         # bools are ints in Python: a trailing positional flag must not
         # read as the range's end
         ints = [a for a in args
                 if isinstance(a, (int, np.integer))
                 and not isinstance(a, (bool, np.bool_))]
+        lo = hi = None
+        if len(ints) >= 2:
+            lo, hi = int(ints[-2]), int(ints[-1])
+        seg = self._display_seg
+        if seg is not None and (lo is None
+                                or (seg['lo'] <= hi and lo < seg['hi'])):
+            self._display_seg = None
         cache = getattr(self, '_persistent_cache', None)
         if cache is None:
             return
-        if len(ints) >= 2:
-            cache.invalidate_range(int(ints[-2]), int(ints[-1]))
-        else:
+        if lo is None:
             cache.clear()
+        else:
+            cache.invalidate_range(lo, hi)
 
     def _watch_frames_updated(self):
         if getattr(self, '_watching_updates', False):
@@ -653,7 +841,8 @@ class RenderPlanner:
 
     def close(self):
         """Deterministic teardown: disconnect from the source's
-        frames_updated signal and drop staged stacks."""
+        frames_updated signal and drop the display segment, staged stacks
+        and viewport matrices."""
         self._drain_plan_pool()
         if getattr(self, '_watching_updates', False):
             updated = getattr(self.source, 'frames_updated', None)
@@ -662,3 +851,13 @@ class RenderPlanner:
             self._watching_updates = False
         self.invalidate_display_cache()
         self._stage_cache = {}
+        if self._display_mats is not None:
+            self._display_mats.clear()
+
+
+def _frame_slice(v, ax, pos):
+    """Frame *pos* of a segment param along its frame axis *ax*, as a
+    one-frame param: a contiguous device tensor (the kernels take no
+    strided input), cut from the segment's tensor on the device."""
+    v = v[(slice(None),) * ax + (slice(pos, pos + 1),)]
+    return v.contiguous() if isinstance(v, torch.Tensor) else v

@@ -61,11 +61,13 @@ L = 6
 #: the stores and the loop step. The counts hold only for the nvcc
 #: release and the sha256 of NVCC_FLAGS and csrc/solid_fold.cu recorded
 #: here; ``solid_fold_instructions`` raises for any other, so a changed
-#: kernel or compiler is recounted before a bound is printed.
+#: kernel or compiler is recounted before a bound is printed. (When the
+#: source gained its bf16 forms, a ``cuobjdump -sass`` diff showed the f32
+#: instantiations' instructions unchanged, so the counts were re-keyed.)
 SOLID_FOLD_SASS = {
     'nvcc': '12.9',
-    'sha256': '38f921c3445d370af9e5e67132af351b'
-              '05ae666d8c57da21f4a4c4a9e4c5c6d8',
+    'sha256': 'bf57ff227c326ff257756c0121f04fbd'
+              '5e050fa5a0622422fdf6c263610d64c3',
     'counts': {'mid fold L=6': 208, 'finalize L=2 f16': 177},
 }
 #: Warp-instructions an SM is assumed to issue per clock (4 schedulers,

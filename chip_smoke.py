@@ -7,15 +7,19 @@ Drives the port's two render paths on the card, the headline render (a
 the mixed-content timeline (``timelines.mixed_timeline``, benchmarks.py
 config7's: the headline with three DV clips, decoded on the host and
 staged by the port, through animated scalers), then the fold studies and
-the roofline probe, then the headline's export conversions. Each phase
-prints one line; any failure raises (traceback, nonzero exit, no result
-line):
+the roofline probe, then the headline's export conversions, then the
+editor's display path (``render_display``, the quality <= 9 tier and the
+playback engine). Each phase prints one line or more; any failure raises
+(traceback, nonzero exit, no result line):
 
 1. card: nvidia-smi's name and power limit, torch's device name;
 2. build: compile the CUDA kernels from the checkout's sources;
 3. kernels vs plain: each kernel against its plain PyTorch version on
    the card, on seeded inputs (solid_fold and region_over bit-identical;
-   region_over_sep within atol 1e-6, f32 reassociation);
+   region_over_sep within atol 1e-6), then each quality <= 9 form (bf16
+   accumulators: solid_fold's mid fold storing bf16, from a bf16 base,
+   and its finalize from a bf16 base; region_over_sep and region_over in
+   bf16) at the same shapes, bit-identical;
 4. headline slice: frames 0..255 of timelines.build_timeline(1024)
    through iter_batches; its kernels'
    launch counters must rise; finite f16 (B, 4, 1080, 1920) batches;
@@ -50,16 +54,35 @@ line):
    largest difference, at most 1 on at most 0.1% of values); the
    conversions' device time on one batch; the headline's cold fps with
    post='yuv420' beside post=None's, timed in turns under phase 5's
-   protocol.
+   protocol;
+10. display path, on the headline at 1080p: ``render_display`` of frames
+   0, 130 and 1000 through the u8 (intent None and 1.25), rgb24 and
+   yuv420 transports, at full size and at 960x540, each against a
+   ``device='cpu'`` planner's pull (at most 1 on at most 0.1% of u8
+   values); ``render_display_1080p_warm_ms`` (p50, p95 of frames 1..63
+   of a cached segment) and ``render_display_1080p_cold_ms`` (the first
+   frame of 8 uncached 64-frame segments), rgb24 at full size and at
+   960x540; the quality tier: frames 128..255 at quality 9 through
+   iter_batches(batch=128) against quality 10 (max 0.01, mean 1e-3) and
+   frames 128 and 200 of the same plan on the CPU (2e-3), frames 0 and 70
+   of the mixed timeline at quality 5 against the CPU (1e-2), and the
+   bf16 forms' times beside their plain versions at the tier's shapes;
+   playback: a ``VideoPlaybackEngine`` on a ``SystemPresentationClock`` at
+   60 fps, warmed, playing for 3 s, three times (full size, a 960x540
+   viewport, quality 5 in that viewport), with its presented frames
+   against the ideal count, the skipped indices and the mean batch time,
+   then one batch taken apart (render, conversion, fetch, host unpack).
 
 Each path (the headline, the mixed timeline, the studies' timing runs,
-the export posts) runs with every launch counter set to 0 just before
-it and read just after; the kernels line reports each kernel's launches
-in those runs, its time, its plain version's, and its bound: the larger
-of the bytes it must move over the card's published memory rate and its
-f32 operations over the published f32 rate (PEAK_BYTES_PER_S,
-PEAK_F32_PER_S), from this run's shapes. No single PyTorch call computes
-what any of the kernels computes, so ``library_ms`` is null throughout.
+the export posts, the display path) runs with every launch counter set
+to 0 just before it and read just after; the kernels line reports each
+kernel's launches in those runs, its time, its plain version's, and its
+bound: the larger of the bytes it must move over the card's published
+memory rate and its f32 operations over the published f32 rate
+(PEAK_BYTES_PER_S, PEAK_F32_PER_S), from this run's shapes. The bf16
+form of each render kernel has an entry of its own. No single PyTorch
+call computes what any of the kernels computes, so ``library_ms`` is
+null throughout.
 The line before the last is the card's nvidia-smi line; the last line is
 ``{"ok": true, "device": {...}}``. Run from the repository root with no
 arguments: ``python3 chip_smoke.py``. An import hook refuses JAX, the
@@ -93,12 +116,12 @@ PEAK_F32_PER_S = 67e12
 #: integer compares not counted): one premultiplied-over step of a solid
 #: layer is a*m, 1 - a*m, three P*k + c*a*m and A*k + a*m (10); the
 #: finalize divides three channels by A (3); a rank-1 region builds its
-#: layer (ry*rx, then four channels, 5) before its over step (12); the
+#: layer ((c*ry)*rx for four channels, 8) before its over step (12); the
 #: FMA chain does 2 per step and element.
 FOLD_OPS_PER_LAYER = 10
 FINALIZE_OPS = 3
 OVER_OPS = 12
-RANK1_OPS = 5
+RANK1_OPS = 8
 
 
 def _bound(nbytes, ops):
@@ -151,11 +174,19 @@ def _solid_layers(rng, L, B, H, W):
     return color, box, gain, offset
 
 
+#: The render kernels; each has an f32 and a bf16 (quality <= 9) form,
+#: counted apart ('<name>' and '<name>_bf16').
+_RENDER_KERNELS = ('solid_fold', 'region_over_sep', 'region_over')
+
+
 def _launch_counts():
     from canvas_tpu_torch.ops import cuda_ops
-    return {'solid_fold': cuda_ops.solid_fold.launches,
-            'region_over_sep': cuda_ops.region_over_sep.launches,
-            'region_over': cuda_ops.region_over.launches}
+    out = {}
+    for name in _RENDER_KERNELS:
+        fn = getattr(cuda_ops, name)
+        out[name] = fn.launches
+        out[name + '_bf16'] = fn.launches_bf16
+    return out
 
 
 _STUDY_WRAPPERS = ('fold_variant', 'tile_fold', 'fma_chain', 'roofline_fold')
@@ -169,10 +200,75 @@ def _study_launch_counts():
 
 def _zero_launch_counts():
     from canvas_tpu_torch.ops import cuda_ops, study_ops
-    for name in _launch_counts():
+    for name in _RENDER_KERNELS:
         getattr(cuda_ops, name).launches = 0
+        getattr(cuda_ops, name).launches_bf16 = 0
     for name in _STUDY_WRAPPERS:
         getattr(study_ops, name).launches = 0
+
+
+def _max_diff(got, want):
+    """Largest |got - want| over paired tensors (any float dtype)."""
+    return max(float((g.float() - w.float()).abs().max())
+               for g, w in zip(got, want))
+
+
+def _bf16_forms_vs_plain(rng, on, H, W):
+    """Phase 3's bf16 half: each quality <= 9 form of the render kernels
+    against its plain version on seeded inputs at phase 3's shapes.
+    Returns {form: max diff}."""
+    import numpy as np
+    import torch
+
+    from canvas_tpu_torch.ops import cuda_ops
+
+    bf = torch.bfloat16
+
+    def bf16(*arrays):
+        return [t.to(bf) for t in on(*arrays)]
+
+    err = {}
+    layers = on(*_solid_layers(rng, 6, 8, H, W))
+    err['solid_fold mid'] = _max_diff(
+        cuda_ops.solid_fold(None, None, *layers, H, W, acc_dtype=bf),
+        cuda_ops.solid_fold_plain(None, None, *layers, H, W, acc_dtype=bf))
+    layers = on(*_solid_layers(rng, 2, 8, H, W))
+    A = rng.uniform(0.0, 1.0, (8, 1, H, W)).astype(np.float32)
+    P, A = bf16((rng.uniform(0.0, 1.0, (8, 3, H, W)) * A).astype(np.float32),
+                A)
+    err['solid_fold mid over base'] = _max_diff(
+        cuda_ops.solid_fold(P, A, *layers, H, W, acc_dtype=bf),
+        cuda_ops.solid_fold_plain(P, A, *layers, H, W, acc_dtype=bf))
+    got = cuda_ops.solid_fold(P, A, *layers, H, W, finalize=True,
+                              out_dtype=torch.float16)
+    if got.dtype != torch.float16:
+        raise AssertionError('solid_fold finalize stored %s' % got.dtype)
+    err['solid_fold finalize'] = _max_diff([got], [
+        cuda_ops.solid_fold_plain(P, A, *layers, H, W, finalize=True,
+                                  out_dtype=torch.float16)])
+    err['region_over_sep'] = err['region_over'] = 0.0
+    for kind, shapes in (
+            ('region_over_sep', ((H, W, 512, 1024, 576, 896),
+                                 (540, 960, 384, 640, 192, 384))),
+            ('region_over', ((H, W, 640, 1024, 448, 896),
+                             (H, W, 704, 1152, 64, 512),
+                             (540, 960, 384, 640, 192, 384)))):
+        for (Hf, Wf, h, w, dy0, dx0) in shapes:
+            P, A = bf16(*[rng.uniform(0.0, 1.0, s).astype(np.float32)
+                          for s in ((8, 3, Hf, Wf), (8, 1, Hf, Wf))])
+            if kind == 'region_over':
+                args = bf16(rng.uniform(0.0, 1.0, (8, 4, h, w)).astype(
+                    np.float32))
+            else:
+                args = on(*[rng.uniform(0.0, 1.0, s).astype(np.float32)
+                            for s in ((8, 4), (8, h), (8, w))])
+            P2, A2 = P.clone(), A.clone()
+            outP, outA = getattr(cuda_ops, kind)(P, A, *args, dy0, dx0)
+            getattr(cuda_ops, kind + '_plain')(P2, A2, *args, dy0, dx0)
+            if outP is not P or P.dtype != bf:
+                raise AssertionError('%s bf16 did not update in place' % kind)
+            err[kind] = max(err[kind], _max_diff((P, A), (P2, A2)))
+    return err
 
 
 def _n_nodes(sig):
@@ -222,7 +318,7 @@ def _mixed_slice(tag, window):
                 picked[i] = out[i - s].cpu().numpy()
         n_frames += n
     launches = _launch_counts()
-    if n_frames != 128 or min(launches.values()) <= 0:
+    if n_frames != 128 or min(launches[k] for k in _RENDER_KERNELS) <= 0:
         raise AssertionError('mixed slice rendered %d frames with launches '
                              '%r' % (n_frames, launches))
     errs, shares = {}, {}
@@ -616,6 +712,460 @@ def _posts(tag, window):
     return launches
 
 
+#: Phase 10's display comparisons: frames, (transport, intent), viewport.
+DISPLAY_FRAMES = (0, 130, 1000)
+DISPLAY_CASES = (('u8', None), ('u8', 1.25), ('rgb24', 1.25),
+                 ('yuv420', 1.25))
+VIEWPORT = (960, 540)
+
+
+def _display_vs_cpu(tag, ws, window):
+    """Phase 10.1: render_display on the card against a CPU planner's, for
+    every frame, transport and size of DISPLAY_*."""
+    import numpy as np
+
+    from canvas_tpu_torch.render import RenderPlanner
+
+    card = RenderPlanner(ws, window)
+    cpu = RenderPlanner(ws, window, device='cpu')
+    worst_diff, worst_share, n = 0, 0.0, 0
+    for f in DISPLAY_FRAMES:
+        for transport, intent in DISPLAY_CASES:
+            for size in (None, VIEWPORT):
+                kw = dict(intent=intent, display_size=size,
+                          transport=transport)
+                got = card.render_display(f, **kw).astype(np.int32)
+                want = cpu.render_display(f, **kw).astype(np.int32)
+                w, h = size or (window.width, window.height)
+                if got.shape != (h, w, 4) or want.shape != got.shape:
+                    raise AssertionError('render_display %d %r: %s vs %s'
+                                         % (f, kw, got.shape, want.shape))
+                d = np.abs(got - want)
+                share = float(np.mean(d != 0))
+                if d.max() > 1 or share > 1e-3:
+                    raise AssertionError(
+                        'render_display %d %r differs from the CPU by up to '
+                        '%d on %.3g of u8 values' % (f, kw, d.max(), share))
+                worst_diff = max(worst_diff, int(d.max()))
+                worst_share = max(worst_share, share)
+                n += 1
+    print('phase 10 render_display vs the CPU: frames %s, transports %s, '
+          'full size and %dx%d (%d pulls): max |diff| %d, largest share of '
+          'u8 values that differ %.3g (at most 1 on at most 0.1%%) %s'
+          % (list(DISPLAY_FRAMES), ['%s intent=%s' % c for c in DISPLAY_CASES],
+             VIEWPORT[0], VIEWPORT[1], n, worst_diff, worst_share, tag),
+          flush=True)
+
+
+def _display_latency(tag, ws, window):
+    """Phase 10.2: single-frame latency of render_display (rgb24), warm
+    (frames 1..63 of the cached segment [1, 64)) and cold (the first
+    frame of 8 uncached 64-frame segments), at full size and at
+    VIEWPORT. Returns {size: (warm p50, p95, cold p50, p95, bytes)}."""
+    import numpy as np
+
+    from canvas_tpu_torch.render import RenderPlanner
+
+    planner = RenderPlanner(ws, window)
+    out = {}
+    for size in (None, VIEWPORT):
+        kw = dict(transport='rgb24', display_size=size)
+        planner.render_display(1, **kw)         # plans and uploads [1, 64)
+
+        def pull(i):
+            t0 = time.perf_counter()
+            planner.render_display(i, **kw)
+            return (time.perf_counter() - t0) * 1e3
+
+        warm = [pull(i) for i in range(1, 64)]
+        cold = [pull(64 * k) for k in range(1, 9)]
+        w, h = size or (window.width, window.height)
+        out[size] = (float(np.percentile(warm, 50)),
+                     float(np.percentile(warm, 95)),
+                     float(np.percentile(cold, 50)),
+                     float(np.percentile(cold, 95)), h * w * 3)
+        print('phase 10 latency rgb24 %dx%d: render_display_1080p_warm_ms '
+              'p50 %.3f p95 %.3f (frames 1..63, segment cached); '
+              'render_display_1080p_cold_ms p50 %.3f p95 %.3f (first frame '
+              'of 8 uncached 64-frame segments: %s); %d bytes fetched per '
+              'frame (host clock, each pull ends in its copy to the host) %s'
+              % ((w, h) + out[size][:4]
+                 + (', '.join('%.2f' % c for c in cold), h * w * 3, tag)),
+              flush=True)
+    return out
+
+
+def _bf16_timings(tag, p9, mixed5, window):
+    """The bf16 forms at the quality tier's shapes: solid_fold's mid fold
+    and finalize and both rank-1 regions of the first quality-9 headline
+    batch (128 frames), region_over at the three DV regions of the
+    quality-5 mixed batch of segment [1, 65) (16 frames); each against
+    its plain version (max diff, must be 0) and timed beside it. Returns
+    {form: (max diff, ms, plain ms, bound ms, bound by)}."""
+    import numpy as np
+    import torch
+
+    from canvas_tpu_torch.backend import paired_ms
+    from canvas_tpu_torch.ops import cuda_ops
+    from canvas_tpu_torch.render import _scale_solid_factors, params_to_torch
+
+    dev = p9.device
+    bf = torch.bfloat16
+    H, W = window.height, window.width
+    _s, sig, batches = p9._prepare((128, 256), 128)
+    tparams = params_to_torch(batches[0][2], dev)
+    B = 128
+    folds, regions = [], []
+    for cs, cp in _children_params(sig, tparams):
+        if cs[0] == 'solid_stack':
+            folds.append(cp[0])
+        elif cs[0] == 'placed' and cs[3][0][0].startswith('scale_solid'):
+            inner = cs[3][0]
+            regions.append((cp[0], _scale_solid_factors(inner[0], inner[1],
+                                                        cp[1])))
+    if len(folds) != 2 or len(regions) != 2:
+        raise AssertionError('unexpected quality-9 headline plan')
+
+    def fargs(p):
+        return p['color'], p['box'], p['gain'], p['offset'], H, W
+
+    out = {}
+    mid = lambda: cuda_ops.solid_fold(None, None, *fargs(folds[0]),
+                                      acc_dtype=bf)
+    mid_p = lambda: cuda_ops.solid_fold_plain(None, None, *fargs(folds[0]),
+                                              acc_dtype=bf)
+    baseP, baseA = mid()
+    fin = lambda: cuda_ops.solid_fold(baseP, baseA, *fargs(folds[1]),
+                                      finalize=True, out_dtype=torch.float16)
+    fin_p = lambda: cuda_ops.solid_fold_plain(
+        baseP, baseA, *fargs(folds[1]), finalize=True,
+        out_dtype=torch.float16)
+    err = max(_max_diff(mid(), mid_p()), _max_diff([fin()], [fin_p()]))
+    ms = plain_ms = 0.0
+    nbytes = ops = 0
+    for name, k, p, per_px, fp in (('mid fold L=6 bf16', mid, mid_p, 8,
+                                    folds[0]),
+                                   ('finalize L=2 bf16 base to f16', fin,
+                                    fin_p, 16, folds[1])):
+        tk, tp = paired_ms(k, p, 10, 2)
+        ms += tk
+        plain_ms += tp
+        L = fp['color'].shape[0]
+        # the mid fold writes bf16 P and A (8 B/px); the finalize reads
+        # them and writes f16 frames (16 B/px)
+        nbytes += B * H * W * per_px + _fold_params_bytes(L, B)
+        ops += B * H * W * (L * FOLD_OPS_PER_LAYER
+                            + (FINALIZE_OPS if per_px == 16 else 0))
+        print('phase 10 kernel solid_fold %s, batch %d: cuda %.4f ms (%.1f '
+              'GB/s for %.1f MB), plain torch %.4f ms %s'
+              % (name, B, tk, B * H * W * per_px / tk / 1e6,
+                 B * H * W * per_px / 1e6, tp, tag), flush=True)
+    out['solid_fold_bf16'] = (err, ms, plain_ms) + _bound(nbytes, ops)
+
+    err = ms = plain_ms = 0.0
+    nbytes = ops = 0
+    for j, (pl, (color, ry, rx)) in enumerate(regions):
+        dy0, dx0 = pl['dy0'], pl['dx0']
+        h, w = ry.shape[1], rx.shape[1]
+        P1, A1 = baseP.clone(), baseA.clone()
+        P2, A2 = baseP.clone(), baseA.clone()
+        cuda_ops.region_over_sep(P1, A1, color, ry, rx, dy0, dx0)
+        cuda_ops.region_over_sep_plain(P2, A2, color, ry, rx, dy0, dx0)
+        err = max(err, _max_diff((P1, A1), (P2, A2)))
+        k = lambda: cuda_ops.region_over_sep(P1, A1, color, ry, rx, dy0, dx0)
+        p = lambda: cuda_ops.region_over_sep_plain(P2, A2, color, ry, rx,
+                                                   dy0, dx0)
+        tk, tp = paired_ms(k, p, 20, 3)
+        ms += tk
+        plain_ms += tp
+        px = B * min(h, H - dy0) * min(w, W - dx0)
+        # bf16 P and A read and written in the region (16 B/px); color,
+        # ry, rx read
+        nbytes += px * 16 + B * (4 + h + w) * 4
+        ops += px * (RANK1_OPS + OVER_OPS)
+        print('phase 10 kernel region_over_sep bf16 region %d %dx%d @ (%d, '
+              '%d), batch %d: cuda %.4f ms (%.1f GB/s for %.1f MB), plain '
+              'torch %.4f ms %s' % (j, h, w, dy0, dx0, B, tk,
+                                    px * 16 / tk / 1e6, px * 16 / 1e6, tp,
+                                    tag), flush=True)
+    out['region_over_sep_bf16'] = (err, ms, plain_ms) + _bound(nbytes, ops)
+    del baseP, baseA, P1, A1, P2, A2, tparams
+    torch.cuda.empty_cache()
+
+    _s, sig, batches = mixed5._prepare((1, 65), 16)
+    tparams = params_to_torch(batches[0][2], dev)
+    shapes = [(cs[1], cp[0]['dy0'], cp[0]['dx0'])
+              for cs, cp in _children_params(sig, tparams)
+              if cs[0] == 'placed'
+              and not cs[3][0][0].startswith('scale_solid')]
+    if len(shapes) != 3:
+        raise AssertionError('expected 3 DV regions, got %r' % (shapes,))
+    rng = np.random.default_rng(SEED + 10)
+    B = 16
+    err = ms = plain_ms = 0.0
+    px_all = 0
+    for (h, w), dy0, dx0 in shapes:
+        P, A, layer = [torch.from_numpy(rng.uniform(0, 1, s).astype(
+            np.float32)).to(dev).to(bf) for s in ((B, 3, H, W), (B, 1, H, W),
+                                                  (B, 4, h, w))]
+        P2, A2 = P.clone(), A.clone()
+        cuda_ops.region_over(P, A, layer, dy0, dx0)
+        cuda_ops.region_over_plain(P2, A2, layer, dy0, dx0)
+        err = max(err, _max_diff((P, A), (P2, A2)))
+        k = lambda: cuda_ops.region_over(P, A, layer, dy0, dx0)
+        p = lambda: cuda_ops.region_over_plain(P2, A2, layer, dy0, dx0)
+        tk, tp = paired_ms(k, p, 20, 3)
+        ms += tk
+        plain_ms += tp
+        px = B * min(h, H - dy0) * min(w, W - dx0)
+        px_all += px
+        print('phase 10 kernel region_over bf16 %dx%d @ (%d, %d), batch %d: '
+              'cuda %.4f ms (%.1f GB/s for %.1f MB), plain torch %.4f ms %s'
+              % (h, w, dy0, dx0, B, tk, px * 24 / tk / 1e6, px * 24 / 1e6,
+                 tp, tag), flush=True)
+    # per pixel: the bf16 layer read (8 B), P and A read and written (16 B)
+    out['region_over_bf16'] = (err, ms, plain_ms) + _bound(px_all * 24,
+                                                           px_all * OVER_OPS)
+    bad = {k: v[0] for k, v in out.items() if v[0] != 0.0}
+    if bad:
+        raise AssertionError('bf16 forms at the tier shapes differ from '
+                             'plain: %r' % bad)
+    return out
+
+
+def _quality_tier(tag, ws, window):
+    """Phase 10.3: the headline at quality 9 on the card against quality
+    10 and against the CPU on the same plan; the mixed timeline at
+    quality 5 against the CPU. Returns the two planners (quality-9
+    headline, quality-5 mixed) for _bf16_timings."""
+    import numpy as np
+    import torch
+
+    from canvas_tpu_torch import timelines
+    from canvas_tpu_torch.render import RenderPlanner, params_to_torch, run
+
+    cpu = torch.device('cpu')
+    H, W = window.height, window.width
+    p9 = RenderPlanner(ws, window, quality=9)
+    p10 = RenderPlanner(ws, window)
+    (s9, n9, o9), = p9.iter_batches(128, 256, batch=128)
+    (s10, _n, o10), = p10.iter_batches(128, 256, batch=128)
+    if (s9, n9) != (128, 128) or tuple(o9.shape) != (128, 4, H, W):
+        raise AssertionError('quality 9 batch %r %s' % ((s9, n9), o9.shape))
+    if not bool(torch.isfinite(o9).all()):
+        raise AssertionError('quality 9 frames are not finite')
+    d = (o9.float() - o10.float()).abs()
+    vs10 = (float(d.max()), float(d.mean()))
+    del d, o10
+    cpu9 = RenderPlanner(ws, window, quality=9, device='cpu')
+    s0, sig, batches = cpu9._prepare((128, 256), 1)
+    vs_cpu = {}
+    for pos, _take, plist in batches:
+        if s0 + pos in (128, 200):
+            want = run(sig, params_to_torch(plist, cpu), cpu)[0].float()
+            vs_cpu[s0 + pos] = float((o9[pos].cpu().float()
+                                      - want).abs().max())
+    del o9
+    print('phase 10 quality 9: headline frames 128..255 via '
+          'iter_batches(batch=128) against quality 10 max |diff| %.5f, mean '
+          '%.3g (max 0.01, mean 1e-3); against the CPU on the same plan, '
+          'frame 128 %.3g, 200 %.3g (2e-3) %s'
+          % (vs10 + (vs_cpu[128], vs_cpu[200], tag)), flush=True)
+    if vs10[0] > 0.01 or vs10[1] > 1e-3 or max(vs_cpu.values()) > 2e-3:
+        raise AssertionError('quality 9 off: vs quality 10 %r, vs CPU %r'
+                             % (vs10, vs_cpu))
+
+    mixed = timelines.mixed_timeline(256)
+    card5 = RenderPlanner(mixed, window, quality=5)
+    cpu5 = RenderPlanner(mixed, window, quality=5, device='cpu')
+    errs = {}
+    for f in (0, 70):
+        got = card5.render(f, f + 1)[0].astype(np.float32)
+        want = cpu5.render(f, f + 1)[0].astype(np.float32)
+        if not np.isfinite(got).all():
+            raise AssertionError('mixed quality 5 frame %d is not finite' % f)
+        errs[f] = float(np.abs(got - want).max())
+    print('phase 10 quality 5: mixed frames 0 and 70 (lq taps, bf16 '
+          'accumulators) finite, against the CPU max |diff| %.3g and %.3g '
+          '(1e-2) %s' % (errs[0], errs[70], tag), flush=True)
+    if max(errs.values()) > 1e-2:
+        raise AssertionError('mixed quality 5 differs from the CPU: %r'
+                             % errs)
+    return p9, card5
+
+
+def _playback(tag, ws, window):
+    """Phase 10.4: a VideoPlaybackEngine on the headline, 60 fps, warmed,
+    playing 3 s on a SystemPresentationClock: at full size, with a
+    VIEWPORT viewport, and at quality 5 in that viewport (an editor drops
+    to preview quality while the user drags in its widget; at full 1080p
+    the host's yuv420 unpack alone takes most of a 4-frame period, which
+    _playback_breakdown shows). Raises if the presented indices do not
+    increase, if fewer than half of the ideal frames were presented, or
+    if the engine logged a failed batch. Returns [(label, presented,
+    ideal, skipped, batches, mean batch ms)]."""
+    import logging
+    from fractions import Fraction
+
+    import numpy as np
+
+    from canvas_tpu_torch.clock import SystemPresentationClock
+    from canvas_tpu_torch.playback import VideoPlaybackEngine
+    from canvas_tpu_torch.process import get_time_frame
+
+    class Timed(VideoPlaybackEngine):
+        """Records the wall time of every render batch."""
+
+        def __init__(self, *args, **kwargs):
+            self.batch_ms = []
+            super().__init__(*args, **kwargs)
+
+        def _render_batch(self, start, stop):
+            t0 = time.perf_counter()
+            try:
+                return super()._render_batch(start, stop)
+            finally:
+                self.batch_ms.append((time.perf_counter() - t0) * 1e3)
+
+    class Failures(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def emit(self, record):
+            if 'render batch failed' in record.getMessage():
+                self.seen.append(record)
+
+    rate, seconds = Fraction(60, 1), 3.0
+    failures = Failures()
+    logger = logging.getLogger('canvas_tpu_torch.playback')
+    logger.addHandler(failures)
+    out = []
+    try:
+        for label, setup in (('full size', {}),
+                             ('viewport %dx%d' % VIEWPORT,
+                              {'set_viewport': VIEWPORT}),
+                             ('quality 5, viewport %dx%d' % VIEWPORT,
+                              {'set_viewport': VIEWPORT,
+                               'set_quality': 5})):
+            presented = []
+            clock = SystemPresentationClock()
+            engine = Timed(ws, clock, rate, window,
+                           lambda i, frame: presented.append(i))
+            try:
+                for name, value in setup.items():
+                    getattr(engine, name)(value)
+                engine.warm(0)
+                clock.play(1)
+                time.sleep(seconds)
+                clock.stop()
+                last = get_time_frame(rate, clock.get_presentation_time())
+            finally:
+                engine.stop()
+            shown = list(presented)
+            ideal = last + 1
+            skipped = sorted(set(range(ideal)) - set(shown))
+            mean_ms = float(np.mean(engine.batch_ms))
+            out.append((label, len(shown), ideal, skipped,
+                        len(engine.batch_ms), mean_ms))
+            print('phase 10 playback %s: %d of %d ideal frames presented (60 '
+                  'fps, %.0f s of clock), %d skipped %s; %d render batches of '
+                  '%d, mean %.2f ms %s'
+                  % (label, len(shown), ideal, seconds, len(skipped),
+                     skipped[:12] + (['...'] if len(skipped) > 12 else []),
+                     len(engine.batch_ms), engine.batch, mean_ms, tag),
+                  flush=True)
+            if any(a >= b for a, b in zip(shown, shown[1:])):
+                raise AssertionError('playback %s presented %r' % (label,
+                                                                   shown))
+            if 2 * len(shown) < ideal:
+                raise AssertionError('playback %s presented %d of %d frames'
+                                     % (label, len(shown), ideal))
+            if failures.seen:
+                raise AssertionError('playback %s: %s' % (
+                    label, failures.seen[0].getMessage()))
+    finally:
+        logger.removeHandler(failures)
+    return out
+
+
+def _playback_breakdown(tag, ws, window):
+    """Phase 10.4's batch (4 frames from frame 8) taken apart on the host
+    clock, each step ending in a synchronize, median of 5: the render,
+    the display conversion on the card, the fetch (pinned, beside a
+    plain ``.cpu()``) and the host unpack, at quality 10 (rgb24) and 5
+    (yuv420)."""
+    import numpy as np
+    import torch
+
+    from canvas_tpu_torch.backend import to_host
+    from canvas_tpu_torch.ops import color as color_ops
+    from canvas_tpu_torch.render import RenderPlanner
+
+    def ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    H, W = window.height, window.width
+    for quality in (10, 5):
+        planner = RenderPlanner(ws, window, quality=quality)
+        data = planner.render(8, 12, device_out=True)
+        if quality > 5:
+            convert = lambda: color_ops.display_u8(data, 1.25, (2, 1, 0))
+            unpack = lambda host: color_ops.rgb24_unpack(host)
+        else:
+            convert = lambda: color_ops.yuv420_pack(data, 1.25)
+            unpack = lambda host: color_ops.yuv420_unpack_batch(host, H, W)
+        packed = convert()
+        host = to_host(packed)
+        steps = (('render', ms(lambda: planner.render(8, 12,
+                                                      device_out=True))),
+                 ('convert', ms(convert)),
+                 ('fetch pinned', ms(lambda: to_host(packed))),
+                 ('fetch .cpu()', ms(lambda: packed.cpu())),
+                 ('unpack', ms(lambda: unpack(host))))
+        print('phase 10 playback batch at quality %d (4 frames, %.1f MB '
+              'fetched): %s ms %s' % (quality, packed.numel() / 1e6, ', '.join(
+                  '%s %.2f' % kv for kv in steps), tag), flush=True)
+
+
+def _display_path(tag, window):
+    """Phase 10, the editor's display path, with the launch counters zeroed
+    before and read after; then the bf16 forms' timings (whose launches
+    count nowhere). Returns (launches, the bf16 timings)."""
+    import torch
+
+    from canvas_tpu_torch import timelines
+
+    ws = timelines.build_timeline(1024)
+    _zero_launch_counts()
+    _display_vs_cpu(tag, ws, window)
+    seen = _launch_counts()
+    if min(seen['solid_fold'], seen['region_over_sep']) <= 0:
+        raise AssertionError('render_display ran with launches %r' % seen)
+    _display_latency(tag, ws, window)
+    torch.cuda.empty_cache()
+    p9, mixed5 = _quality_tier(tag, ws, window)
+    torch.cuda.empty_cache()
+    _playback(tag, ws, window)
+    _playback_breakdown(tag, ws, window)
+    launches = _launch_counts()
+    print('phase 10 display path: launches %s %s' % (json.dumps(launches),
+                                                    tag), flush=True)
+    if min(launches[k + '_bf16'] for k in _RENDER_KERNELS) <= 0:
+        raise AssertionError('a bf16 form did not launch on the display '
+                             'path: %r' % launches)
+    torch.cuda.empty_cache()
+    return launches, _bf16_timings(tag, p9, mixed5, window)
+
+
 def main():
     sys.meta_path.insert(0, _Refuse())
     import numpy as np
@@ -714,6 +1264,14 @@ def main():
           '@ (192, 384) of 540x960, B=8, max diff %r (must be 0) %s'
           % (err_mid, err_fin, err_reg, err_ro, tag), flush=True)
     del P, A, P2, A2, got, want, layers, layer
+    err16 = _bf16_forms_vs_plain(rng, on, H, W)
+    print('phase 3 bf16 forms vs plain (quality <= 9: bf16 accumulators, '
+          'f32 math): solid_fold mid L=6 B=8 1080p storing bf16, mid L=2 '
+          'over a bf16 base, finalize L=2 from a bf16 base to f16, '
+          'region_over_sep and region_over in bf16 at the shapes above, max '
+          'diff %s (all must be 0) %s' % (json.dumps(err16), tag), flush=True)
+    if any(err16.values()):
+        raise AssertionError('a bf16 form differs from plain: %r' % err16)
 
     # 4. the slice, through the kernels
     ws = timelines.build_timeline(1024)
@@ -735,8 +1293,8 @@ def main():
                 picked[i] = out[i - s].cpu().numpy()
         n_frames += n
     launches = _launch_counts()
-    del launches['region_over']         # not on the headline path
-    if n_frames != 256 or min(launches.values()) <= 0:
+    if n_frames != 256 or min(launches['solid_fold'],
+                              launches['region_over_sep']) <= 0:
         raise AssertionError('slice rendered %d frames with launches %r'
                              % (n_frames, launches))
     for s, n, out in planner.iter_batches(1000, 1001, batch=64):
@@ -886,8 +1444,12 @@ def main():
     torch.cuda.empty_cache()
     post_launches = _posts(tag, window)
 
-    total = {k: launches.get(k, 0) + mixed_launches[k] + post_launches[k]
-             for k in mixed_launches}
+    # 10. the editor's display path
+    torch.cuda.empty_cache()
+    display_launches, bf16 = _display_path(tag, window)
+
+    total = {k: (launches[k] + mixed_launches[k] + post_launches[k]
+                 + display_launches[k]) for k in mixed_launches}
     fold_bound, fold_by = _bound(fold_bytes, fold_ops)
     reg_bound, reg_by = _bound(reg_bytes, reg_ops)
     kernels = [
@@ -912,6 +1474,21 @@ def main():
          'max_abs_err': max(err_ro, err_ro_path),
          'ms': ro_ms, 'plain_ms': ro_plain_ms,
          'bound_ms': ro_bound, 'bound_by': ro_by, 'library_ms': None},
+    ] + [
+        {'name': name + '_bf16', 'route': 'cuda',
+         'source': 'canvas_tpu_torch/csrc/%s.cu' % name,
+         'replaces': 'canvas_tpu/ops/pallas_ops.py:%d' % line,
+         'launches': total[name + '_bf16'],
+         'max_abs_err': max([bf16[name + '_bf16'][0]]
+                            + [err16[k] for k in keys]),
+         'ms': bf16[name + '_bf16'][1], 'plain_ms': bf16[name + '_bf16'][2],
+         'bound_ms': bf16[name + '_bf16'][3],
+         'bound_by': bf16[name + '_bf16'][4], 'library_ms': None}
+        for name, line, keys in (
+            ('solid_fold', 179, ('solid_fold mid', 'solid_fold mid over base',
+                                 'solid_fold finalize')),
+            ('region_over_sep', 375, ('region_over_sep',)),
+            ('region_over', 276, ('region_over',)))
     ] + study_kernels
     for k in kernels:
         print('kernel %s: %d launches, %.4f ms against a bound of %.4f ms '

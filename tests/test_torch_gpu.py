@@ -8,14 +8,15 @@ so it also runs on a machine without JAX:
     python -m pytest --noconftest -q tests/test_torch_gpu.py
 
 Tolerances: solid_fold, region_over and the study folds (fold_variant,
-tile_fold, roofline_fold) are bit-identical to their plain versions
-(both round after every operation, in the same order); the FMA chain
-rounds once per step on the card and twice in its plain version, so the
-two are held to study_ops.fma_chain_tol (constants in (-0.9, 0.9));
-region_over_sep reassociates the rank-1 product, atol=1e-6 (about one
-f32 ulp on values in [0, 2], tests/test_pallas_interpret.py's
-tolerance); a rendered f16 frame may then differ by one f16 ulp
-(atol=1e-3 at values up to 1). A mixed-content frame (DV clips through
+tile_fold, roofline_fold), and the bf16 forms of the three render
+kernels, are bit-identical to their plain versions (both round after
+every operation, in the same order); the FMA chain rounds once per step
+on the card and twice in its plain version, so the two are held to
+study_ops.fma_chain_tol (constants in (-0.9, 0.9)); region_over_sep is
+held to atol=1e-6 (about one f32 ulp on values in [0, 2],
+tests/test_pallas_interpret.py's tolerance) and a rendered f16 frame to
+atol=1e-3 (one f16 ulp at values up to 1). A display pull may differ from
+the CPU's by 1 on at most 0.1% of its u8 values (CUDA's powf). A mixed-content frame (DV clips through
 scalers: f32 matmuls summed in cuBLAS's order) is held to the slice's
 tolerance, atol=1e-2 with at least 99% of values bit-equal.
 """
@@ -202,6 +203,131 @@ def test_render_on_card_matches_cpu(cuda):
         np.testing.assert_allclose(got.astype(np.float32),
                                    want.astype(np.float32), rtol=0,
                                    atol=1e-3)
+
+
+# The quality <= 9 forms: bf16 accumulators (and region_over's bf16
+# layer), f32 math, bit-identical to their plain versions.
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('with_base, finalize, out_dtype', [
+    (False, False, None),                # mid fold, stores bf16
+    (True, False, None),                 # bf16 base, stores bf16
+    (True, True, torch.float16),         # finalize from a bf16 base
+    (True, True, torch.float32),
+])
+def test_solid_fold_bf16_kernel_matches_plain(cuda, with_base, finalize,
+                                              out_dtype):
+    rng = np.random.default_rng(71)
+    B, H, W = 3, 270, 481
+    color, box, gain, offset = _on(cuda, *_solid_layers(rng, 4, B, H, W))
+    P = A = None
+    if with_base:
+        P, A = [t.to(torch.bfloat16) for t in _on(
+            cuda, rng.uniform(0, 1, (B, 3, H, W)).astype(np.float32),
+            rng.uniform(0, 1, (B, 1, H, W)).astype(np.float32))]
+    kw = (dict(finalize=True, out_dtype=out_dtype) if finalize
+          else dict(acc_dtype=torch.bfloat16))
+    launches = (co.solid_fold.launches, co.solid_fold.launches_bf16)
+    got = co.solid_fold(P, A, color, box, gain, offset, H, W, **kw)
+    torch.cuda.synchronize()
+    assert (co.solid_fold.launches, co.solid_fold.launches_bf16) == \
+        (launches[0], launches[1] + 1)
+    want = co.solid_fold_plain(P, A, color, box, gain, offset, H, W, **kw)
+    got = [got] if finalize else list(got)
+    want = [want] if finalize else list(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert g.dtype == (out_dtype if finalize else torch.bfloat16)
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kind', ['region_over', 'region_over_sep'])
+@pytest.mark.parametrize('H, W, h, w, dy0, dx0', [
+    (1080, 1920, 512, 1024, 576, 896),   # overhangs the bottom
+    (540, 960, 384, 640, 192, 384),      # overhangs bottom and right
+])
+def test_region_bf16_kernels_match_plain(cuda, kind, H, W, h, w, dy0, dx0):
+    rng = np.random.default_rng(73)
+    B = 3
+    P, A = [t.to(torch.bfloat16) for t in _on(
+        cuda, *[rng.uniform(0, 1, s).astype(np.float32)
+                for s in ((B, 3, H, W), (B, 1, H, W))])]
+    if kind == 'region_over':
+        args = [t.to(torch.bfloat16) for t in _on(
+            cuda, rng.uniform(0, 1, (B, 4, h, w)).astype(np.float32))]
+    else:
+        args = _on(cuda, *[rng.uniform(0, 1, s).astype(np.float32)
+                           for s in ((B, 4), (B, h), (B, w))])
+    P2, A2 = P.clone(), A.clone()
+    fn = getattr(co, kind)
+    launches = (fn.launches, fn.launches_bf16)
+    outP, outA = fn(P, A, *args, dy0, dx0)
+    torch.cuda.synchronize()
+    assert outP is P and outA is A
+    assert (fn.launches, fn.launches_bf16) == (launches[0], launches[1] + 1)
+    getattr(co, kind + '_plain')(P2, A2, *args, dy0, dx0)
+    assert P.dtype == torch.bfloat16
+    assert torch.equal(P, P2) and torch.equal(A, A2)
+
+
+@pytest.mark.gpu
+def test_bf16_wrappers_refuse_mixed_dtypes(cuda):
+    P = torch.zeros((1, 3, 128, 256), device=cuda, dtype=torch.bfloat16)
+    A = torch.zeros((1, 1, 128, 256), device=cuda)
+    with pytest.raises(ValueError):
+        co.region_over(P, A, torch.zeros((1, 4, 64, 128), device=cuda,
+                                         dtype=torch.bfloat16), 0, 0)
+    with pytest.raises(ValueError):
+        co.region_over(P, A.to(torch.bfloat16),
+                       torch.zeros((1, 4, 64, 128), device=cuda), 0, 0)
+    with pytest.raises(ValueError):
+        co.region_over_sep(P.half(), A.half(),
+                           torch.zeros((1, 4), device=cuda),
+                           torch.zeros((1, 64), device=cuda),
+                           torch.zeros((1, 128), device=cuda), 0, 0)
+
+
+@pytest.mark.gpu
+def test_quality_9_render_on_card_matches_cpu(cuda):
+    """The headline at quality 9 (bf16 mid fold, bf16 regions, finalize
+    from bf16) on the card against the plain versions on the CPU. The
+    kernels are bit-identical to their plain versions, but the scalers'
+    taps (torch sums) may differ in an f32 ulp, which a bf16 store can
+    turn into one bf16 ulp: within the quality-9 contract's 1e-2, and
+    at least 99.9% of values bit-equal."""
+    from canvas_tpu_torch import timelines
+    from canvas_tpu_torch.render import RenderPlanner, box2i
+    ws = timelines.build_timeline(1024)
+    window = box2i(0, 0, 959, 539)
+    launches = co.solid_fold.launches_bf16, co.region_over_sep.launches_bf16
+    got = RenderPlanner(ws, window, quality=9).render(128, 136)
+    assert co.solid_fold.launches_bf16 > launches[0]
+    assert co.region_over_sep.launches_bf16 > launches[1]
+    want = RenderPlanner(ws, window, quality=9, device='cpu').render(128, 136)
+    np.testing.assert_allclose(got.astype(np.float32),
+                               want.astype(np.float32), rtol=0, atol=1e-2)
+    assert np.mean(got.view(np.uint16) == want.view(np.uint16)) >= 0.999
+
+
+@pytest.mark.gpu
+def test_render_display_on_card_matches_cpu(cuda):
+    """render_display on the card against the CPU: u8 within 1 on at
+    most 0.1% of values (CUDA's powf against the CPU's, in the last
+    ulp)."""
+    from canvas_tpu_torch import timelines
+    from canvas_tpu_torch.render import RenderPlanner, box2i
+    ws = timelines.build_timeline(1024)
+    window = box2i(0, 0, 959, 539)
+    card = RenderPlanner(ws, window)
+    cpu = RenderPlanner(ws, window, device='cpu')
+    for kw in ({}, {'intent': 1.25, 'transport': 'rgb24'},
+               {'display_size': (320, 180), 'transport': 'yuv420'}):
+        got = card.render_display(130, **kw).astype(np.int32)
+        want = cpu.render_display(130, **kw).astype(np.int32)
+        assert got.shape == want.shape
+        diff = np.abs(got - want)
+        assert diff.max() <= 1 and np.mean(diff != 0) <= 1e-3, kw
 
 
 # Study kernels. Frame sizes that are not whole 16x128 tiles (1080 rows:

@@ -5,8 +5,10 @@ import system refuses every ``jax``/``jaxlib`` module, the JAX package
 on the CPU the headline timeline, the mixed-content timeline (DV clips
 staged by the port, through animated scalers) and a graph whose source
 the planner host-stages, all built from the port's own classes
-(``canvas_tpu_torch.timelines``, ``canvas_tpu_torch.process``), and
-runs the studies' ``--check --device cpu`` entry points
+(``canvas_tpu_torch.timelines``, ``canvas_tpu_torch.process``), pulls
+display frames (``render_display``, and a playback engine's
+``display_frame`` at quality 5), and runs the studies'
+``--check --device cpu`` entry points
 (canvas_tpu_torch.studies); and nothing it runs even tries such an
 import (a refused attempt could be swallowed by an optional-import
 probe, so attempts are recorded)."""
@@ -71,6 +73,26 @@ SCRIPT = textwrap.dedent('''
     staged = RenderPlanner(ws, box2i(0, 0, 63, 31), device='cpu')
     out = staged.render(0, 4)
     assert out.shape == (4, 4, 32, 64) and out[3, 0, 0, 0] != out[0, 0, 0, 0]
+    bgra = planner.render_display(3, intent=1.25, display_size=(160, 90),
+                                  transport='rgb24')
+    assert bgra.shape == (90, 160, 4) and bgra.dtype == np.uint8
+    assert planner.render_display(3, transport='yuv420').shape == \\
+        (180, 320, 4)
+
+    from fractions import Fraction
+    from canvas_tpu_torch.playback import VideoPlaybackEngine
+    shown = {}
+    engine = VideoPlaybackEngine(
+        ws, process.SystemPresentationClock(), Fraction(30, 1),
+        box2i(0, 0, 63, 31), lambda i, f: shown.__setitem__(i, f),
+        device='cpu')
+    try:
+        engine.set_quality(5)
+        engine.display_frame(2)
+    finally:
+        engine.stop()
+    assert shown[2].shape == (32, 64, 4) and shown[2].dtype == np.uint8
+
     import torch
     from canvas_tpu_torch.studies import (fold_interior_study,
                                           fold_tile_study, vpu_roofline)

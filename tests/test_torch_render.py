@@ -189,11 +189,19 @@ def test_out_of_slice_op_raises():
         planner.render(0, 2)
 
 
-def test_quality_9_raises(timeline):
-    planner = port.RenderPlanner(timeline, box2i(0, 0, 255, 127),
-                                 quality=9, device='cpu')
-    with pytest.raises(NotImplementedError, match='acc16'):
-        planner.render(0, 1)
+def test_quality_9_raises(timeline, ref_timeline):
+    """Quality 9 no longer raises: the acc16 tier renders, bit-equal to
+    the JAX package's quality-9 program on the same plan (more ranges in
+    test_torch_quality.py)."""
+    window = (0, 0, 255, 127)
+    planner = port.RenderPlanner(timeline, box2i(*window), quality=9,
+                                 device='cpu')
+    got = planner.render(128, 131)
+    ref = ref_render.RenderPlanner(ref_timeline, ref_box2i(*window),
+                                   quality=9)
+    want = np.asarray(ref.render(128, 131))
+    assert got.dtype == np.float16 and got.shape == want.shape
+    np.testing.assert_array_equal(got.view(np.uint16), want.view(np.uint16))
 
 
 @pytest.mark.parametrize('kw', [{'mesh': object()}, {'max_inflight': 2}])
@@ -202,8 +210,6 @@ def test_iter_batches_unported_options_raise(timeline, kw):
                                  device='cpu')
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         next(planner.iter_batches(0, 4, batch=4, **kw))
-    with pytest.raises(NotImplementedError, match='render_display'):
-        planner.render_display(0)
     with pytest.raises(ValueError, match='post'):
         next(planner.iter_batches(0, 4, batch=4, post='rgb24'))
 
