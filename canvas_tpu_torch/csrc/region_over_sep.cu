@@ -13,78 +13,130 @@
 // 16 B/px with the quality <= 9 tier's bf16 ones (about 16.8 or 8.4 MB
 // per 1080p frame for a 512x1024 region). The layer itself is never
 // materialised: per frame the kernel reads only h + w weights and four
-// color scalars (all served from L1/L2).
+// color scalars (all served from L1/L2). A first version gave each thread
+// one pixel of a 1-D index (a 64-bit division, two weight loads and four
+// 2- or 4-byte read-modify-writes per pixel) and was held back by its
+// instructions, most of all in bf16.
 //
-// Design: one thread per region pixel (b, y, x), x fastest, so a warp
-// reads and writes 32 neighbouring pixels of one row of each channel
-// plane. The thread rebuilds the layer value of its pixel,
-// l[c] = (color[b,c]*ry[b,y])*rx[b,x], and applies the over step of
-// pallas_ops.py:416-424, P = l[c]*la + P*(1-la) and A = la + A*(1-la)
-// with la = l[3]. Pixels past H or W are skipped: that is the edge
-// clipping the TPU kernel does on store. Everything outside the region
-// is untouched. AccT is the accumulators' stored type (float, or
-// __nv_bfloat16 for the quality <= 9 tier, pallas_ops.py:421-424): the
-// math is f32 either way, a bf16 store rounds to nearest even.
+// Design: the region is whole (64, 128) blocks at (64, 128)-aligned
+// offsets (the planner's invariant, checked by the wrapper), so a block
+// of 256 threads owns a 128-column tile of it (blockIdx.x, blockIdx.y;
+// the frame in blockIdx.z) and nothing is divided.
+// - kVec: a thread owns 4 rows of 8 (bf16) or 4 (f32) neighbouring
+//   columns, one 16-byte access per plane and row (cols.cuh). It loads
+//   its rx weights once and keeps them; per row it forms c[k]*ry once and
+//   then, per pixel, the layer value l[k] = (c[k]*ry)*rx and the over
+//   step of pallas_ops.py:416-424, P = l[k]*la + P*(1-la) and
+//   A = la + A*(1-la) with la = l[3]. This needs W % 8 == 0 and
+//   16-byte-aligned pointers; as dx0 % 128 == 0, each vector then lies
+//   wholly inside or outside the frame.
+// - Otherwise the scalar instantiation runs: one column and 4 rows per
+//   thread over 8x128 tiles, the same arithmetic.
+// Rows past H and columns past W are skipped: that is the edge clipping
+// the TPU kernel does on store; blocks wholly outside are not launched.
+// Each pixel is read and written by one thread only. AccT is the
+// accumulators' stored type (float, or __nv_bfloat16 for the
+// quality <= 9 tier, pallas_ops.py:421-424): the math is f32 either way.
 //
 // Numerics: explicitly rounded intrinsics and --fmad=false, in the op
 // order of the plain version (cuda_ops.region_over_sep_plain, which
 // materialises (color*ry)*rx as the JAX fallback does,
 // pallas_ops.py:396-398): the two are bit-identical in both storage
-// types.
+// types and both instantiations.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "cols.cuh"
 
 namespace {
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
+constexpr int kThreads = 256;
+constexpr int kTileW = 128;  // columns of a tile
+constexpr int kRows = 4;     // rows a thread owns
 
-template <typename AccT>
-__global__ void region_over_sep_kernel(const float* __restrict__ color,
-                                       const float* __restrict__ ry,
-                                       const float* __restrict__ rx,
-                                       AccT* __restrict__ P,
-                                       AccT* __restrict__ A, int h, int w,
-                                       int H, int W, int dy0, int dx0) {
-  const int b = blockIdx.y;
-  const int64_t hw = (int64_t)h * w;
-  const int64_t HW = (int64_t)H * W;
+// The tile of a block: 64x128 with 8 columns a thread (bf16, vector),
+// 32x128 with 4 (f32, vector), 8x128 with one (scalar).
+template <typename AccT, bool kVec>
+struct Geometry {
+  // Columns a thread owns: one 16-byte access in the vector form.
+  static constexpr int kC = kVec ? 16 / (int)sizeof(AccT) : 1;
+  static constexpr int kTX = kTileW / kC;     // threads along a tile row
+  static constexpr int kTY = kThreads / kTX;  // rows of threads
+  static constexpr int kTileH = kRows * kTY;  // rows of a tile
+};
+
+template <typename AccT, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    region_over_sep_kernel(const float* __restrict__ color,
+                           const float* __restrict__ ry,
+                           const float* __restrict__ rx, AccT* __restrict__ P,
+                           AccT* __restrict__ A, int h, int w, int H, int W,
+                           int dy0, int dx0) {
+  constexpr int kC = Geometry<AccT, kVec>::kC;
+  constexpr int kTX = Geometry<AccT, kVec>::kTX;
+  constexpr int kTY = Geometry<AccT, kVec>::kTY;
+  constexpr int kTileH = Geometry<AccT, kVec>::kTileH;
+  const int b = blockIdx.z;
+  const int x = (int)blockIdx.x * kTileW + ((int)threadIdx.x % kTX) * kC;
+  const int gx = dx0 + x;
+  if (gx >= W) return;
+  const int y_first = (int)blockIdx.y * kTileH + (int)threadIdx.x / kTX;
+  float wx[kC];
+  cols::load<kC>(rx + (int64_t)b * w + x, wx);
   const float c0 = color[b * 4 + 0];
   const float c1 = color[b * 4 + 1];
   const float c2 = color[b * 4 + 2];
   const float c3 = color[b * 4 + 3];
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < hw;
-       i += stride) {
-    const int y = (int)(i / w);
-    const int x = (int)(i - (int64_t)y * w);
+  const int64_t HW = (int64_t)H * W;
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) {
+    const int y = y_first + j * kTY;
     const int gy = dy0 + y;
-    const int gx = dx0 + x;
-    if (gy >= H || gx >= W) continue;
+    if (gy >= H) continue;
     const float wy = ry[(int64_t)b * h + y];
-    const float wx = rx[(int64_t)b * w + x];
-    const float la = __fmul_rn(__fmul_rn(c3, wy), wx);
-    const float keep = __fsub_rn(1.f, la);
+    const float cy0 = __fmul_rn(c0, wy);
+    const float cy1 = __fmul_rn(c1, wy);
+    const float cy2 = __fmul_rn(c2, wy);
+    const float cy3 = __fmul_rn(c3, wy);
     const int64_t o = (int64_t)gy * W + gx;
     AccT* p = P + (int64_t)b * 3 * HW + o;
-    store(&p[0], __fadd_rn(__fmul_rn(__fmul_rn(__fmul_rn(c0, wy), wx), la),
-                           __fmul_rn(to_f32(p[0]), keep)));
-    store(&p[HW], __fadd_rn(__fmul_rn(__fmul_rn(__fmul_rn(c1, wy), wx), la),
-                            __fmul_rn(to_f32(p[HW]), keep)));
-    store(&p[2 * HW],
-          __fadd_rn(__fmul_rn(__fmul_rn(__fmul_rn(c2, wy), wx), la),
-                    __fmul_rn(to_f32(p[2 * HW]), keep)));
     AccT* a = A + (int64_t)b * HW + o;
-    store(&a[0], __fadd_rn(la, __fmul_rn(to_f32(a[0]), keep)));
+    float p0[kC], p1[kC], p2[kC], pa[kC];
+    cols::load<kC>(p, p0);
+    cols::load<kC>(p + HW, p1);
+    cols::load<kC>(p + 2 * HW, p2);
+    cols::load<kC>(a, pa);
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      const float la = __fmul_rn(cy3, wx[c]);
+      const float keep = __fsub_rn(1.f, la);
+      p0[c] = __fadd_rn(__fmul_rn(__fmul_rn(cy0, wx[c]), la),
+                        __fmul_rn(p0[c], keep));
+      p1[c] = __fadd_rn(__fmul_rn(__fmul_rn(cy1, wx[c]), la),
+                        __fmul_rn(p1[c], keep));
+      p2[c] = __fadd_rn(__fmul_rn(__fmul_rn(cy2, wx[c]), la),
+                        __fmul_rn(p2[c], keep));
+      pa[c] = __fadd_rn(la, __fmul_rn(pa[c], keep));
+    }
+    cols::store<kC>(p, p0);
+    cols::store<kC>(p + HW, p1);
+    cols::store<kC>(p + 2 * HW, p2);
+    cols::store<kC>(a, pa);
   }
+}
+
+template <typename AccT, bool kVec>
+void launch(cudaStream_t s, const float* color, const float* ry,
+            const float* rx, void* P, void* A, int B, int h, int w, int H,
+            int W, int dy0, int dx0) {
+  // Only the tiles that meet the frame.
+  constexpr int kTileH = Geometry<AccT, kVec>::kTileH;
+  const int cols_in = w < W - dx0 ? w : W - dx0;
+  const int rows_in = h < H - dy0 ? h : H - dy0;
+  if (cols_in <= 0 || rows_in <= 0 || B <= 0) return;
+  const dim3 grid((cols_in + kTileW - 1) / kTileW,
+                  (rows_in + kTileH - 1) / kTileH, B);
+  region_over_sep_kernel<AccT, kVec><<<grid, kThreads, 0, s>>>(
+      color, ry, rx, static_cast<AccT*>(P), static_cast<AccT*>(A), h, w, H, W,
+      dy0, dx0);
 }
 
 }  // namespace
@@ -92,26 +144,26 @@ __global__ void region_over_sep_kernel(const float* __restrict__ color,
 extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 = launched). bf16 = 1:
-// P and A are bf16, else f32.
+// P and A are bf16, else f32. vec = 1 launches the 16-byte form:
+// W % 8 == 0 and rx, P and A at multiples of 16 bytes.
 int canvas_region_over_sep(const void* color, const void* ry, const void* rx,
                            void* P, void* A, int B, int h, int w, int H,
-                           int W, int dy0, int dx0, int bf16, int blocks_x,
+                           int W, int dy0, int dx0, int bf16, int vec,
                            int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(blocks_x, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* c = static_cast<const float*>(color);
   const float* y = static_cast<const float*>(ry);
   const float* x = static_cast<const float*>(rx);
-  if (bf16)
-    region_over_sep_kernel<__nv_bfloat16><<<grid, 256, 0, s>>>(
-        c, y, x, static_cast<__nv_bfloat16*>(P),
-        static_cast<__nv_bfloat16*>(A), h, w, H, W, dy0, dx0);
+  if (bf16 && vec)
+    launch<__nv_bfloat16, true>(s, c, y, x, P, A, B, h, w, H, W, dy0, dx0);
+  else if (bf16)
+    launch<__nv_bfloat16, false>(s, c, y, x, P, A, B, h, w, H, W, dy0, dx0);
+  else if (vec)
+    launch<float, true>(s, c, y, x, P, A, B, h, w, H, W, dy0, dx0);
   else
-    region_over_sep_kernel<float><<<grid, 256, 0, s>>>(
-        c, y, x, static_cast<float*>(P), static_cast<float*>(A), h, w, H, W,
-        dy0, dx0);
+    launch<float, false>(s, c, y, x, P, A, B, h, w, H, W, dy0, dx0);
   return (int)cudaGetLastError();
 }
 

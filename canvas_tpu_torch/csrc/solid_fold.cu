@@ -4,185 +4,245 @@
 // Replaces the Pallas TPU kernel canvas_tpu/ops/pallas_ops.py
 // `_kernel_factory` (lines 107-170, called from `solid_fold`, 179).
 //
-// What bounds it on an H100: device-memory bytes. Per pixel the work is
-// a handful of compares, selects and multiply-adds per layer, while the
-// stores are 16 B/px (mid fold: f32 P and A), 8 B/px (mid fold in bf16,
-// or finalize in f16) plus 16 B/px of f32 or 8 B/px of bf16 base reads.
-// At 1080p the f32 mid fold writes 33.2 MB per frame and the f16
-// finalize from an f32 base moves 49.8 MB, against 3.35 TB/s.
+// What bounds it on an H100: device-memory bytes, once the instructions
+// are out of the way. The stores are 16 B/px (mid fold: f32 P and A),
+// 8 B/px (mid fold in bf16, or finalize in f16) plus 16 B/px of f32 or
+// 8 B/px of bf16 base reads. A first version walked a 1-D pixel index
+// (a 64-bit division per pixel), tested every layer in every pixel and
+// moved 2 or 4 bytes per access: about 208 instructions per pixel, which
+// took longer than the bytes in every form, most of all in bf16.
 //
-// Design: one block covers a strip of pixels of one frame b (grid.y).
-// It first loads that frame's L layer scalars (color, box, gain,
-// offset: L*40 bytes) into shared memory and computes there, in f32,
-// the premultiplied layer color pa[c] = (color[c]*g + o)*a in that
-// order. Each thread then walks the layers for its pixels with the
-// per-pixel math of pallas_ops.py:143-157, reading the base once and
-// writing the output once; neighbouring threads touch neighbouring
-// pixels, so every load and store is coalesced. No layer tensor and no
-// intermediate ever reaches device memory.
+// Design (the tiles and lists of tile_fold.cu, with wide accesses):
+// - One block of 256 threads per 16x128 tile of one frame (fold_tile.cuh;
+//   the frame in blockIdx.z). No division anywhere.
+// - The block loads the frame's L layer scalars into shared memory (the
+//   premultiplied color pa[c] = (color[c]*g + o)*a, rounded in that
+//   order), then its first warp builds the tile's covering list, in z
+//   order, with a ballot per 32 layers: a layer whose box is empty or
+//   misses the tile is left out; one whose box contains the tile is
+//   marked so and takes `step_inside` (no compares, no selects); the rest
+//   take `step_select`. The choice is one for the whole block, so the
+//   branch never diverges.
+// - kVec: a thread owns 8 neighbouring columns of one row where every
+//   plane holds 2-byte values, 4 columns of two rows where one holds f32,
+//   so the widest plane is read or written with one 16-byte access a
+//   thread (cols.cuh) and a warp's access covers whole sectors. This
+//   needs W % 8 == 0 and 16-byte-aligned planes; the wrapper decides.
+//   Without it the scalar instantiation runs: one column and 8 rows per
+//   thread, the same tiles and lists.
+// No layer tensor and no intermediate ever reaches device memory.
 //
 // Storage types: the quality <= 9 tier keeps the pass-boundary (P, A)
 // accumulators in bf16 (pallas_ops.py:135-138, 166-168, 256-257): the
 // base may be read as bf16 (BaseT) and the mid fold may store bf16
-// (kMode 3). The math is f32 in every form; a bf16 base is widened on
-// load and a bf16 store rounds to nearest even (__float2bfloat16_rn).
+// (kMode 3). The math is f32 in every form.
 //
 // Numerics: every multiply, add and divide is an explicitly rounded
 // intrinsic (and the file is built with --fmad=false), so no chain is
-// contracted into an FMA and the result is bit-identical to the plain
-// PyTorch fold (`_fold_torch`), which rounds after every operation.
-// The finalize writes f16 with __float2half_rn and the bf16 mid fold
-// with __float2bfloat16_rn, the same round-to-nearest-even as the plain
-// path's f32 math followed by `.half()` / `.to(torch.bfloat16)`.
+// contracted into an FMA and the result equals the plain PyTorch fold
+// (`_fold_torch`), which rounds after every operation. Leaving out a
+// layer that misses the tile is exact: for every pixel of the tile its
+// mask is 0, so the masked step multiplies by exactly 1 and adds exactly
+// 0 (only the sign of a zero could differ, -0 + 0 = +0, which no
+// comparison of values sees). Narrow stores round to nearest even per
+// value (cols.cuh), as `.half()` and `.to(torch.bfloat16)` do.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "cols.cuh"
+#include "fold_tile.cuh"
 
 namespace {
 
-struct Layer {
-  int y0, y1, x0, x1;  // inclusive box, relative to the frame; y1 < y0 = empty
-  float a;             // layer alpha
-  float p[3];          // premultiplied color (c*g + o)*a
-};
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+using namespace fold_tile;
 
 // kMode: 0 = store the (P, A) accumulators as f32,
 //        1 = finalize to (B, 4, H, W) f32, 2 = finalize to f16,
 //        3 = store the (P, A) accumulators as bf16.
-// BaseT: the stored type of the base (P, A), float or __nv_bfloat16.
-// AccOf<kMode>: the type of the stored A (f32 but for kMode 3; unused by
-// a finalize), so the f32 forms compile exactly as they did before the
-// bf16 forms were added.
 template <int kMode>
-struct AccOf {
+struct OutOf {
   using type = float;
 };
 template <>
-struct AccOf<3> {
+struct OutOf<2> {
+  using type = __half;
+};
+template <>
+struct OutOf<3> {
   using type = __nv_bfloat16;
 };
 
-template <bool kBase, typename BaseT, int kMode>
-__global__ void solid_fold_kernel(const float* __restrict__ color,
-                                  const int* __restrict__ box,
-                                  const float* __restrict__ gain,
-                                  const float* __restrict__ offset,
-                                  const BaseT* __restrict__ baseP,
-                                  const BaseT* __restrict__ baseA,
-                                  void* __restrict__ out0,
-                                  typename AccOf<kMode>::type* __restrict__ outA,
-                                  int L, int B, int H, int W) {
-  extern __shared__ Layer layers[];
-  const int b = blockIdx.y;
-  for (int l = threadIdx.x; l < L; l += blockDim.x) {
-    const int64_t lb = (int64_t)l * B + b;
-    const float* c = color + lb * 4;
-    const int* bx = box + lb * 4;
-    const float g = gain[lb];
-    const float o = offset[lb];
-    Layer ly;
-    ly.y0 = bx[0];
-    ly.y1 = bx[1];
-    ly.x0 = bx[2];
-    ly.x1 = bx[3];
-    ly.a = c[3];
-    for (int k = 0; k < 3; ++k)
-      ly.p[k] = __fmul_rn(__fadd_rn(__fmul_rn(c[k], g), o), c[3]);
-    layers[l] = ly;
+// BaseT: the stored type of the base (P, A), float or __nv_bfloat16.
+template <bool kBase, typename BaseT, int kMode, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    solid_fold_kernel(const float* __restrict__ color,
+                      const int* __restrict__ box,
+                      const float* __restrict__ gain,
+                      const float* __restrict__ offset,
+                      const BaseT* __restrict__ baseP,
+                      const BaseT* __restrict__ baseA, void* __restrict__ out0,
+                      void* __restrict__ outA, int L, int B, int H, int W) {
+  using OutT = typename OutOf<kMode>::type;
+  // Columns a thread owns: one 16-byte access of the widest plane.
+  constexpr bool kAnyF32 = (kBase && sizeof(BaseT) == 4) || sizeof(OutT) == 4;
+  constexpr int kC = kVec ? (kAnyF32 ? 4 : 8) : 1;
+  constexpr int kTX = kTileW / kC;         // threads along a row of the tile
+  constexpr int kTY = kThreads / kTX;      // rows of threads
+  constexpr int kR = kTileH / kTY;         // rows a thread owns
+  extern __shared__ Layer layers[];  // L layers, then the covering list
+  __shared__ int n_cover;
+  int* cover = reinterpret_cast<int*>(layers + L);
+  const int tid = threadIdx.x;
+  const int b = blockIdx.z;
+  for (int l = tid; l < L; l += kThreads)
+    layers[l] = load_solid(color, box, gain, offset, l, b, B);
+  __syncthreads();
+  const Tile t(H, W);
+  if (tid < 32) {
+    // Entry k of the list: 2 * layer + (the tile lies inside its box).
+    int n = 0;
+    for (int l0 = 0; l0 < L; l0 += 32) {
+      const int l = l0 + tid;
+      bool listed = false, inside = false;
+      if (l < L) {
+        const Layer ly = layers[l];
+        listed = ly.y0 <= ly.y1 && ly.x0 <= ly.x1 && t.meets(ly);
+        inside = t.inside(ly);
+      }
+      const unsigned votes = __ballot_sync(0xffffffffu, listed);
+      if (listed)
+        cover[n + __popc(votes & ((1u << tid) - 1u))] = 2 * l + (int)inside;
+      n += __popc(votes);
+    }
+    if (tid == 0) n_cover = n;
   }
   __syncthreads();
 
+  const int x = t.x0 + (tid % kTX) * kC;
+  const int y_first = t.y0 + tid / kTX;    // row j: y_first + j * kTY
+  if (x >= W || y_first >= H) return;
   const int64_t HW = (int64_t)H * W;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t px = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; px < HW;
-       px += stride) {
-    const int row = (int)(px / W);
-    const int col = (int)(px - (int64_t)row * W);
-    float P0 = 0.f, P1 = 0.f, P2 = 0.f, A = 0.f;
-    if (kBase) {
-      const BaseT* bp = baseP + (int64_t)b * 3 * HW + px;
-      P0 = to_f32(bp[0]);
-      P1 = to_f32(bp[HW]);
-      P2 = to_f32(bp[2 * HW]);
-      A = to_f32(baseA[(int64_t)b * HW + px]);
-    }
-    for (int l = 0; l < L; ++l) {
-      const Layer& ly = layers[l];
-      const bool m = (row >= ly.y0) & (row <= ly.y1) & (col >= ly.x0) &
-                     (col <= ly.x1);
-      const float a = m ? ly.a : 0.f;
-      const float keep = __fsub_rn(1.f, a);
-      P0 = __fadd_rn(m ? ly.p[0] : 0.f, __fmul_rn(P0, keep));
-      P1 = __fadd_rn(m ? ly.p[1] : 0.f, __fmul_rn(P1, keep));
-      P2 = __fadd_rn(m ? ly.p[2] : 0.f, __fmul_rn(P2, keep));
-      A = __fadd_rn(a, __fmul_rn(A, keep));
-    }
-    if constexpr (kMode == 3) {
-      __nv_bfloat16* op =
-          static_cast<__nv_bfloat16*>(out0) + (int64_t)b * 3 * HW + px;
-      op[0] = __float2bfloat16_rn(P0);
-      op[HW] = __float2bfloat16_rn(P1);
-      op[2 * HW] = __float2bfloat16_rn(P2);
-      outA[(int64_t)b * HW + px] = __float2bfloat16_rn(A);
-    } else if (kMode == 0) {
-      float* op = static_cast<float*>(out0) + (int64_t)b * 3 * HW + px;
-      op[0] = P0;
-      op[HW] = P1;
-      op[2 * HW] = P2;
-      outA[(int64_t)b * HW + px] = A;
-    } else {
-      const bool nz = A != 0.f;
-      const float safe = nz ? A : 1.f;
-      const float r = nz ? __fdiv_rn(P0, safe) : 0.f;
-      const float g = nz ? __fdiv_rn(P1, safe) : 0.f;
-      const float bl = nz ? __fdiv_rn(P2, safe) : 0.f;
-      const int64_t o = (int64_t)b * 4 * HW + px;
-      if (kMode == 1) {
-        float* op = static_cast<float*>(out0) + o;
-        op[0] = r;
-        op[HW] = g;
-        op[2 * HW] = bl;
-        op[3 * HW] = A;
-      } else {
-        __half* op = static_cast<__half*>(out0) + o;
-        op[0] = __float2half_rn(r);
-        op[HW] = __float2half_rn(g);
-        op[2 * HW] = __float2half_rn(bl);
-        op[3 * HW] = __float2half_rn(A);
+  float acc[kR][kC][4];
+#pragma unroll
+  for (int j = 0; j < kR; ++j) {
+    const int y = y_first + j * kTY;
+    float base[4][kC] = {};
+    if constexpr (kBase) {
+      if (y < H) {
+        const int64_t o = (int64_t)y * W + x;
+        const BaseT* bp = baseP + (int64_t)b * 3 * HW + o;
+        cols::load<kC>(bp, base[0]);
+        cols::load<kC>(bp + HW, base[1]);
+        cols::load<kC>(bp + 2 * HW, base[2]);
+        cols::load<kC>(baseA + (int64_t)b * HW + o, base[3]);
       }
+    }
+#pragma unroll
+    for (int c = 0; c < kC; ++c)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[j][c][k] = base[k][c];
+  }
+
+  const int n = n_cover;
+  for (int i = 0; i < n; ++i) {
+    const int entry = cover[i];
+    const Layer ly = layers[entry >> 1];
+    if (entry & 1) {
+#pragma unroll
+      for (int j = 0; j < kR; ++j)
+#pragma unroll
+        for (int c = 0; c < kC; ++c) step_inside(ly, acc[j][c]);
+    } else {
+      bool cm[kC];
+#pragma unroll
+      for (int c = 0; c < kC; ++c) cm[c] = (x + c >= ly.x0) & (x + c <= ly.x1);
+#pragma unroll
+      for (int j = 0; j < kR; ++j) {
+        const int y = y_first + j * kTY;
+        const bool rm = (y >= ly.y0) & (y <= ly.y1);
+#pragma unroll
+        for (int c = 0; c < kC; ++c) step_select(ly, rm & cm[c], acc[j][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < kR; ++j) {
+    const int y = y_first + j * kTY;
+    if (y >= H) continue;
+    const int64_t o = (int64_t)y * W + x;
+    float ch[4][kC];
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      const float* a = acc[j][c];
+      if (kMode == 0 || kMode == 3) {
+        ch[0][c] = a[0], ch[1][c] = a[1], ch[2][c] = a[2];
+      } else {
+        const bool nz = a[3] != 0.f;
+        const float safe = nz ? a[3] : 1.f;
+        ch[0][c] = nz ? __fdiv_rn(a[0], safe) : 0.f;
+        ch[1][c] = nz ? __fdiv_rn(a[1], safe) : 0.f;
+        ch[2][c] = nz ? __fdiv_rn(a[2], safe) : 0.f;
+      }
+      ch[3][c] = a[3];
+    }
+    if (kMode == 0 || kMode == 3) {
+      OutT* op = static_cast<OutT*>(out0) + (int64_t)b * 3 * HW + o;
+      cols::store<kC>(op, ch[0]);
+      cols::store<kC>(op + HW, ch[1]);
+      cols::store<kC>(op + 2 * HW, ch[2]);
+      cols::store<kC>(static_cast<OutT*>(outA) + (int64_t)b * HW + o, ch[3]);
+    } else {
+      OutT* op = static_cast<OutT*>(out0) + (int64_t)b * 4 * HW + o;
+      cols::store<kC>(op, ch[0]);
+      cols::store<kC>(op + HW, ch[1]);
+      cols::store<kC>(op + 2 * HW, ch[2]);
+      cols::store<kC>(op + 3 * HW, ch[3]);
     }
   }
 }
 
-template <bool kBase, typename BaseT>
-void launch(int mode, dim3 grid, dim3 block, size_t smem,
-            cudaStream_t stream, const float* color, const int* box,
-            const float* gain, const float* offset, const void* baseP,
-            const void* baseA, void* out0, void* outA, int L, int B, int H,
-            int W) {
-  const BaseT* bp = static_cast<const BaseT*>(baseP);
-  const BaseT* ba = static_cast<const BaseT*>(baseA);
-  float* oa = static_cast<float*>(outA);
-  if (mode == 0)
-    solid_fold_kernel<kBase, BaseT, 0><<<grid, block, smem, stream>>>(
-        color, box, gain, offset, bp, ba, out0, oa, L, B, H, W);
-  else if (mode == 1)
-    solid_fold_kernel<kBase, BaseT, 1><<<grid, block, smem, stream>>>(
-        color, box, gain, offset, bp, ba, out0, oa, L, B, H, W);
-  else if (mode == 2)
-    solid_fold_kernel<kBase, BaseT, 2><<<grid, block, smem, stream>>>(
-        color, box, gain, offset, bp, ba, out0, oa, L, B, H, W);
+struct Args {
+  const float* color;
+  const int* box;
+  const float* gain;
+  const float* offset;
+  const void* baseP;
+  const void* baseA;
+  void* out0;
+  void* outA;
+  int L, B, H, W;
+  cudaStream_t stream;
+};
+
+template <bool kBase, typename BaseT, int kMode, bool kVec>
+void launch(const Args& a) {
+  const size_t smem =
+      (sizeof(Layer) + sizeof(int)) * (size_t)(a.L > 0 ? a.L : 1);
+  solid_fold_kernel<kBase, BaseT, kMode, kVec>
+      <<<tile_grid(a.H, a.W, a.B), kThreads, smem, a.stream>>>(
+          a.color, a.box, a.gain, a.offset,
+          static_cast<const BaseT*>(a.baseP),
+          static_cast<const BaseT*>(a.baseA), a.out0, a.outA, a.L, a.B, a.H,
+          a.W);
+}
+
+template <bool kBase, typename BaseT, int kMode>
+void launch_form(const Args& a, bool vec) {
+  if (vec)
+    launch<kBase, BaseT, kMode, true>(a);
   else
-    solid_fold_kernel<kBase, BaseT, 3><<<grid, block, smem, stream>>>(
-        color, box, gain, offset, bp, ba, out0,
-        static_cast<__nv_bfloat16*>(outA), L, B, H, W);
+    launch<kBase, BaseT, kMode, false>(a);
+}
+
+template <bool kBase, typename BaseT>
+void launch_mode(const Args& a, int mode, bool vec) {
+  if (mode == 0)
+    launch_form<kBase, BaseT, 0>(a, vec);
+  else if (mode == 1)
+    launch_form<kBase, BaseT, 1>(a, vec);
+  else if (mode == 2)
+    launch_form<kBase, BaseT, 2>(a, vec);
+  else
+    launch_form<kBase, BaseT, 3>(a, vec);
 }
 
 }  // namespace
@@ -191,32 +251,35 @@ extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 = launched).
 // baseP/baseA may be null (empty base); base_bf16 = 1 reads them as
-// bf16, 0 as f32. mode as kMode above.
+// bf16, 0 as f32. mode as kMode above. vec = 1 launches the 16-byte
+// form: W % 8 == 0 and every plane pointer a multiple of 16.
 int canvas_solid_fold(const void* color, const void* box, const void* gain,
                       const void* offset, const void* baseP,
                       const void* baseA, void* out0, void* outA, int L,
-                      int B, int H, int W, int mode, int base_bf16,
-                      int blocks_x, int device, void* stream) {
+                      int B, int H, int W, int mode, int base_bf16, int vec,
+                      int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (mode < 0 || mode > 3) return (int)cudaErrorInvalidValue;
-  const dim3 grid(blocks_x, B);
-  const dim3 block(256);
-  const size_t smem = sizeof(Layer) * (size_t)(L > 0 ? L : 1);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* c = static_cast<const float*>(color);
-  const int* bx = static_cast<const int*>(box);
-  const float* g = static_cast<const float*>(gain);
-  const float* o = static_cast<const float*>(offset);
+  const Args a = {static_cast<const float*>(color),
+                  static_cast<const int*>(box),
+                  static_cast<const float*>(gain),
+                  static_cast<const float*>(offset),
+                  baseP,
+                  baseA,
+                  out0,
+                  outA,
+                  L,
+                  B,
+                  H,
+                  W,
+                  static_cast<cudaStream_t>(stream)};
   if (baseP == nullptr)
-    launch<false, float>(mode, grid, block, smem, s, c, bx, g, o, baseP,
-                         baseA, out0, outA, L, B, H, W);
+    launch_mode<false, float>(a, mode, vec != 0);
   else if (base_bf16)
-    launch<true, __nv_bfloat16>(mode, grid, block, smem, s, c, bx, g, o,
-                                baseP, baseA, out0, outA, L, B, H, W);
+    launch_mode<true, __nv_bfloat16>(a, mode, vec != 0);
   else
-    launch<true, float>(mode, grid, block, smem, s, c, bx, g, o, baseP,
-                        baseA, out0, outA, L, B, H, W);
+    launch_mode<true, float>(a, mode, vec != 0);
   return (int)cudaGetLastError();
 }
 

@@ -29,7 +29,7 @@ BUILD_DIR = _PKG / '_build'
 SOURCES = ('solid_fold.cu', 'region_over_sep.cu', 'region_over.cu',
            'fold_study.cu', 'tile_fold.cu', 'fma_chain.cu')
 #: Headers the sources include; part of the library's hash.
-HEADERS = ('fold_tile.cuh',)
+HEADERS = ('fold_tile.cuh', 'cols.cuh')
 #: Compile flags of each source (``-c``); the objects link with ``-shared``.
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '--fmad=false', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
@@ -39,9 +39,9 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     # color, box, gain, offset, baseP, baseA, out0, outA,
-    # L, B, H, W, mode, base_bf16, blocks_x, device, stream
+    # L, B, H, W, mode, base_bf16, vec, device, stream
     'canvas_solid_fold': (_P,) * 8 + (_I,) * 8 + (_P,),
-    # color, ry, rx, P, A, B, h, w, H, W, dy0, dx0, bf16, blocks_x,
+    # color, ry, rx, P, A, B, h, w, H, W, dy0, dx0, bf16, vec,
     # device, stream
     'canvas_region_over_sep': (_P,) * 5 + (_I,) * 10 + (_P,),
     # layer, P, A, B, h, w, H, W, dy0, dx0, bf16, blocks_x, device, stream

@@ -39,6 +39,7 @@ Transfer curves (gammatab.c:38-250):
   gamma45 ramp (u8):          clamp(x^0.45 * 255, 0, 255)  (gammatab.c:8-10)
 """
 
+import functools
 import math
 import threading
 
@@ -582,22 +583,42 @@ def yuv420_pack_studio(x16):
 
 # --- display transports (render_display, the playback engine) ------------
 
+@functools.lru_cache(maxsize=8)
+def _levels_table(intent, device):
+    """The display levels of every f16 bit pattern at *intent* (None, or
+    a float) as a 65,536-entry f32 table on *device* (a string): the
+    gamma45 ramp ``x ** 0.45 * 255`` for None; else the widget_gl soft
+    mode, linear -> sRGB, truncated to the f16 grid like a hit in the
+    host's sRGB table, then ``pow(intent) * 255`` (color.py:524-530,
+    578-587); NaN -> 0, clamped to [0, 255]. Built on the host in f32,
+    in that order, with libm's ``powf``, which is what XLA computes on
+    the CPU bit for bit; ``torch.pow`` is an ulp or two away on ~2% of
+    inputs. The few most recent (intent, device) tables are kept."""
+    powf = _libm_powf()
+    x = _all_half_values()
+    f32 = np.float32
+    with np.errstate(all='ignore'):
+        if intent is None:
+            y = powf(x, 0.45) * f32(255.0)
+        else:
+            s = np.where(x <= f32(0.0031308), x * f32(12.92),
+                         f32(1.055) * powf(x, 1.0 / 2.4) - f32(0.055))
+            s = float_to_half_trunc(s).astype(f32)
+            y = powf(s, intent) * f32(255.0)
+        y = np.clip(np.nan_to_num(y, nan=0.0), 0.0, 255.0)
+    return torch.from_numpy(y.astype(f32)).to(device)
+
+
 def _display_levels(x16, intent):
     """f16 frames -> the display's u8 levels as unrounded f32 in
-    [0, 255]: the gamma45 ramp for ``intent=None``; else the widget_gl
-    soft mode, linear -> sRGB quantized to the f16 grid by truncation
-    like a hit in the host's sRGB table, then ``pow(intent)``
-    (color.py:524-530, 578-587). ``torch.pow`` lands within two f32
-    ulps of XLA's (libm's ``powf``), and over every f16 value the u8 results
-    come out equal (tests/test_torch_display.py)."""
-    x = x16.float()
-    if intent is None:
-        y = torch.pow(x, 0.45) * 255.0
-    else:
-        s = torch.where(x <= 0.0031308, x * 12.92,
-                        1.055 * torch.pow(x, 1.0 / 2.4) - 0.055)
-        y = torch.pow(quantize_f16_trunc(s), float(intent)) * 255.0
-    return torch.clamp(torch.nan_to_num(y, nan=0.0), 0.0, 255.0)
+    [0, 255], gathered by the f16 bits from ``_levels_table`` (as
+    ``device_transfer`` does): equal to the JAX package's f32 levels on
+    every f16 value, so what is rounded or averaged from them comes out
+    equal too (tests/test_torch_display.py)."""
+    table = _levels_table(None if intent is None else float(intent),
+                          str(x16.device))
+    bits = x16.to(torch.float16).view(torch.int16).to(torch.int32) & 0xFFFF
+    return table[bits]
 
 
 def display_u8(x16, intent=1.25, order=(2, 1, 0, 3)):
@@ -608,17 +629,42 @@ def display_u8(x16, intent=1.25, order=(2, 1, 0, 3)):
                        .to(torch.uint8), order)
 
 
+def _f32(c):
+    """The f32 constant nearest to *c*, as a Python float."""
+    return float(np.float32(c))
+
+
+def _fma(a, b, c):
+    """``a * b + c`` rounded once to f32 (*a* an f32 tensor; *b*, *c*
+    tensors or f32-valued floats): the product of two f32 values is exact
+    in f64, and the sum is rounded there and then to f32. XLA's CPU code
+    contracts a multiply that feeds an add into one fused multiply-add,
+    which eager torch cannot ask for, and a display level that lands on
+    a rounding tie shows the difference."""
+    return (a.double() * b + c).float()
+
+
 def yuv420_pack(x16, intent=None):
     """(B, 4, H, W) f16 frames -> (B, H*W + 2*ceil(H/2)*ceil(W/2)) u8:
     the LOSSY display transport, full-range BT.601 Y at full resolution
     and the 2x2 mean of Cb/Cr (odd sizes edge-replicated) over the
     display levels of ``intent`` (None: the gamma45 ramp)
-    (``_yuv420_pack_math``, color.py:575-608)."""
+    (``_yuv420_pack_math``, color.py:575-608).
+
+    Rounded where the JAX package's code, compiled for the CPU, rounds:
+    the Y it writes out rounds after every operation, but the Y inside
+    its chroma and the chroma's own multiply-add are fused (``_fma``),
+    and the 2x2 sum runs row by row. With that the bytes equal the JAX
+    package's on every f16 value and on the seeded odd-sized frames of
+    tests/test_torch_display.py; on larger seeded frames at most 1e-5
+    of values still differ, by 1 (its compiler's choice there is not
+    reproduced). The same bytes on every device."""
     y = _display_levels(x16, intent)
     R, G, Bl = y[:, 0], y[:, 1], y[:, 2]
     Y = 0.299 * R + 0.587 * G + 0.114 * Bl
-    Cb = 128.0 + (Bl - Y) * 0.564
-    Cr = 128.0 + (R - Y) * 0.713
+    Yc = _fma(Bl, _f32(0.114), _fma(R, _f32(0.299), 0.587 * G))
+    Cb = _fma(Bl - Yc, _f32(0.564), 128.0)
+    Cr = _fma(R - Yc, _f32(0.713), 128.0)
     B = Y.shape[0]
 
     def q(c):
@@ -626,9 +672,10 @@ def yuv420_pack(x16, intent=None):
 
     def sub(c):
         c = _edge_pad_even(c)
-        h2, w2 = c.shape[1] // 2, c.shape[2] // 2
-        return torch.clamp(c.reshape(B, h2, 2, w2, 2).mean(dim=(2, 4)),
-                           0.0, 255.0)
+        top, bottom = c[:, 0::2], c[:, 1::2]
+        total = ((top[:, :, 0::2] + top[:, :, 1::2]) + bottom[:, :, 0::2]
+                 + bottom[:, :, 1::2])
+        return torch.clamp(total / 4.0, 0.0, 255.0)
 
     return torch.cat([q(Y), q(sub(Cb)), q(sub(Cr))], dim=1)
 

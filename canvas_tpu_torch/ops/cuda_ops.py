@@ -19,6 +19,13 @@ attributes, one per form (``solid_fold.launches`` and
 ``solid_fold.launches_bf16``, likewise for ``region_over_sep`` and
 ``region_over``), so a run can show that its path went through each.
 
+``solid_fold`` and ``region_over_sep`` each have two instantiations of
+one template: one that moves 16 bytes a thread, for rows of a multiple
+of 8 values in planes that start at a multiple of 16 bytes, and a
+scalar one for everything else. ``_vector_ok`` chooses from the row
+length and the tensors' pointers; ``launches_vector`` and
+``launches_scalar`` count which one ran. Both give the same bits.
+
 The plain versions keep the op order of the JAX fallbacks, rounding
 after every operation (PyTorch never contracts separate ops into an
 FMA) and storing bf16 with ``.to(torch.bfloat16)`` (round to nearest
@@ -34,11 +41,14 @@ import torch.nn.functional as F
 from canvas_tpu_torch.ops import _build
 
 __all__ = ['solid_fold', 'solid_stack', 'region_over', 'region_over_sep',
-           'solid_fold_plain', 'region_over_plain', 'region_over_sep_plain']
+           'solid_fold_plain', 'region_over_plain', 'region_over_sep_plain',
+           'fold_tile_pixel_layers']
 
 # The damage-region block grid (planner quantization, sources.py).
 _QR, _QC = 64, 128
 _THREADS = 256
+#: The tile of one block of ``solid_fold`` (csrc/fold_tile.cuh).
+FOLD_TILE = (16, 128)
 #: The stored types of the (P, A) accumulators: f32, or bf16 for the
 #: quality <= 9 tier.
 _ACC_DTYPES = (torch.float32, torch.bfloat16)
@@ -74,12 +84,27 @@ def _acc_dtype(name, t):
     return t.dtype
 
 
-def _count(fn, bf16):
-    """Add one launch to *fn*'s counter of the f32 or the bf16 form."""
+def _count(fn, bf16, vector=None):
+    """Add one launch to *fn*'s counter of the f32 or the bf16 form and,
+    where the kernel has a 16-byte and a scalar instantiation, to the
+    counter of the one launched (*vector* True or False)."""
     if bf16:
         fn.launches_bf16 += 1
     else:
         fn.launches += 1
+    if vector:
+        fn.launches_vector += 1
+    elif vector is not None:
+        fn.launches_scalar += 1
+
+
+def _vector_ok(W, *pointers):
+    """Whether a kernel may move 8 neighbouring values of a row with
+    16-byte accesses: rows of *W* values with W % 8 == 0, and every plane
+    pointer (``data_ptr()``, an int) a multiple of 16. A contiguous view
+    can start anywhere in its storage, so the pointers decide, not the
+    shapes. Otherwise the scalar instantiation of the same kernel runs."""
+    return W % 8 == 0 and all(p % 16 == 0 for p in pointers)
 
 
 # --- solid_fold ---------------------------------------------------------
@@ -207,6 +232,8 @@ def solid_fold(P, A, color, box, gain, offset, H, W, finalize=False,
         mode = 0 if acc_dtype == torch.float32 else 3
     base_bf16 = base_dtype == torch.bfloat16
     if B and H and W:
+        planes = [t.data_ptr() for t in (P, A, out0, outA) if t is not None]
+        vector = _vector_ok(W, *planes)
         lib = _build.library()
         rc = lib.canvas_solid_fold(
             color.data_ptr(), box.data_ptr(), gain.data_ptr(),
@@ -214,15 +241,47 @@ def solid_fold(P, A, color, box, gain, offset, H, W, finalize=False,
             P.data_ptr() if P is not None else None,
             A.data_ptr() if A is not None else None,
             out0.data_ptr(), outA.data_ptr() if outA is not None else None,
-            L, B, H, W, mode, int(base_bf16), _blocks(H * W, 4), dev.index,
+            L, B, H, W, mode, int(base_bf16), int(vector), dev.index,
             _stream(dev))
         _build.check(lib, 'solid_fold', rc)
-        _count(solid_fold, base_bf16 or mode == 3)
+        _count(solid_fold, base_bf16 or mode == 3, vector)
     return out0 if finalize else (out0, outA)
 
 
 solid_fold.launches = 0
 solid_fold.launches_bf16 = 0
+solid_fold.launches_vector = 0
+solid_fold.launches_scalar = 0
+
+
+def fold_tile_pixel_layers(box, H, W):
+    """What ``solid_fold``'s kernel folds for these boxes, counted on the
+    host as its blocks build their covering lists: ``(inside, across)``,
+    the pixel-layer pairs (summed over the frames and the ``FOLD_TILE``
+    tiles of an (H, W) frame, clipped to it) that take the step without
+    a mask because the layer's box contains the tile, and with the mask
+    because the box meets the tile without containing it. Layers whose
+    box is empty or misses the tile cost nothing. *box* is (L, B, 4)
+    int ``[y0, y1, x0, x1]``, a tensor or an array."""
+    box = torch.as_tensor(box).to('cpu', torch.int64)
+    nonempty = ((box[..., 0] <= box[..., 1])
+                & (box[..., 2] <= box[..., 3]))[..., None]
+
+    def axis(n, tile, lo, hi):
+        """Along one axis, per layer: the pixels of the tiles the box
+        contains, and of those it meets."""
+        first = torch.arange(0, n, tile)
+        last = torch.clamp(first + tile, max=n) - 1
+        size = last - first + 1
+        lo, hi = lo[..., None], hi[..., None]
+        inside = (lo <= first) & (hi >= last) & nonempty
+        meets = (lo <= last) & (hi >= first) & nonempty
+        return (inside * size).sum(-1), (meets * size).sum(-1)
+
+    rows_in, rows_meet = axis(H, FOLD_TILE[0], box[..., 0], box[..., 1])
+    cols_in, cols_meet = axis(W, FOLD_TILE[1], box[..., 2], box[..., 3])
+    inside = int((rows_in * cols_in).sum())
+    return inside, int((rows_meet * cols_meet).sum()) - inside
 
 
 def solid_stack(color, box, gain, offset, H, W):
@@ -379,15 +438,18 @@ def region_over_sep(P, A, color, ry, rx, dy0, dx0):
         raise ValueError('region_over_sep: B=%d frames (max 65535)' % (B,))
     bf16 = dtype == torch.bfloat16
     if B and H and W:
+        vector = _vector_ok(W, rx.data_ptr(), P.data_ptr(), A.data_ptr())
         lib = _build.library()
         rc = lib.canvas_region_over_sep(
             color.data_ptr(), ry.data_ptr(), rx.data_ptr(), P.data_ptr(),
-            A.data_ptr(), B, h, w, H, W, dy0, dx0, int(bf16),
-            _blocks(h * w, 4), dev.index, _stream(dev))
+            A.data_ptr(), B, h, w, H, W, dy0, dx0, int(bf16), int(vector),
+            dev.index, _stream(dev))
         _build.check(lib, 'region_over_sep', rc)
-        _count(region_over_sep, bf16)
+        _count(region_over_sep, bf16, vector)
     return P, A
 
 
 region_over_sep.launches = 0
 region_over_sep.launches_bf16 = 0
+region_over_sep.launches_vector = 0
+region_over_sep.launches_scalar = 0

@@ -17,8 +17,9 @@ The slice covers the ops of the headline composite
 accumulators at quality <= 9), ``placed`` (rank-1 regions through
 ``region_over_sep``, any other region through ``region_over``),
 ``scale_solid``, ``scale_solid_dyn``, ``scale``, ``scale_taps_dyn``
-(with the quality <= 5 ``lq`` taps), ``place``, ``stage_rows`` and
-``dv_recon_rows``; the export conversions of ``iter_batches(post=...)``;
+(with the quality <= 5 ``lq`` taps), ``place``, ``stage``,
+``stage_rows``, ``dv_recon``, ``dv_recon_rows``, and the color filter's
+``transfer`` and ``matrix``; the export conversions of ``iter_batches(post=...)``;
 and the editor's display pull, ``render_display``, with its viewport
 resample and its u8, rgb24 and yuv420 transports. Every other op raises
 ``NotImplementedError`` naming the ROADMAP.md queue item that ports it.
@@ -52,12 +53,12 @@ DISPLAY_TRANSPORTS = ('u8', 'rgb24', 'yuv420')
 _DISPLAY_MATS_KEPT = 8
 
 #: Ops of the IR that the slice does not evaluate yet, with the
-#: ROADMAP.md queue-1 item that ports each.
+#: ROADMAP.md queue-1 item that ports each together with its only
+#: emitter; the port has no source that plans any of them.
 _LATER = {
-    'transfer': 'queue 1 item 4', 'matrix': 'queue 1 item 4',
-    'field_interleave': 'queue 1 item 4', 'stage': 'queue 1 item 6',
-    'u8_linearize': 'queue 1 item 6', 'dv_recon': 'queue 1 item 6',
-    'planar_recon_rows': 'queue 1 item 6',
+    'field_interleave': 'queue 1 item 6a',
+    'planar_recon_rows': 'queue 1 item 6a',
+    'u8_linearize': 'queue 1 item 10',
     'solid_cells': 'queue 1 item 9 (not ported)',
 }
 
@@ -237,6 +238,9 @@ def _eval(node_sig, params_iter, device, out_dtype=torch.float32):
         return (color[:, :, None, None] * ry[:, None, :, None]
                 * rx[:, None, None, :])
 
+    if op == 'stage':
+        return params['data'].float()
+
     if op == 'stage_rows':
         # this batch's rows of the segment's staged (U, 4, H, W) f16 stack
         return torch.index_select(params['data'], 0,
@@ -248,6 +252,24 @@ def _eval(node_sig, params_iter, device, out_dtype=torch.float32):
                               torch.index_select(params['pcb'], 0, rows),
                               torch.index_select(params['pcr'], 0, rows),
                               params['up'], params['m'])
+
+    if op == 'dv_recon':
+        return _dv_recon_math(params['y'], params['cb'], params['cr'],
+                              params['up'], params['m'])
+
+    if op == 'transfer':
+        # a named curve on all four channels, by the f16 bits of the child
+        # rounded to the f16 grid (render.py:1142-1147)
+        child = _eval(child_sigs[0], params_iter, device)
+        return color_ops.device_transfer(static[0],
+                                         color_ops.quantize_f16(child))
+
+    if op == 'matrix':
+        # a 3x3 color matrix over rgb at full f32 (TF32 stays off); alpha
+        # passes through (render.py:1149-1155)
+        child = _eval(child_sigs[0], params_iter, device)
+        rgb = torch.einsum('ij,bjhw->bihw', params['m'], child[:, :3])
+        return torch.cat([rgb, child[:, 3:]], dim=1)
 
     if op == 'place':
         # static re-window: the child's [sy0..sy1, sx0..sx1] copied to
@@ -629,10 +651,10 @@ class RenderPlanner:
         Each structure segment is planned once, one segment ahead, on a
         worker thread; host-to-device copies and launches happen on the
         calling thread. ``mesh`` and ``max_inflight`` are not ported yet
-        (ROADMAP.md queue 1 items 8 and 6) and must be None."""
+        (ROADMAP.md queue 1 items 8 and 6b) and must be None."""
         for name, value, item in (('mesh', mesh, 'queue 1 item 8'),
                                   ('max_inflight', max_inflight,
-                                   'queue 1 item 6')):
+                                   'queue 1 item 6b')):
             if value is not None:
                 raise _not_ported('iter_batches(%s=...)' % (name,), item)
         if post is not None and post not in color_ops.POSTS:

@@ -16,8 +16,9 @@ Measures, on a (B, 4, 1088, 1920) f32 image with CUDA events:
 4. what bounds the shipped ``cuda_ops.solid_fold`` at B=32 and 1080p:
    the mid fold (L=6, no base, f32 accumulators) and the finalize (L=2
    over a base, f16 out), each against the bytes it moves over the
-   measured bandwidth, and its instructions per pixel (counted in the
-   SASS, ``SOLID_FOLD_SASS``) over two rates: the assumed issue ceiling
+   measured bandwidth, and its instructions per pixel (parts counted in
+   the SASS, ``SOLID_FOLD_SASS``, put together for the layers each tile
+   of this run's boxes lists) over two rates: the assumed issue ceiling
    at the sampled clock (not measured) and the FMA chain's measured
    rate. A pass is bound by bytes when its byte time is at least
    ``BOUND_SHARE`` of its time, by instructions when its instructions at
@@ -52,23 +53,49 @@ from canvas_tpu_torch.studies.fold_interior_study import make_inputs as \
 FULL_SIZE = (1088, 1920)
 CHECK_SHAPE = (2, 544, 1280)        # B, H, W on the CPU
 L = 6
-#: Instructions per pixel of one pass through solid_fold's pixel loop,
-#: counted by hand in the SASS for sm_90a (``cuobjdump -sass`` of the
-#: built library; the fast path of the 64-bit ``px / W`` and of the f32
-#: divides). Mid fold, ``solid_fold_kernel<false, 0>`` at L=6: 34 for
-#: the division and addressing, 8 + 88 for one pass of the layer loop
-#: unrolled by 4 (22 per layer), 51 for the two remaining layers, 27 for
-#: the stores and the loop step. The counts hold only for the nvcc
-#: release and the sha256 of NVCC_FLAGS and csrc/solid_fold.cu recorded
-#: here; ``solid_fold_instructions`` raises for any other, so a changed
-#: kernel or compiler is recounted before a bound is printed. (When the
-#: source gained its bf16 forms, a ``cuobjdump -sass`` diff showed the f32
-#: instantiations' instructions unchanged, so the counts were re-keyed.)
+#: Instructions of solid_fold's 16-byte instantiations, counted by hand
+#: in the SASS for sm_90a (``cuobjdump -sass`` of the built library; each
+#: function cut at the next ``Function :`` line). With per-tile layer
+#: lists the count per pixel depends on the boxes, so the parts are
+#: recorded and ``instructions_per_pixel`` puts them together for the
+#: boxes of a run. Per pass, for one thread of ``pixels`` pixels (4
+#: columns of 2 rows where a plane holds f32):
+#:
+#: - ``fixed``: everything outside the layer loop for a thread that loads
+#:   no layer and builds no list (the skipped prologue, 12 + 8; the tile
+#:   geometry, 13; the base loads or the zeroed accumulators; the stores).
+#:   Mid fold: 12 + 8 + 13 + 6 + 20 + 52 stores = 111. Finalize from an
+#:   f32 base to f16: 12 + 8 + 13 + 66 + 4 + 464 = 567, of which 24 f32
+#:   divides on their fast path (the slow path's 3 instructions each left
+#:   out) and the f16 packing.
+#: - ``layer``: the loop's header and step per listed layer (11 + 4).
+#: - ``inside``: the body of ``step_inside`` for the 8 pixels: one
+#:   subtract, 32 multiplies, 32 adds and the branch.
+#: - ``select``: the body of ``step_select`` for the 8 pixels with its
+#:   compares and selects.
+#: - ``block`` and ``block_layer``: per block of 16x128 pixels, the 32
+#:   lanes that build the list (73 instructions each for L <= 32) and the
+#:   thread that loads one layer (70 per layer).
+#:
+#: The counts hold only for the nvcc release and the sha256 of NVCC_FLAGS
+#: and the kernel's three sources recorded here (``SASS_SOURCES``);
+#: ``solid_fold_instructions`` raises for any other, so a changed kernel
+#: or compiler is recounted before a bound is printed. (A comment-only
+#: edit moves no instruction; the key was then set anew without a
+#: recount.)
+SASS_SOURCES = ('solid_fold.cu', 'fold_tile.cuh', 'cols.cuh')
 SOLID_FOLD_SASS = {
     'nvcc': '12.9',
-    'sha256': 'bf57ff227c326ff257756c0121f04fbd'
-              '5e050fa5a0622422fdf6c263610d64c3',
-    'counts': {'mid fold L=6': 208, 'finalize L=2 f16': 177},
+    'sha256': '6b4efe4728dacaafd785593b0f5a0b5f'
+              '1611cae0a99687bffaa710aad19639d1',
+    'counts': {
+        'mid fold L=6': {'pixels': 8, 'fixed': 111, 'layer': 15,
+                         'inside': 66, 'select': 137, 'block': 2336,
+                         'block_layer': 70},
+        'finalize L=2 f16': {'pixels': 8, 'fixed': 567, 'layer': 15,
+                             'inside': 66, 'select': 136, 'block': 2336,
+                             'block_layer': 70},
+    },
 }
 #: Warp-instructions an SM is assumed to issue per clock (4 schedulers,
 #: one each). Not measured: the only measured instruction rate is the
@@ -139,10 +166,11 @@ def check(device, shape=None):
 
 
 def solid_fold_source_sha256():
-    """sha256 of NVCC_FLAGS and csrc/solid_fold.cu, the key of
-    ``SOLID_FOLD_SASS``."""
+    """sha256 of NVCC_FLAGS and the sources of solid_fold's kernel
+    (``SASS_SOURCES``), the key of ``SOLID_FOLD_SASS``."""
     digest = hashlib.sha256(' '.join(_build.NVCC_FLAGS).encode())
-    digest.update((_build.CSRC / 'solid_fold.cu').read_bytes())
+    for name in SASS_SOURCES:
+        digest.update((_build.CSRC / name).read_bytes())
     return digest.hexdigest()
 
 
@@ -153,12 +181,29 @@ def solid_fold_instructions(nvcc_release):
     if (digest, nvcc_release) != (SOLID_FOLD_SASS['sha256'],
                                   SOLID_FOLD_SASS['nvcc']):
         raise RuntimeError(
-            'SOLID_FOLD_SASS was counted for nvcc %s and solid_fold.cu + '
-            'flags sha256 %s, not nvcc %s and %s: recount the instructions '
-            'per pixel in cuobjdump -sass of the built library'
+            'SOLID_FOLD_SASS was counted for nvcc %s and sources + flags '
+            'sha256 %s, not nvcc %s and %s: recount the instructions in '
+            'cuobjdump -sass of the built library'
             % (SOLID_FOLD_SASS['nvcc'], SOLID_FOLD_SASS['sha256'],
                nvcc_release, digest))
     return SOLID_FOLD_SASS['counts']
+
+
+def instructions_per_pixel(parts, box, H, W):
+    """Instructions per pixel of one solid_fold pass over *box* (L, B, 4)
+    at (H, W), from the counted *parts* of ``SOLID_FOLD_SASS`` and the
+    layers each tile lists (``cuda_ops.fold_tile_pixel_layers``, on the
+    host): whole threads and whole tiles, the ragged edge not counted."""
+    L, B = box.shape[0], box.shape[1]
+    inside, across = cuda_ops.fold_tile_pixel_layers(box, H, W)
+    px = B * H * W
+    th, tw = cuda_ops.FOLD_TILE
+    threads = (parts['fixed'] * px
+               + (parts['layer'] + parts['inside']) * inside
+               + (parts['layer'] + parts['select']) * across
+               ) / parts['pixels']
+    blocks = px / (th * tw) * (parts['block'] + L * parts['block_layer'])
+    return (threads + blocks) / px
 
 
 def bound(ms, byte_ms, chain_rate_ms):
@@ -243,22 +288,24 @@ def measure(device, B=32, ks=(8, 40), rate_ks=(256, 1024), reps=10,
     # The shipped solid_fold at B and 1080p.
     H, W = 1080, 1920
     rng = np.random.default_rng(7)
-    mid = on_device(device, *make_fold_inputs(rng, 6, B, H, W, 0))
-    fin = on_device(device, *make_fold_inputs(rng, 2, B, H, W, 1))
+    mid_host = make_fold_inputs(rng, 6, B, H, W, 0)
+    fin_host = make_fold_inputs(rng, 2, B, H, W, 1)
+    mid = on_device(device, *mid_host)
+    fin = on_device(device, *fin_host)
     A = rng.uniform(0.0, 1.0, (B, 1, H, W)).astype(np.float32)
     P = (rng.uniform(0.0, 1.0, (B, 3, H, W)) * A).astype(np.float32)
     P, A = on_device(device, P, A)
     px = B * H * W
     r['solid_fold'] = {}
-    for name, fn, per_px in (
+    for name, fn, per_px, box in (
             ('mid fold L=6', lambda: cuda_ops.solid_fold(
-                None, None, *mid, H, W), 16),
+                None, None, *mid, H, W), 16, mid_host[1]),
             ('finalize L=2 f16', lambda: cuda_ops.solid_fold(
                 P, A, *fin, H, W, finalize=True, out_dtype=torch.float16),
-             24)):
+             24, fin_host[1])):
         ms = cuda_ms(fn, reps)
         byte_ms = px * per_px / (r['copy_tbs'] * 1e12) * 1e3
-        instr = counts[name]
+        instr = instructions_per_pixel(counts[name], box, H, W)
         chain_rate_ms = px * instr / r['ffma_per_s'] * 1e3
         r['solid_fold'][name] = {
             'ms': ms, 'bytes': px * per_px, 'byte_ms': byte_ms,
@@ -299,7 +346,7 @@ def report(r):
     for name, s in r['solid_fold'].items():
         lines.append(
             'solid_fold %s, B=%d 1080p: %.4f ms; bytes %.3f GB -> %.4f ms '
-            '(%.0f%%) at the copy\'s bandwidth; %d SASS instructions/px -> '
+            '(%.0f%%) at the copy\'s bandwidth; %.1f SASS instructions/px -> '
             '%.4f ms (%.0f%%) at the FMA chain\'s measured rate, %s at the '
             'assumed issue ceiling (%d SMs x %d warp-instructions per clock '
             'at %s, not measured); bound: %s'

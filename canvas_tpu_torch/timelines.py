@@ -1,4 +1,4 @@
-"""The two timelines the port renders, built from the port's own classes:
+"""The timelines the port renders, built from the port's own classes:
 
 - ``build_timeline(length)``: the headline 10-layer 1080p composite
   (``bench.py:27-67``): a full-frame background, five animated gain
@@ -6,10 +6,14 @@
 - ``mixed_timeline(length)``: the mixed-content timeline of
   ``benchmarks.py`` config7 (``benchmarks.py:605-639``): the headline
   with layers 2, 4 and 6 replaced by 720x480 4:1:1 DV clips, decoded on
-  the host, through animated 1.25x scalers.
+  the host, through animated 1.25x scalers;
+- ``transfer_timeline(length)``: the single clip of ``benchmarks.py``
+  config1 (``benchmarks.py:225-237``, rendered there at 1280x720): a
+  solid whose color ramps from black to white, through the rec709 ->
+  linear transfer.
 
-Both match the JAX package's builders item for item, so a planner given
-either one plans the IR the JAX package plans for its own.
+Each matches the JAX package's builder item for item, so a planner given
+one plans the IR the JAX package plans for its own.
 """
 
 import numpy as np
@@ -19,10 +23,11 @@ from canvas_tpu_torch.coded import (CodedImage, CodedImageSource,
                                     DVReconstructionFilter)
 from canvas_tpu_torch.framefuncs import LerpFunc, LinearFrameFunc
 from canvas_tpu_torch.sources import (SolidColorVideoSource,
+                                      VideoColorTransferFilter,
                                       VideoGainOffsetFilter, VideoMixFilter,
                                       VideoScaler, VideoWorkspace)
 
-__all__ = ['build_timeline', 'mixed_timeline']
+__all__ = ['build_timeline', 'mixed_timeline', 'transfer_timeline']
 
 
 def build_timeline(length=1024):
@@ -98,3 +103,11 @@ def mixed_timeline(length=256):
             ws.remove(item)
         ws.add(source=clip, x=0, length=length, z=z)
     return ws
+
+
+def transfer_timeline(length=1024):
+    """A solid ramping from opaque black to opaque white over *length*
+    frames, through the rec709 -> linear (scene) transfer."""
+    return VideoColorTransferFilter(
+        SolidColorVideoSource(LerpFunc((0, 0, 0, 1), (1, 1, 1, 1), length)),
+        'rec709_to_linear_scene')

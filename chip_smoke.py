@@ -15,19 +15,25 @@ playback engine). Each phase prints one line or more; any failure raises
 1. card: nvidia-smi's name and power limit, torch's device name;
 2. build: compile the CUDA kernels from the checkout's sources;
 3. kernels vs plain: each kernel against its plain PyTorch version on
-   the card, on seeded inputs (solid_fold and region_over bit-identical;
-   region_over_sep within atol 1e-6), then each quality <= 9 form (bf16
-   accumulators: solid_fold's mid fold storing bf16, from a bf16 base,
-   and its finalize from a bf16 base; region_over_sep and region_over in
-   bf16) at the same shapes, bit-identical;
+   the card, on seeded inputs, bit-identical (max diff 0), then each
+   quality <= 9 form (bf16 accumulators: solid_fold's mid fold storing
+   bf16, from a bf16 base, and its finalize from a bf16 base;
+   region_over_sep and region_over in bf16) at the same shapes, then
+   solid_fold and region_over_sep in every form at frames whose rows are
+   not a multiple of 8 values and through planes that do not start at a
+   multiple of 16 bytes (the kernels' scalar instantiation; the shapes
+   before took the 16-byte one, some with the region overhanging the
+   bottom edge), with the launches of each instantiation counted;
 4. headline slice: frames 0..255 of timelines.build_timeline(1024)
    through iter_batches; its kernels'
    launch counters must rise; finite f16 (B, 4, 1080, 1920) batches;
-   frames 0, 130 and 1000 against the NumPy pull path at atol 2e-3;
+   frames 0, 130 and 1000 against the NumPy pull path at atol 2e-3; and
+   frames of timelines.transfer_timeline(1024) (a solid through the
+   rec709 -> linear transfer) at 1280x720, bit-equal to the pull path;
 5. headline timing: cold streaming fps of frames 128..511 in 128-frame
    batches, the device's busy time for the same batches (device idle
-   share), and each kernel's time beside its plain version's at the
-   main path's shapes;
+   share), and each kernel pass's time beside its plain version's and
+   its own byte floor at the main path's shapes;
 6. mixed slice: frames 0..127 of timelines.mixed_timeline(256) through
    iter_batches(batch=16); all three kernels' launch counters must rise;
    finite f16 batches; frames 0, 1 and 70 against the NumPy pull path at
@@ -269,6 +275,101 @@ def _bf16_forms_vs_plain(rng, on, H, W):
                 raise AssertionError('%s bf16 did not update in place' % kind)
             err[kind] = max(err[kind], _max_diff((P, A), (P2, A2)))
     return err
+
+
+def _instantiation_counts():
+    """Launches of the 16-byte and the scalar instantiation of the two
+    kernels that have both."""
+    from canvas_tpu_torch.ops import cuda_ops
+    return {name: (getattr(cuda_ops, name).launches_vector,
+                   getattr(cuda_ops, name).launches_scalar)
+            for name in ('solid_fold', 'region_over_sep')}
+
+
+def _offset_view(t):
+    """A contiguous copy of *t* that starts one value into its storage,
+    so its data_ptr() is not a multiple of 16."""
+    import torch
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _scalar_forms_vs_plain(rng, on):
+    """Phase 3's last part: solid_fold (mid fold and finalize, empty, f32
+    and bf16 base) and region_over_sep (f32, bf16) against their plain
+    versions where the 16-byte instantiation cannot run: a 270x481 and a
+    150x300 frame (rows not a multiple of 8 values; the region overhangs
+    both edges) and a 96x256 frame whose planes start one value into
+    their storage. Returns the largest difference (must be 0)."""
+    import numpy as np
+    import torch
+
+    from canvas_tpu_torch.ops import cuda_ops
+
+    bf = torch.bfloat16
+    err = 0.0
+    for H, W, shift in ((270, 481, False), (96, 256, True)):
+        layers = on(*_solid_layers(rng, 4, 3, H, W))
+        A = rng.uniform(0.0, 1.0, (3, 1, H, W)).astype(np.float32)
+        P, A = on((rng.uniform(0.0, 1.0, (3, 3, H, W)) * A).astype(
+            np.float32), A)
+        for base in (None, torch.float32, bf):
+            if base is None and shift:
+                continue            # no plane to shift: the 16-byte form
+            bP = bA = None
+            if base is not None:
+                bP, bA = P.to(base), A.to(base)
+                if shift:
+                    bP, bA = _offset_view(bP), _offset_view(bA)
+            for kw in ({}, {'acc_dtype': bf},
+                       {'finalize': True, 'out_dtype': torch.float16}):
+                got = cuda_ops.solid_fold(bP, bA, *layers, H, W, **kw)
+                want = cuda_ops.solid_fold_plain(bP, bA, *layers, H, W, **kw)
+                if kw.get('finalize'):
+                    got, want = [got], [want]
+                err = max(err, _max_diff(got, want))
+    for H, W, h, w, dy0, dx0, shift in ((150, 300, 128, 256, 64, 128, False),
+                                        (96, 256, 64, 128, 64, 128, True)):
+        for dtype in (torch.float32, bf):
+            P, A = [t.to(dtype) for t in on(*[
+                rng.uniform(0.0, 1.0, s).astype(np.float32)
+                for s in ((3, 3, H, W), (3, 1, H, W))])]
+            if shift:
+                P, A = _offset_view(P), _offset_view(A)
+            args = on(*[rng.uniform(0.0, 1.0, s).astype(np.float32)
+                        for s in ((3, 4), (3, h), (3, w))])
+            P2, A2 = P.clone(), A.clone()
+            cuda_ops.region_over_sep(P, A, *args, dy0, dx0)
+            cuda_ops.region_over_sep_plain(P2, A2, *args, dy0, dx0)
+            err = max(err, _max_diff((P, A), (P2, A2)))
+    return err
+
+
+def _transfer_clip(tag):
+    """Phase 4's last line: frames 300..303 of the config1-like clip
+    (timelines.transfer_timeline: a ramping solid through rec709 ->
+    linear, the color filter's 'transfer' op) at 1280x720 against the
+    NumPy pull path, bit-equal."""
+    import numpy as np
+
+    from canvas_tpu_torch import timelines
+    from canvas_tpu_torch.render import RenderPlanner, box2i
+
+    src = timelines.transfer_timeline(1024)
+    window = box2i(0, 0, 1279, 719)
+    got = RenderPlanner(src, window).render(300, 304)
+    want = np.stack([np.asarray(src.get_frame_f16(i, window).data,
+                                np.float16) for i in range(300, 304)])
+    share = _bit_share(got, want)
+    print('phase 4 transfer clip: frames 300..303 of '
+          'timelines.transfer_timeline(1024) at 1280x720, finite=%s, %.5f '
+          'of f16 values bit-equal to the NumPy pull path (must be 1) %s'
+          % (bool(np.isfinite(got).all()), share, tag), flush=True)
+    if got.shape != (4, 4, 720, 1280) or share != 1.0:
+        raise AssertionError('the transfer clip differs from the pull path '
+                             '(%r, %.5f bit-equal)' % (got.shape, share))
 
 
 def _n_nodes(sig):
@@ -856,10 +957,13 @@ def _bf16_timings(tag, p9, mixed5, window):
         nbytes += B * H * W * per_px + _fold_params_bytes(L, B)
         ops += B * H * W * (L * FOLD_OPS_PER_LAYER
                             + (FINALIZE_OPS if per_px == 16 else 0))
+        floor = _bound(B * H * W * per_px, 0)[0]
         print('phase 10 kernel solid_fold %s, batch %d: cuda %.4f ms (%.1f '
-              'GB/s for %.1f MB), plain torch %.4f ms %s'
+              'GB/s for %.1f MB; byte floor %.4f ms, time / floor %.2f), '
+              'plain torch %.4f ms %s'
               % (name, B, tk, B * H * W * per_px / tk / 1e6,
-                 B * H * W * per_px / 1e6, tp, tag), flush=True)
+                 B * H * W * per_px / 1e6, floor, tk / floor, tp, tag),
+              flush=True)
     out['solid_fold_bf16'] = (err, ms, plain_ms) + _bound(nbytes, ops)
 
     err = ms = plain_ms = 0.0
@@ -883,11 +987,12 @@ def _bf16_timings(tag, p9, mixed5, window):
         # ry, rx read
         nbytes += px * 16 + B * (4 + h + w) * 4
         ops += px * (RANK1_OPS + OVER_OPS)
+        floor = _bound(px * 16, 0)[0]
         print('phase 10 kernel region_over_sep bf16 region %d %dx%d @ (%d, '
-              '%d), batch %d: cuda %.4f ms (%.1f GB/s for %.1f MB), plain '
-              'torch %.4f ms %s' % (j, h, w, dy0, dx0, B, tk,
-                                    px * 16 / tk / 1e6, px * 16 / 1e6, tp,
-                                    tag), flush=True)
+              '%d), batch %d: cuda %.4f ms (%.1f GB/s for %.1f MB; byte '
+              'floor %.4f ms, time / floor %.2f), plain torch %.4f ms %s'
+              % (j, h, w, dy0, dx0, B, tk, px * 16 / tk / 1e6, px * 16 / 1e6,
+                 floor, tk / floor, tp, tag), flush=True)
     out['region_over_sep_bf16'] = (err, ms, plain_ms) + _bound(nbytes, ops)
     del baseP, baseA, P1, A1, P2, A2, tparams
     torch.cuda.empty_cache()
@@ -1201,6 +1306,7 @@ def main():
 
     # 3. kernels vs plain on the card, seeded inputs
     rng = np.random.default_rng(SEED)
+    inst0 = _instantiation_counts()
 
     def on(*arrays):
         return [torch.from_numpy(np.array(a)).to(dev) for a in arrays]
@@ -1253,15 +1359,15 @@ def main():
         cuda_ops.region_over_sep_plain(P2, A2, color, ry, rx, dy0, dx0)
         err_reg = max(err_reg, float((P - P2).abs().max()),
                       float((A - A2).abs().max()))
-    if not err_reg <= 1e-6:
+    if err_reg != 0.0:
         raise AssertionError('region_over_sep differs from plain by %r'
                              % err_reg)
     print('phase 3 kernels vs plain: solid_fold mid L=6 B=8 1080p max diff '
-          '%r, finalize L=2 base f16 max diff %r (both must be 0); '
-          'region_over_sep 512x1024 @ (576, 896) of 1080p and 384x640 @ '
-          '(192, 384) of 540x960 max diff %.3g (atol 1e-6); region_over '
-          '640x1024 @ (448, 896) and 704x1152 @ (64, 512) of 1080p, 384x640 '
-          '@ (192, 384) of 540x960, B=8, max diff %r (must be 0) %s'
+          '%r, finalize L=2 base f16 max diff %r; region_over_sep 512x1024 '
+          '@ (576, 896) of 1080p and 384x640 @ (192, 384) of 540x960 max '
+          'diff %r; region_over 640x1024 @ (448, 896) and 704x1152 @ (64, '
+          '512) of 1080p, 384x640 @ (192, 384) of 540x960, B=8, max diff %r '
+          '(all must be 0) %s'
           % (err_mid, err_fin, err_reg, err_ro, tag), flush=True)
     del P, A, P2, A2, got, want, layers, layer
     err16 = _bf16_forms_vs_plain(rng, on, H, W)
@@ -1272,6 +1378,27 @@ def main():
           'diff %s (all must be 0) %s' % (json.dumps(err16), tag), flush=True)
     if any(err16.values()):
         raise AssertionError('a bf16 form differs from plain: %r' % err16)
+    inst1 = _instantiation_counts()
+    err_scalar = _scalar_forms_vs_plain(rng, on)
+    inst2 = _instantiation_counts()
+    by_inst = {k: {'above': [inst1[k][i] - inst0[k][i] for i in (0, 1)],
+                   'here': [inst2[k][i] - inst1[k][i] for i in (0, 1)]}
+               for k in inst0}
+    print('phase 3 instantiations: solid_fold (empty, f32 and bf16 base; '
+          'mid f32, mid bf16, finalize f16) at 270x481 and through shifted '
+          'planes at 96x256, region_over_sep (f32, bf16) 128x256 @ (64, 128) '
+          'of 150x300 and 64x128 @ (64, 128) of shifted 96x256 planes, B=3, '
+          'max diff %r (must be 0); launches [16-byte, scalar] in the checks '
+          'above and here: %s %s' % (err_scalar, json.dumps(by_inst), tag),
+          flush=True)
+    if err_scalar != 0.0:
+        raise AssertionError('a scalar instantiation differs from plain by '
+                             '%r' % err_scalar)
+    for k, v in by_inst.items():
+        if v['above'][0] <= 0 or v['above'][1] != 0 or v['here'][1] <= 0:
+            raise AssertionError('%s: the 16-byte instantiation must run in '
+                                 'the checks above and the scalar one here: '
+                                 '%r' % (k, by_inst))
 
     # 4. the slice, through the kernels
     ws = timelines.build_timeline(1024)
@@ -1312,6 +1439,8 @@ def main():
           'NumPy pull path max diff frame 0 %.3g, 130 %.3g, 1000 %.3g '
           '(atol 2e-3) %s' % (json.dumps(launches), errs[0], errs[130],
                               errs[1000], tag), flush=True)
+
+    _transfer_clip(tag)
 
     # 5. timing: cold streaming, device busy time, kernels vs plain
     start, stop, batch = 128, 512, 128
@@ -1418,14 +1547,15 @@ def main():
         # P and A read and written in the region; color, ry, rx read
         reg_bytes += px * 32 + B * (4 + h + w) * 4
         reg_ops += px * (RANK1_OPS + OVER_OPS)
-    if not err_reg <= 1e-6:
+    if err_reg != 0.0:
         raise AssertionError('region_over_sep at the main path shapes '
                              'differs from plain by %r' % err_reg)
     for name, tk, tp, nbytes in rows:
+        floor = _bound(nbytes, 0)[0]
         print('phase 5 kernel %s, batch %d: cuda %.4f ms (%.1f GB/s for %.1f '
-              'MB), plain torch %.4f ms %s'
-              % (name, B, tk, nbytes / tk / 1e6, nbytes / 1e6, tp, tag),
-              flush=True)
+              'MB; byte floor %.4f ms, time / floor %.2f), plain torch %.4f '
+              'ms %s' % (name, B, tk, nbytes / tk / 1e6, nbytes / 1e6, floor,
+                         tk / floor, tp, tag), flush=True)
 
     del work, baseP, baseA, P1, A1, P2, A2
     torch.cuda.empty_cache()

@@ -13,6 +13,11 @@ Tolerances:
   ulp apart (an f32 ``pow`` one ulp apart from the table's ``powf``
   becomes one f16 ulp after truncation); and exact against the NumPy
   pull path's table (``color.get_lut``).
+- The display levels (``color._levels_table``, built on the host with
+  libm's ``powf``): every one of the 65536 entries bit-equal to the f32
+  levels inside the JAX package's ``_display_u8_math`` and
+  ``_yuv420_pack_math`` on CPU JAX, for intents None, 1.25 and 0.8; and
+  what is rounded from them u8-equal, tolerance 0.
 """
 
 import numpy as np
@@ -121,3 +126,55 @@ def test_posts_match_jax(post, H, W):
     assert got.dtype == torch.uint8 and tuple(got.shape) == want.shape
     diff = np.abs(got.numpy().astype(np.int32) - want.astype(np.int32))
     assert diff.max() <= 1 and np.mean(diff != 0) <= 1e-3
+
+
+def _ref_levels(x, intent):
+    """The f32 display levels as ``_display_u8_math`` and
+    ``_yuv420_pack_math`` compute them before they round (color.py:523-530,
+    577-587)."""
+    if intent is None:
+        y = jnp.power(x, 0.45) * 255.0
+    else:
+        s = jnp.where(x <= 0.0031308, x * 12.92,
+                      1.055 * jnp.power(x, 1.0 / 2.4) - 0.055)
+        y = jnp.power(ref_color.quantize_f16_trunc(s),
+                      jnp.float32(intent)) * 255.0
+    return jnp.clip(jnp.nan_to_num(y, nan=0.0), 0.0, 255.0)
+
+
+@pytest.mark.parametrize('intent', [None, 1.25, 0.8])
+def test_level_table_matches_jax_on_every_f16(intent):
+    table = color._levels_table(intent, 'cpu')
+    assert table.dtype == torch.float32 and table.shape == (65536,)
+    want = np.asarray(jax.jit(lambda d: _ref_levels(d, intent))(
+        jnp.asarray(ALL_F16)))
+    np.testing.assert_array_equal(table.numpy().view(np.uint32),
+                                  want.view(np.uint32))
+    x16 = torch.from_numpy(ALL_F16.astype(np.float16)).view(1, 4, 128, 128)
+    levels = color._display_levels(x16, intent)
+    np.testing.assert_array_equal(levels.numpy().ravel(), want)
+    # what the conversions round from the levels: u8-equal
+    if intent is not None:
+        ref_u8 = np.asarray(jax.jit(lambda d: ref_color._display_u8_math(
+            d, intent, (0, 1, 2, 3)))(jnp.asarray(x16.float().numpy())))
+        np.testing.assert_array_equal(
+            color.display_u8(x16, intent, (0, 1, 2, 3)).numpy(), ref_u8)
+    ref_yuv = np.asarray(jax.jit(lambda d: ref_color._yuv420_pack_math(
+        d, intent))(jnp.asarray(x16.float().numpy())))
+    np.testing.assert_array_equal(color.yuv420_pack(x16, intent).numpy(),
+                                  ref_yuv)
+
+
+def test_level_tables_are_kept_per_intent_and_device_with_a_bound():
+    color._levels_table.cache_clear()
+    first = color._levels_table(1.25, 'cpu')
+    assert color._levels_table(1.25, 'cpu') is first
+    assert color._display_levels(torch.zeros(1, 4, 2, 2).half(), 1.25) \
+        .shape == (1, 4, 2, 2)
+    assert color._levels_table.cache_info().currsize == 1     # 1.25 is 1.25
+    bound = color._levels_table.cache_info().maxsize
+    assert bound is not None and bound <= 16
+    for k in range(bound + 2):
+        color._levels_table(1.0 + k / 64, 'cpu')
+    assert color._levels_table.cache_info().currsize == bound
+

@@ -7,16 +7,18 @@ so it also runs on a machine without JAX:
 
     python -m pytest --noconftest -q tests/test_torch_gpu.py
 
-Tolerances: solid_fold, region_over and the study folds (fold_variant,
-tile_fold, roofline_fold), and the bf16 forms of the three render
-kernels, are bit-identical to their plain versions (both round after
-every operation, in the same order); the FMA chain rounds once per step
-on the card and twice in its plain version, so the two are held to
-study_ops.fma_chain_tol (constants in (-0.9, 0.9)); region_over_sep is
-held to atol=1e-6 (about one f32 ulp on values in [0, 2],
-tests/test_pallas_interpret.py's tolerance) and a rendered f16 frame to
-atol=1e-3 (one f16 ulp at values up to 1). A display pull may differ from
-the CPU's by 1 on at most 0.1% of its u8 values (CUDA's powf). A mixed-content frame (DV clips through
+Tolerances: solid_fold, region_over_sep, region_over and the study
+folds (fold_variant, tile_fold, roofline_fold), in every form (f32 and
+bf16 accumulators) and, for solid_fold and region_over_sep, through both
+the 16-byte and the scalar instantiation, are bit-identical to their
+plain versions (both round after every operation, in the same order);
+the FMA chain rounds once per step on the card and twice in its plain
+version, so the two are held to study_ops.fma_chain_tol (constants in
+(-0.9, 0.9)); a rendered f16 frame is held to atol=1e-3 (one f16 ulp at
+values up to 1). A display pull may differ from the CPU's by 1 on at
+most 0.1% of its u8 values (the viewport resample's f32 sums run in
+another order on the card; the level table is the same on both). A
+mixed-content frame (DV clips through
 scalers: f32 matmuls summed in cuBLAS's order) is held to the slice's
 tolerance, atol=1e-2 with at least 99% of values bit-equal.
 """
@@ -27,8 +29,6 @@ import torch
 
 from canvas_tpu_torch.ops import cuda_ops as co
 from canvas_tpu_torch.ops import study_ops as so
-
-ATOL = 1e-6
 
 
 @pytest.fixture
@@ -105,8 +105,7 @@ def test_region_over_sep_kernel_matches_plain(cuda, H, W, h, w, dy0, dx0):
     assert outP is P and outA is A
     assert co.region_over_sep.launches == launches + 1
     co.region_over_sep_plain(P2, A2, color, ry, rx, dy0, dx0)
-    assert float((P - P2).abs().max()) <= ATOL
-    assert float((A - A2).abs().max()) <= ATOL
+    assert torch.equal(P, P2) and torch.equal(A, A2)
 
 
 @pytest.mark.gpu
@@ -203,6 +202,200 @@ def test_render_on_card_matches_cpu(cuda):
         np.testing.assert_allclose(got.astype(np.float32),
                                    want.astype(np.float32), rtol=0,
                                    atol=1e-3)
+
+
+# The 16-byte and the scalar instantiation of solid_fold and
+# region_over_sep, every form, bit-identical to the unchanged plain
+# versions: W % 8 != 0 or a plane that does not start at a multiple of
+# 16 bytes takes the scalar one, everything else the vector one.
+
+_BF = torch.bfloat16
+FOLD_FORMS = [(base, kw) for base in (None, torch.float32, _BF)
+              for kw in ({}, {'acc_dtype': _BF}, {'finalize': True},
+                         {'finalize': True, 'out_dtype': torch.float16})]
+
+
+def _offset_view(t, elements):
+    """A contiguous copy of *t* that starts *elements* into its storage."""
+    flat = torch.empty(t.numel() + elements, dtype=t.dtype, device=t.device)
+    view = flat[elements:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _fold_counts():
+    return (co.solid_fold.launches_vector, co.solid_fold.launches_scalar)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('base, kw', FOLD_FORMS)
+@pytest.mark.parametrize('L, B, H, W, vector', [
+    (5, 3, 270, 481, False),     # odd size: scalar
+    (5, 2, 270, 488, True),      # part tiles on both edges: vector
+    (0, 2, 37, 264, True),       # no layers
+    (1, 1, 130, 1928, True),     # one frame, one layer
+    (7, 1, 16, 128, True),       # one whole tile
+])
+def test_solid_fold_forms_match_plain(cuda, base, kw, L, B, H, W, vector):
+    rng = np.random.default_rng(101 + L + W)
+    if L:
+        color, box, gain, offset = _on(cuda, *_solid_layers(
+            rng, max(L, 2), B, H, W))
+        color, box, gain, offset = (t[:L].contiguous() for t in
+                                    (color, box, gain, offset))
+    else:
+        color, box, gain, offset = _on(
+            cuda, np.zeros((0, B, 4), np.float32),
+            np.zeros((0, B, 4), np.int32), np.zeros((0, B), np.float32),
+            np.zeros((0, B), np.float32))
+    P = A = None
+    if base is not None:
+        A = rng.uniform(0, 1, (B, 1, H, W)).astype(np.float32)
+        P = (rng.uniform(0, 1, (B, 3, H, W)) * A).astype(np.float32)
+        P, A = [t.to(base) for t in _on(cuda, P, A)]
+    before = _fold_counts()
+    got = co.solid_fold(P, A, color, box, gain, offset, H, W, **kw)
+    torch.cuda.synchronize()
+    assert _fold_counts() == (before[0] + vector, before[1] + (not vector))
+    want = co.solid_fold_plain(P, A, color, box, gain, offset, H, W, **kw)
+    if kw.get('finalize'):
+        got, want = [got], [want]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert float((g.float() - w.float()).abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('base', [torch.float32, _BF])
+def test_solid_fold_unaligned_base_takes_the_scalar_form(cuda, base):
+    rng = np.random.default_rng(103)
+    L, B, H, W = 3, 2, 48, 256
+    layers = _on(cuda, *_solid_layers(rng, L, B, H, W))
+    P, A = [_offset_view(t.to(base), 1) for t in _on(
+        cuda, rng.uniform(0, 1, (B, 3, H, W)).astype(np.float32),
+        rng.uniform(0, 1, (B, 1, H, W)).astype(np.float32))]
+    assert P.is_contiguous() and P.data_ptr() % 16
+    before = _fold_counts()
+    got = co.solid_fold(P, A, *layers, H, W, finalize=True,
+                        out_dtype=torch.float16)
+    torch.cuda.synchronize()
+    assert _fold_counts() == (before[0], before[1] + 1)
+    assert torch.equal(got, co.solid_fold_plain(
+        P, A, *layers, H, W, finalize=True, out_dtype=torch.float16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('acc_dtype', [torch.float32, _BF])
+def test_solid_fold_1024_layers(cuda, acc_dtype):
+    """L = 1024, the most the kernel's shared memory takes; L = 1025
+    raises."""
+    rng = np.random.default_rng(107)
+    B, H, W = 1, 40, 264
+    layers = _on(cuda, *_solid_layers(rng, 1024, B, H, W))
+    layers[0][:, :, 3] *= 0.05           # thin layers: the fold stays mixed
+    got = co.solid_fold(None, None, *layers, H, W, acc_dtype=acc_dtype)
+    torch.cuda.synchronize()
+    want = co.solid_fold_plain(None, None, *layers, H, W,
+                               acc_dtype=acc_dtype)
+    for g, w in zip(got, want):
+        assert float((g.float() - w.float()).abs().max()) == 0.0
+    more = [torch.cat([t, t[:1]]) for t in layers]
+    with pytest.raises(ValueError):
+        co.solid_fold(None, None, *more, H, W)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('vector', [True, False])
+def test_narrow_stores_round_denormals_as_torch(cuda, vector):
+    """Values around the smallest bf16 and f16 steps (f32 denormals
+    among them) store the same bits from the paired converts of the
+    vector form, the scalar form and torch's casts."""
+    rng = np.random.default_rng(109)
+    B, H, W = 2, 32, 256 if vector else 250
+    scale = np.float32(2.0) ** rng.integers(-149, -120, (B, 3, H, W))
+    A = np.ones((B, 1, H, W), np.float32)
+    P = (rng.uniform(0.5, 1.0, (B, 3, H, W)) * scale).astype(np.float32)
+    P[0, 0, 0, :8] = (0.0, -0.0, 1e-45, -1e-45, 2.0 ** -133, 2.0 ** -134,
+                      3 * 2.0 ** -135, 65520.0)
+    P, A = _on(cuda, P, A)
+    none = _on(cuda, np.zeros((0, B, 4), np.float32),
+               np.zeros((0, B, 4), np.int32), np.zeros((0, B), np.float32),
+               np.zeros((0, B), np.float32))
+    before = _fold_counts()
+    for kw in ({'acc_dtype': _BF},
+               {'finalize': True, 'out_dtype': torch.float16}):
+        got = co.solid_fold(P, A, *none, H, W, **kw)
+        want = co.solid_fold_plain(P, A, *none, H, W, **kw)
+        if kw.get('finalize'):
+            got, want = [got], [want]
+        for g, w in zip(got, want):
+            assert torch.equal(g.view(torch.int16), w.view(torch.int16))
+    assert _fold_counts() == (before[0] + 2 * vector,
+                              before[1] + 2 * (not vector))
+    Pb, Ab = P.to(_BF), A.to(_BF) * 0.5
+    color, ry, rx = _on(cuda, np.full((B, 4), 0.75, np.float32),
+                        (rng.uniform(0.5, 1, (B, 64)) * 2.0 ** -70).astype(
+                            np.float32),
+                        (rng.uniform(0.5, 1, (B, 256)) * 2.0 ** -70).astype(
+                            np.float32))
+    P2, A2 = Pb.clone(), Ab.clone()
+    co.region_over_sep(Pb, Ab, color, ry, rx, 0, 0)
+    co.region_over_sep_plain(P2, A2, color, ry, rx, 0, 0)
+    assert torch.equal(Pb.view(torch.int16), P2.view(torch.int16))
+    assert torch.equal(Ab.view(torch.int16), A2.view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, _BF])
+@pytest.mark.parametrize('B, H, W, h, w, dy0, dx0, vector', [
+    (3, 540, 960, 384, 640, 192, 384, True),     # overhangs both edges
+    (1, 1080, 1920, 512, 1024, 576, 896, True),  # overhangs the bottom
+    (2, 150, 300, 128, 256, 64, 128, False),     # W % 8 != 0, overhangs both
+    (2, 67, 129, 64, 128, 64, 128, False),       # 3 rows and 1 column left
+    (2, 64, 128, 64, 128, 0, 0, True),           # the whole frame
+])
+def test_region_over_sep_forms_match_plain(cuda, dtype, B, H, W, h, w, dy0,
+                                           dx0, vector):
+    rng = np.random.default_rng(113 + W)
+    P, A = [t.to(dtype) for t in _on(
+        cuda, *[rng.uniform(0, 1, s).astype(np.float32)
+                for s in ((B, 3, H, W), (B, 1, H, W))])]
+    color, ry, rx = _on(cuda, *[rng.uniform(0, 1, s).astype(np.float32)
+                                for s in ((B, 4), (B, h), (B, w))])
+    P2, A2 = P.clone(), A.clone()
+    fn = co.region_over_sep
+    before = (fn.launches_vector, fn.launches_scalar)
+    outP, outA = fn(P, A, color, ry, rx, dy0, dx0)
+    torch.cuda.synchronize()
+    assert outP is P and outA is A
+    assert (fn.launches_vector, fn.launches_scalar) == \
+        (before[0] + vector, before[1] + (not vector))
+    co.region_over_sep_plain(P2, A2, color, ry, rx, dy0, dx0)
+    assert torch.equal(P, P2) and torch.equal(A, A2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, _BF])
+@pytest.mark.parametrize('which', ['P', 'A', 'rx'])
+def test_region_over_sep_unaligned_takes_the_scalar_form(cuda, dtype, which):
+    rng = np.random.default_rng(127)
+    B, H, W, h, w = 2, 100, 256, 64, 128
+    t = dict(zip(('P', 'A', 'color', 'ry', 'rx'), _on(
+        cuda, *[rng.uniform(0, 1, s).astype(np.float32)
+                for s in ((B, 3, H, W), (B, 1, H, W), (B, 4), (B, h),
+                          (B, w))])))
+    t['P'], t['A'] = t['P'].to(dtype), t['A'].to(dtype)
+    t[which] = _offset_view(t[which], 1)
+    assert t[which].is_contiguous() and t[which].data_ptr() % 16
+    P2, A2 = t['P'].clone(), t['A'].clone()
+    fn = co.region_over_sep
+    before = (fn.launches_vector, fn.launches_scalar)
+    fn(t['P'], t['A'], t['color'], t['ry'], t['rx'], 64, 128)
+    torch.cuda.synchronize()
+    assert (fn.launches_vector, fn.launches_scalar) == (before[0],
+                                                        before[1] + 1)
+    co.region_over_sep_plain(P2, A2, t['color'], t['ry'], t['rx'], 64, 128)
+    assert torch.equal(t['P'], P2) and torch.equal(t['A'], A2)
 
 
 # The quality <= 9 forms: bf16 accumulators (and region_over's bf16
@@ -313,8 +506,8 @@ def test_quality_9_render_on_card_matches_cpu(cuda):
 @pytest.mark.gpu
 def test_render_display_on_card_matches_cpu(cuda):
     """render_display on the card against the CPU: u8 within 1 on at
-    most 0.1% of values (CUDA's powf against the CPU's, in the last
-    ulp)."""
+    most 0.1% of values (the viewport resample sums in another order;
+    both gather their levels from the same table)."""
     from canvas_tpu_torch import timelines
     from canvas_tpu_torch.render import RenderPlanner, box2i
     ws = timelines.build_timeline(1024)

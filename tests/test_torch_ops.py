@@ -340,3 +340,89 @@ def test_nvcc_missing_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match='nvcc not found'):
         _build._nvcc()
 
+
+# The choice between the kernels' 16-byte and scalar instantiations is a
+# pure function of the row length and the planes' pointers
+# (cuda_ops._vector_ok); a CPU tensor's data_ptr() stands in for a card's.
+
+@pytest.mark.parametrize('W, pointers, want', [
+    (1920, (0, 4096, 1 << 40), True),
+    (1920, (), True),
+    (8, (16,), True),
+    (1921, (0, 4096), False),        # W % 8 != 0
+    (1924, (0,), False),             # W % 4 == 0 is not enough
+    (1920, (0, 4100), False),        # a plane 4 bytes off
+    (1920, (2, 4096), False),        # a bf16 plane one value off
+    (1920, (8,), False),             # 8-byte aligned only
+])
+def test_vector_choice_is_a_pure_function(W, pointers, want):
+    assert co._vector_ok(W, *pointers) is want
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_vector_choice_follows_the_pointer_not_the_shape(dtype):
+    """A contiguous view that starts inside its storage has the same
+    shape and strides as an aligned tensor; only data_ptr() tells."""
+    W = 256
+    flat = torch.zeros(3 * 16 * W + 16, dtype=dtype)
+    assert flat.data_ptr() % 16 == 0
+    aligned = flat[:3 * 16 * W].view(1, 3, 16, W)
+    shifted = flat[1:3 * 16 * W + 1].view(1, 3, 16, W)
+    per16 = 16 // flat.element_size()
+    whole = flat[per16:3 * 16 * W + per16].view(1, 3, 16, W)
+    assert aligned.is_contiguous() and shifted.is_contiguous()
+    assert aligned.stride() == shifted.stride() == whole.stride()
+    assert co._vector_ok(W, aligned.data_ptr())
+    assert not co._vector_ok(W, shifted.data_ptr())
+    assert co._vector_ok(W, whole.data_ptr())       # a 16-byte offset is fine
+    assert not co._vector_ok(W, aligned.data_ptr(), shifted.data_ptr())
+    assert not co._vector_ok(W - 1, aligned.data_ptr())
+
+
+def _brute_pixel_layers(box, H, W):
+    """(inside, across) pixel-layers by painting every box and looking
+    at every 16x128 tile."""
+    th, tw = co.FOLD_TILE
+    inside = across = 0
+    for y0, y1, x0, x1 in np.asarray(box).reshape(-1, 4):
+        mask = np.zeros((H, W), bool)
+        if y0 <= y1 and x0 <= x1:
+            mask[max(y0, 0):y1 + 1, max(x0, 0):x1 + 1] = True
+        for ty in range(0, H, th):
+            for tx in range(0, W, tw):
+                tile = mask[ty:ty + th, tx:tx + tw]
+                if tile.all():
+                    inside += tile.size
+                elif tile.any():
+                    across += tile.size
+    return inside, across
+
+
+@pytest.mark.parametrize('L, B, H, W', [
+    (6, 3, 100, 300),      # part tiles on both edges
+    (4, 2, 64, 256),       # whole tiles
+    (1, 1, 16, 128),       # one tile
+    (5, 2, 33, 129),       # one row and one column past a tile
+])
+def test_fold_tile_pixel_layers_matches_brute_force(L, B, H, W):
+    """The host count of what solid_fold's tiles list (the roofline
+    study's instruction model) against a brute-force mask count on seeded
+    boxes: a full-frame box, an empty one, one outside the frame, tensors
+    and arrays alike."""
+    rng = np.random.default_rng(L * 1000 + W)
+    box = _solid_layers(rng, L, B, H, W)[1]
+    box[L - 1, B - 1] = (5, 4, 5, 4)
+    box[0, 0] = (0, H - 1, 0, W - 1)
+    if L > 2:
+        box[1, 0] = (-8, H + 5, -3, W + 200)         # contains the frame
+        box[2, 0] = (H + 2, H + 9, 0, W - 1)         # below the frame
+    want = _brute_pixel_layers(box, H, W)
+    assert co.fold_tile_pixel_layers(box, H, W) == want
+    assert co.fold_tile_pixel_layers(torch.from_numpy(box), H, W) == want
+    assert want[0] > 0 and sum(want) <= L * B * H * W
+
+
+def test_fold_tile_pixel_layers_of_no_layers_is_zero():
+    assert co.fold_tile_pixel_layers(np.zeros((0, 2, 4), np.int32),
+                                     40, 200) == (0, 0)
+

@@ -29,10 +29,12 @@ import torch
 
 import bench
 from canvas_tpu import render as ref_render
+from canvas_tpu import sources as ref_sources
 from canvas_tpu.basetypes import box2i as ref_box2i
 from canvas_tpu_torch import render as port
 from canvas_tpu_torch import timelines
 from canvas_tpu_torch.basetypes import box2i
+from canvas_tpu_torch.ops import color as color_ops
 from canvas_tpu_torch.ops import cuda_ops
 from canvas_tpu_torch.sources import (SolidColorVideoSource,
                                       VideoColorTransferFilter)
@@ -182,11 +184,173 @@ def test_params_to_torch(timeline, ref_timeline):
 
 
 def test_out_of_slice_op_raises():
-    src = VideoColorTransferFilter(
-        SolidColorVideoSource((0.25, 0.5, 0.75, 1.0)), 'linear_to_rec709')
-    planner = port.RenderPlanner(src, box2i(0, 0, 31, 31), device='cpu')
-    with pytest.raises(NotImplementedError, match="'transfer'.*ROADMAP"):
-        planner.render(0, 2)
+    """The ops left for later slices (no source of the port plans one)
+    raise, naming the ROADMAP item that brings each."""
+    for op in ('field_interleave', 'planar_recon_rows', 'u8_linearize'):
+        with pytest.raises(NotImplementedError, match=repr(op) + '.*ROADMAP'):
+            port._eval((op, (), (), ()), iter([{}]), CPU)
+    with pytest.raises(ValueError, match='unknown op'):
+        port._eval(('no_such_op', (), (), ()), iter([{}]), CPU)
+
+
+# The color filter's ops: 'transfer' (a curve by the f16 bits, all four
+# channels) and 'matrix' (3x3 over rgb at full f32). The curves gather
+# from tables built with libm's powf where XLA computes the formula, and
+# both truncate to the f16 grid: bit-equal. A matrix sums three f32
+# products in torch's order and XLA's (which contracts them into fused
+# multiply-adds): the f16 frames within 1 f16 ulp, stated per test.
+
+TRANSFER_WINDOW = (0, 0, 255, 143)
+
+
+def _eval_both(src, ref_src, window, start, stop):
+    """(the port's f16 frames, the JAX package's) of [start, stop), each
+    package planning its own source; the plans' signatures must agree."""
+    node = _plan(src, window, start, stop)
+    ref = _ref_plan(ref_src, window, start, stop)
+    sig = port.signature(node)
+    assert sig == ref.signature()
+    want = np.asarray(jax.jit(ref_render._make_run(sig, None, jnp, jax))(
+        ref.flat_params([])))
+    got = port.run(sig, port.params_to_torch(port.flat_params(node), CPU),
+                   CPU).numpy()
+    assert got.dtype == np.float16 and got.shape == want.shape
+    return node, got, want
+
+
+def _ulps_f16(a, b):
+    """Largest distance of two f16 arrays in f16 steps (finite values)."""
+    def order(x):
+        bits = x.view(np.int16).astype(np.int32)
+        return np.where(bits < 0, -(bits & 0x7fff), bits)
+    return int(np.abs(order(a) - order(b)).max())
+
+
+@pytest.mark.parametrize('curve', color_ops.TRANSFERS)
+def test_transfer_matches_jax(timeline, ref_timeline, curve):
+    """Each single curve over the headline composite (frames 130..132:
+    both scalers and their overhanging regions): bit-equal."""
+    node, got, want = _eval_both(
+        VideoColorTransferFilter(timeline, curve),
+        ref_sources.VideoColorTransferFilter(ref_timeline, curve),
+        TRANSFER_WINDOW, 130, 133)
+    assert node.op == 'transfer' and node.static == (curve,)
+    np.testing.assert_array_equal(got.view(np.uint16), want.view(np.uint16))
+
+
+@pytest.mark.parametrize('transform, ops', [
+    ('rgb_to_xyz_sdtv', ['matrix', 'transfer']),
+    ('xyz_to_srgb', ['transfer', 'matrix'])])
+def test_matrix_matches_jax(timeline, ref_timeline, transform, ops):
+    """The two matrix transforms over the headline composite: within 1
+    f16 ulp of the JAX package's frames, at least 99.9% bit-equal (the
+    3-term sums differ in an f32 ulp, which the f16 store or the curve's
+    f16 grid can carry over one step)."""
+    node, got, want = _eval_both(
+        VideoColorTransferFilter(timeline, transform),
+        ref_sources.VideoColorTransferFilter(ref_timeline, transform),
+        TRANSFER_WINDOW, 130, 133)
+    assert [node.op, node.children[0].op] == ops
+    assert np.isfinite(got.astype(np.float32)).all()
+    assert _ulps_f16(got, want) <= 1
+    assert np.mean(got.view(np.uint16) == want.view(np.uint16)) >= 0.999
+
+
+def _cards():
+    """A composite without scalers: a background, a translucent card with
+    animated gain, an animated card."""
+    from canvas_tpu_torch.framefuncs import LerpFunc, LinearFrameFunc
+    from canvas_tpu_torch.sources import (VideoGainOffsetFilter,
+                                          VideoWorkspace)
+    ws = VideoWorkspace()
+    ws.add(source=SolidColorVideoSource((0.1, 0.3, 0.12, 1.0)), x=0,
+           length=64, z=0)
+    ws.add(source=VideoGainOffsetFilter(
+        SolidColorVideoSource((0.9, 0.2, 0.3, 0.6),
+                              window=box2i(5, 4, 40, 30)),
+        gain=LinearFrameFunc(0.01, 0.5), offset=0.0), x=0, length=64, z=1)
+    ws.add(source=SolidColorVideoSource(
+        LerpFunc((0.0, 0.1, 0.9, 0.9), (1.0, 0.8, 0.2, 0.4), 64),
+        window=box2i(20, 10, 60, 33)), x=0, length=64, z=2)
+    return ws
+
+
+@pytest.mark.parametrize('transform', color_ops.TRANSFERS + (
+    'rgb_to_xyz_sdtv', 'xyz_to_srgb'))
+def test_color_filter_matches_pull_path(transform):
+    """Every transform of the filter over a composite of solids against
+    the NumPy pull path, at test_render.py's assert_matches_pull
+    tolerance, 2e-3 (two f16 steps at 1.0), taken relative as well: the
+    matrices push this composite's values out to 2.5, where two f16
+    steps are 4e-3. (The pull path rounds the composite to f16 before
+    the filter and the batched path does not; a matrix row multiplies
+    that step by up to 3.2.)"""
+    src = VideoColorTransferFilter(_cards(), transform)
+    window = box2i(0, 0, 63, 35)
+    got = port.RenderPlanner(src, window, device='cpu').render(3, 7)
+    want = np.stack([np.asarray(src.get_frame_f16(i, window).data)
+                     for i in range(3, 7)])
+    assert got.dtype == np.float16 and got.shape == want.shape
+    np.testing.assert_allclose(got.astype(np.float32),
+                               want.astype(np.float32), rtol=2e-3, atol=2e-3)
+
+
+def test_transfer_timeline_renders():
+    """The config1-like clip (a ramping solid through rec709 -> linear):
+    the plan equals the JAX package's for benchmarks.config1's source,
+    the frames are bit-equal to its program's and to the pull path's,
+    streamed or rendered at once."""
+    from canvas_tpu.framefuncs import LerpFunc as RefLerp
+    src = timelines.transfer_timeline(1024)
+    ref_src = ref_sources.VideoColorTransferFilter(
+        ref_sources.SolidColorVideoSource(
+            RefLerp((0, 0, 0, 1), (1, 1, 1, 1), 1024)),
+        'rec709_to_linear_scene')
+    window = (0, 0, 127, 71)
+    _node, got, want = _eval_both(src, ref_src, window, 300, 308)
+    np.testing.assert_array_equal(got.view(np.uint16), want.view(np.uint16))
+    pull = np.stack([np.asarray(src.get_frame_f16(i, box2i(*window)).data)
+                     for i in range(300, 308)])
+    np.testing.assert_array_equal(got.view(np.uint16), pull.view(np.uint16))
+    planner = port.RenderPlanner(src, box2i(*window), device='cpu')
+    streamed = np.concatenate([out.numpy() for _s, _n, out in
+                               planner.iter_batches(300, 308, batch=3)])
+    np.testing.assert_array_equal(streamed, got)
+
+
+def test_stage_and_dv_recon_ops_match_jax():
+    """The two ops no emitter plans, through both ``_eval``s on seeded
+    params: 'stage' exactly; 'dv_recon' as 'dv_recon_rows' is held in
+    test_torch_mixed.py (the chroma matmul sums in another order, and a
+    last-ulp difference before the truncating f16 grid and the transfer
+    table moves a value by one f16 step): atol 4e-3, at least 99.9% of
+    values equal."""
+    rng = np.random.default_rng(5)
+    data = rng.uniform(-0.2, 1.2, (2, 4, 9, 11)).astype(np.float16)
+    sig = ('stage', (), (), ())
+    want = np.asarray(ref_render._eval(sig, iter([{'data': jnp.asarray(data)}]),
+                                       jnp, jax))
+    got = port._eval(sig, iter([{'data': torch.from_numpy(data)}]), CPU)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+    from canvas_tpu_torch.ops import chroma
+    params = {'y': rng.integers(16, 236, (2, 480, 720)).astype(np.uint8),
+              'cb': rng.integers(16, 241, (2, 480, 180)).astype(np.uint8),
+              'cr': rng.integers(16, 241, (2, 480, 180)).astype(np.uint8),
+              'up': np.asarray(chroma._dv_up_matrix(), np.float32),
+              'm': np.asarray(chroma.YCBCR_TO_RGB_REC709, np.float32)}
+    sig = ('dv_recon', (), (), ())
+    want = np.asarray(ref_render._eval(
+        sig, iter([{k: jnp.asarray(v) for k, v in params.items()}]), jnp,
+        jax)).astype(np.float16)
+    got = port._eval(sig, iter([{k: torch.from_numpy(v)
+                                 for k, v in params.items()}]),
+                     CPU).numpy().astype(np.float16)
+    assert got.shape == want.shape == (2, 4, 480, 720)
+    np.testing.assert_allclose(got.astype(np.float32),
+                               want.astype(np.float32), rtol=0, atol=4e-3)
+    assert np.mean(got.view(np.uint16) == want.view(np.uint16)) >= 0.999
 
 
 def test_quality_9_raises(timeline, ref_timeline):
