@@ -85,6 +85,8 @@ _FRAME_PARAMS = {
     'transfer': frozenset(),
     'matrix': frozenset(),
     'dv_recon_rows': frozenset(('rows',)),
+    'planar_recon_rows': frozenset(('rows',)),
+    'field_interleave': frozenset(('start_y', 'end_y', 'x0', 'x1')),
 }
 
 

@@ -27,7 +27,8 @@ from canvas_tpu_torch.sources import (  # noqa: F401
     WorkspaceItem)
 from canvas_tpu_torch.coded import (  # noqa: F401
     CodecPacketSource, CodedImage, CodedImageSource,
-    DVReconstructionFilter)
+    DVReconstructionFilter, DVSubsampleFilter, MPEG2SubsampleFilter,
+    PlanarReconstructionFilter, Pulldown23RemovalFilter)
 from canvas_tpu_torch.clock import (  # noqa: F401
     ClockCallbackHandle, PresentationClock, SystemPresentationClock)
 

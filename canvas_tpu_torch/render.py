@@ -18,22 +18,32 @@ accumulators at quality <= 9), ``placed`` (rank-1 regions through
 ``region_over_sep``, any other region through ``region_over``),
 ``scale_solid``, ``scale_solid_dyn``, ``scale``, ``scale_taps_dyn``
 (with the quality <= 5 ``lq`` taps), ``place``, ``stage``,
-``stage_rows``, ``dv_recon``, ``dv_recon_rows``, and the color filter's
-``transfer`` and ``matrix``; the export conversions of ``iter_batches(post=...)``;
-and the editor's display pull, ``render_display``, with its viewport
-resample and its u8, rgb24 and yuv420 transports. Every other op raises
-``NotImplementedError`` naming the ROADMAP.md queue item that ports it.
+``stage_rows``, ``dv_recon``, ``dv_recon_rows``, the generic planar
+``planar_recon_rows``, the pulldown filter's ``field_interleave``, and
+the color filter's ``transfer`` and ``matrix``; the export conversions of
+``iter_batches(post=...)``; and the editor's display pull,
+``render_display``, with its viewport resample and its u8, rgb24 and
+yuv420 transports. Every other op raises ``NotImplementedError`` naming
+the ROADMAP.md queue item that ports it.
+
+``RenderPlanner.iter_batches`` keeps prepared segments (the plan cut into
+batches, their params on the device once dispatched) in a plan cache, so
+a replayed range plans nothing and copies nothing; ``max_inflight``
+bounds how far the host runs ahead of the device, and a pre-flight
+estimate refuses a batch that cannot fit the card's memory.
 """
 
 import functools
+import logging
 import os
-from collections import OrderedDict
+import threading
+from collections import OrderedDict, deque
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from canvas_tpu_torch import backend
+from canvas_tpu_torch import backend, profiling
 from canvas_tpu_torch.basetypes import box2i
 from canvas_tpu_torch.ir import (_BATCH_AXIS, _frame_params, flat_params,
                                  signature, sliced_signature,
@@ -56,11 +66,11 @@ _DISPLAY_MATS_KEPT = 8
 #: ROADMAP.md queue-1 item that ports each together with its only
 #: emitter; the port has no source that plans any of them.
 _LATER = {
-    'field_interleave': 'queue 1 item 6a',
-    'planar_recon_rows': 'queue 1 item 6a',
     'u8_linearize': 'queue 1 item 10',
     'solid_cells': 'queue 1 item 9 (not ported)',
 }
+
+_log = logging.getLogger('canvas_tpu_torch.render')
 
 #: Params kept as host Python ints: the region offsets. On the device
 #: they would force a sync before every region launch.
@@ -86,14 +96,43 @@ def _canonical(v):
 def params_to_torch(plist, device):
     """The planner's flat param list (one dict per node, depth first; the
     same list ``Node.flat_params`` gives ``canvas_tpu.render._eval``) as
-    tensors on *device*. Region offsets stay host ints; tensors already
-    made by the planner (the staged stacks, on *device*) pass through."""
-    out = []
+    tensors on *device*, uploaded in ONE copy: every host leaf packed
+    into one buffer (leaves start at multiples of 16 bytes), the buffer
+    copied, and each leaf a tensor that views its bytes there. Some
+    thirty small arrays per batch would else each cost a copy of their
+    own. Region offsets stay host ints; tensors already made by the
+    planner (the staged stacks, on *device*) pass through. On CUDA the
+    bytes go from pinned memory with ``non_blocking=True`` on the
+    current stream, and the copy is counted in
+    ``backend.transfer_stats``."""
+    out, leaves, size = [], [], 0
     for p in plist:
-        out.append({k: (int(v) if k in _HOST_INT_PARAMS
-                        else v if isinstance(v, torch.Tensor)
-                        else backend.to_device(_canonical(v), device))
-                    for k, v in p.items()})
+        q = {}
+        for k, v in p.items():
+            if k in _HOST_INT_PARAMS:
+                q[k] = int(v)
+            elif isinstance(v, torch.Tensor):
+                q[k] = v
+            else:
+                a = _canonical(v)
+                # (ascontiguousarray would make a 0-d leaf 1-d)
+                leaves.append((q, k, np.ascontiguousarray(a).reshape(-1),
+                               a.shape, size))
+                size += -(-a.nbytes // 16) * 16
+        out.append(q)
+    cuda = device.type == 'cuda'
+    host = torch.empty(size, dtype=torch.uint8, pin_memory=cuda)
+    flat = host.numpy()
+    for _q, _k, a, _shape, off in leaves:
+        flat[off:off + a.nbytes] = a.view(np.uint8)
+    if cuda:
+        buffer = host.to(device, non_blocking=True)
+        backend.count_h2d(size, 1)
+    else:
+        buffer = host
+    for q, k, a, shape, off in leaves:
+        dtype = torch.from_numpy(np.empty(0, a.dtype)).dtype
+        q[k] = buffer[off:off + a.nbytes].view(dtype).reshape(shape)
     return out
 
 
@@ -164,20 +203,37 @@ def _densify(idx, w, S):
     return torch.sum(terms, dim=2)
 
 
-def _dv_recon_math(y8, cb8, cr8, U, M):
-    """DV 4:1:1 reconstruction (render.py:1247-1267): studio-range
-    expand, chroma upsample as a matmul with U (720, 180), the 3x3
-    YCbCr->RGB matrix, the truncating f16 grid, rec709->linear."""
+def _recon_math(y8, cb8, cr8, up, M):
+    """Planar YCbCr u8 stacks to linear RGBA (render.py:1175-1206,
+    1247-1267): studio-range expand, the chroma planes brought to the
+    luma size by *up*, the 3x3 YCbCr->RGB matrix *M*, alpha 1, the
+    truncating f16 grid, rec709->linear. Every contraction runs at full
+    f32."""
     y = (y8.float() - 16.0) / 219.0
-    cb = (cb8.float() - 128.0) / 224.0
-    cr = (cr8.float() - 128.0) / 224.0
-    cb_full = torch.einsum('bhs,xs->bhx', cb, U)
-    cr_full = torch.einsum('bhs,xs->bhx', cr, U)
-    ycc = torch.stack([y, cb_full, cr_full], dim=1)
-    rgb = torch.einsum('ij,bjhw->bihw', M, ycc)
+    cb = up((cb8.float() - 128.0) / 224.0)
+    cr = up((cr8.float() - 128.0) / 224.0)
+    rgb = torch.einsum('ij,bjhw->bihw', M, torch.stack([y, cb, cr], dim=1))
     alpha = torch.ones_like(y)[:, None]
     rgba16 = color_ops.quantize_f16_trunc(torch.cat([rgb, alpha], dim=1))
     return color_ops.device_transfer('rec709_to_linear_scene', rgba16)
+
+
+def _dv_recon_math(y8, cb8, cr8, U, M):
+    """DV 4:1:1 reconstruction: the chroma upsample is one matmul with U
+    (720, 180)."""
+    return _recon_math(y8, cb8, cr8,
+                       lambda c: torch.einsum('bhs,xs->bhx', c, U), M)
+
+
+def _planar_recon_math(y8, cb8, cr8, Uh, Uv, M):
+    """Generic planar reconstruction: the chroma planes upsampled on both
+    axes, as two contractions with the dense matrices Uh (W, cw) and Uv
+    (H, ch)."""
+    def up(c):
+        c = torch.einsum('bhs,xs->bhx', c, Uh)
+        return torch.einsum('bsw,hs->bhw', c, Uv)
+
+    return _recon_math(y8, cb8, cr8, up, M)
 
 
 def _eval(node_sig, params_iter, device, out_dtype=torch.float32):
@@ -256,6 +312,37 @@ def _eval(node_sig, params_iter, device, out_dtype=torch.float32):
     if op == 'dv_recon':
         return _dv_recon_math(params['y'], params['cb'], params['cr'],
                               params['up'], params['m'])
+
+    if op == 'planar_recon_rows':
+        rows = params['rows']
+        return _planar_recon_math(
+            torch.index_select(params['py'], 0, rows),
+            torch.index_select(params['pcb'], 0, rows),
+            torch.index_select(params['pcr'], 0, rows),
+            params['uh'], params['uv'], params['m'])
+
+    if op == 'field_interleave':
+        # a 2:3 pulldown frame: even absolute rows in [start_y, end_y]
+        # and columns in [x0, x1] (frame a's window) come from child b,
+        # the rest from child a (render.py:1033-1051). Rows are absolute,
+        # so a window that starts at a negative y needs the floored
+        # remainder (torch.remainder; torch.fmod would keep the sign).
+        a = _eval(child_sigs[0], params_iter, device)
+        b = _eval(child_sigs[1], params_iter, device)
+        (min_y, min_x) = static
+        H, W = a.shape[2], a.shape[3]
+        rows = torch.arange(H, dtype=torch.int32,
+                            device=device).view(1, 1, H, 1) + min_y
+        cols = torch.arange(W, dtype=torch.int32,
+                            device=device).view(1, 1, 1, W) + min_x
+        start = params['start_y'][:, None, None, None]
+        end = params['end_y'][:, None, None, None]
+        x0 = params['x0'][:, None, None, None]
+        x1 = params['x1'][:, None, None, None]
+        mask = ((rows >= start) & (rows <= end)
+                & (torch.remainder(rows, 2) == 0)
+                & (cols >= x0) & (cols <= x1))
+        return torch.where(mask, b, a)
 
     if op == 'transfer':
         # a named curve on all four channels, by the f16 bits of the child
@@ -450,16 +537,127 @@ def display_matrices_host(window_h, window_w, display_size):
                                   int(display_size[0]))
 
 
+def _hbm_budget_bytes(device):
+    """Device-memory budget for the pre-dispatch footprint check
+    (render.py:1513-1547): ``CANVAS_HBM_MB`` when set (0 or less
+    switches every check off and gives 0), else the card's total memory
+    (``torch.cuda.mem_get_info``: the total, not the free share, since
+    the port's own caches live in the rest), else None: on the CPU there
+    is nothing to guard."""
+    env = os.environ.get('CANVAS_HBM_MB')
+    if env is not None:
+        try:
+            mb = float(env)
+        except ValueError:
+            _log.warning('CANVAS_HBM_MB=%r is not a number (want MB, e.g. '
+                         '81920); falling back to device detection', env)
+        else:
+            return int(mb * (1 << 20)) if mb > 0 else 0
+    if device.type != 'cuda':
+        return None
+    return int(torch.cuda.mem_get_info(device)[1])
+
+
+def _check_hbm_footprint(batch, window, post, max_inflight, device,
+                         working_bpp=16):
+    """Estimate the device memory of a batched render and refuse a
+    clearly-over-budget one BEFORE any launch (render.py:1550-1598): an
+    out-of-memory error would otherwise end a stream part-way, after the
+    host planned and staged it and the caller consumed earlier batches,
+    and its message names an allocation size, not the batch that asked
+    too much.
+
+    Model: ``depth`` retained output buffers (``max_inflight``, 3 when
+    unbounded; 8 / 4 / 1.5 bytes per pixel by *post*) plus ONE working
+    stack of ``working_bpp`` bytes per pixel for the executing batch,
+    the f32 accumulators (0 for the cumulative check of a collector that
+    keeps every batch's output; its per-batch working set is checked
+    apart). PyTorch's allocator hands a dropped output's memory to the
+    next batch in stream order, so the depth stands for the batches a
+    caller holds at once (an exporter converts one while the next
+    renders), not for queued work. Raises above the budget
+    (``_hbm_budget_bytes``), logs a warning above 80% of it."""
+    budget = _hbm_budget_bytes(device)
+    if not budget:        # None: the CPU; 0: switched off
+        return
+    px = window.width * window.height
+    out_bpp = {None: 8, 'rgba_u8': 4, 'bgra_u8': 4,
+               'yuv420': 1.5}.get(post, 8)
+    # non-positive max_inflight means unbounded, as in iter_batches
+    depth = max_inflight if (max_inflight and max_inflight > 0) else 3
+    est = int((depth * out_bpp + working_bpp) * batch * px)
+    if est > budget:
+        raise ValueError(
+            '%d frames at %dx%d estimate ~%.1f GiB on the device '
+            '(%d retained output buffers%s) against a ~%.1f GiB HBM '
+            'budget; the render would run out of memory part-way. Reduce '
+            'batch, bound max_inflight, or override with CANVAS_HBM_MB '
+            '(0 disables this check).'
+            % (batch, window.width, window.height, est / (1 << 30), depth,
+               ' + f32 working set' if working_bpp else '',
+               budget / (1 << 30)))
+    if est > 0.8 * budget:
+        _log.warning(
+            'batch %d at %dx%d estimates ~%.1f GiB on the device against '
+            'a ~%.1f GiB HBM budget: marginal; consider a smaller batch '
+            'or max_inflight', batch, window.width, window.height,
+            est / (1 << 30), budget / (1 << 30))
+
+
+def _pinned_bytes(plists):
+    """Device bytes the flat param lists *plists* keep alive: each
+    tensor's storage counted once (per-batch views of one staged stack,
+    or of one upload, share theirs), and each host array at the bytes
+    its upload will take."""
+    seen = {}
+    for plist in plists:
+        for p in plist:
+            for v in p.values():
+                if isinstance(v, torch.Tensor):
+                    st = v.untyped_storage()
+                    seen[st.data_ptr()] = st.nbytes()
+                elif isinstance(v, np.ndarray):
+                    seen[id(v)] = v.nbytes
+    return sum(seen.values())
+
+
+class _Prepared:
+    """One prepared segment: the sliced signature and its batches
+    ``(pos, n_valid)``, each with its flat params: on the host as
+    planned, on the device from the batch's first dispatch on
+    (``device_params``), so a cached plan replays with no copy."""
+
+    __slots__ = ('seg_start', 'sig', 'spans', 'plists', 'uploaded')
+
+    def __init__(self, seg_start, sig, batches):
+        self.seg_start = seg_start
+        self.sig = sig
+        self.spans = [(pos, take) for pos, take, _pl in batches]
+        self.plists = [pl for _pos, _take, pl in batches]
+        self.uploaded = [False] * len(batches)
+
+    def device_params(self, i, device):
+        """Batch *i*'s params on *device*: uploaded the first time
+        (``params_to_torch``, on the calling thread's stream), and
+        kept."""
+        if not self.uploaded[i]:
+            self.plists[i] = params_to_torch(self.plists[i], device)
+            self.uploaded[i] = True
+        return self.plists[i]
+
+
 class RenderPlanner:
     """Plans frame ranges of *source* on the host and renders them on a
     torch device (the counterpart of ``canvas_tpu.render.RenderPlanner``).
 
     ``device=None`` is CUDA and raises when there is none;
-    ``device='cpu'`` runs the kernels' plain PyTorch versions. Plans are
-    not cached across calls: every ``iter_batches``/``render`` plans its
-    segments anew. Staged stacks (host-pulled frames, coded planes) live
-    in ``persistent_cache`` between calls; ``stage_cache_mb = 0`` turns
-    that off.
+    ``device='cpu'`` runs the kernels' plain PyTorch versions.
+    ``iter_batches`` keeps each prepared segment (the plan cut into
+    batches, their params on the device once dispatched) in a plan
+    cache, so a replayed or looped range plans nothing and copies
+    nothing (``plan_cache_segments``); ``render`` plans anew. Staged stacks
+    (host-pulled frames, coded planes) live in ``persistent_cache``
+    between calls; ``stage_cache_mb = 0`` turns both caches off.
     """
 
     #: The CUDA stream the render reads staged stacks on: the calling
@@ -474,6 +672,13 @@ class RenderPlanner:
     #: Device-byte budget for the persistent staging cache
     #: (CANVAS_STAGE_CACHE_MB env overrides; 0 disables).
     stage_cache_mb = None
+
+    #: Most prepared segments kept across ``iter_batches`` calls (0
+    #: disables). A cached plan pins its staged device stacks, so plans
+    #: are not kept either when the staging budget is 0: a planner told
+    #: to cache nothing on the device would else keep the stacks alive
+    #: through its plans. Time a cold pass with this set to 0.
+    plan_cache_segments = 64
 
     #: The cached plan of ``render_display``'s current segment (None
     #: until the first call; dropped by ``invalidate_display_cache``).
@@ -502,9 +707,15 @@ class RenderPlanner:
         self.quality = int(quality)
         self.device = backend.resolve_device(device)
         backend.ensure_initialized()
+        #: Prepared segments by (segment, batch, post, quality), least
+        #: recently used first, each with the device bytes it pins; the
+        #: prepare thread inserts while edits prune, under the lock.
+        self._plan_cache = OrderedDict()
+        self._plan_cache_lock = threading.Lock()
 
     def set_quality(self, quality):
-        """Change the quality hint; drops staged device data."""
+        """Change the quality hint; drops cached plans and staged device
+        data."""
         quality = int(quality)
         if quality != self.quality:
             self.quality = quality
@@ -524,21 +735,26 @@ class RenderPlanner:
         if self.device.type == 'cuda':
             self.render_stream = torch.cuda.current_stream(self.device)
 
-    def _plan(self, seg):
-        """Plan segment [s0, s1) on the host with the port's
-        ``PlanContext`` (NumPy, plus the port's device staging)."""
+    def _plan_context(self, seg):
+        """A fresh ``PlanContext`` for segment [s0, s1); the per-segment
+        staging state starts empty."""
         s0, s1 = seg
         self._stage_cache = {}
         self._frame_hints = {}
         frames = np.arange(s0, s1, dtype=np.int64)
-        return PlanContext(self, frames, self.window).plan(self.source)
+        return PlanContext(self, frames, self.window)
+
+    def _plan(self, seg):
+        """Plan segment [s0, s1) on the host with the port's
+        ``PlanContext`` (NumPy, plus the port's device staging)."""
+        return self._plan_context(seg).plan(self.source)
 
     def explain(self, start, stop):
         """Human-readable plan report for [start, stop): per segment, the
         IR tree (op, static geometry, param shapes with ``@dev`` on
         tensors already on the device, per-frame window coverage), then
-        the stage cache's size. Planning is real: it stages what a first
-        render would, into the same caches."""
+        the stage cache's and the plan cache's size. Planning is real: it
+        stages what a first render would, into the same caches."""
         lines = []
         area = float(self.window.width * self.window.height)
 
@@ -574,6 +790,8 @@ class RenderPlanner:
         cache = self.persistent_cache
         lines.append('stage cache: %d entries, %.1f MB of %.1f MB'
                      % (len(cache), cache.bytes / 1e6, cache.budget / 1e6))
+        lines.append('plan cache: %d prepared segments'
+                     % (len(self._plan_cache),))
         return '\n'.join(lines)
 
     def segments(self, start, stop, min_span=0):
@@ -599,13 +817,16 @@ class RenderPlanner:
 
     def _prepare(self, seg, batch):
         """Plan one segment and cut its params into per-batch lists
-        (render.py:1821-1901 without the device puts). Runs on the
-        prepare thread; returns (seg_start, signature, batches) with
-        batches [(pos, n_valid, params)]. Tail batches repeat the last
-        frame; a segment shorter than *batch* renders at its own
-        length."""
+        (render.py:1821-1901 without the device puts): returns
+        (seg_start, signature, batches) with batches
+        [(pos, n_valid, params)], the params still on the host."""
+        return self._cut(seg, self._plan(seg), batch)
+
+    def _cut(self, seg, node, batch):
+        """The planned *node* of *seg* as (seg_start, sliced signature,
+        [(pos, n_valid, params)]). Tail batches repeat the last frame; a
+        segment shorter than *batch* renders at its own length."""
         seg_start, seg_stop = seg
-        node = self._plan(seg)
         N = seg_stop - seg_start
         B_eff = batch if N >= batch else N
         sig = sliced_signature(node, N, B_eff)
@@ -635,6 +856,53 @@ class RenderPlanner:
             pos += take
         return seg_start, sig, batches
 
+    def _prepared(self, seg, batch, post, cache_plans):
+        """The ``_Prepared`` form of one segment (render.py:1821-1980):
+        planned and cut into batches. Runs on the prepare thread, one
+        segment ahead, so host planning and staging overlap the device's
+        work on the segment before.
+
+        Prepared segments are kept per (segment, batch, post, quality)
+        when *cache_plans*: a replayed range dispatches the cut batches
+        again as they are, their params on the device since their first
+        dispatch. The cache is an LRU bounded by ``plan_cache_segments``
+        and by the device bytes its entries pin (staged stacks and
+        uploaded params, each storage once) against the staging cache's
+        budget."""
+        key = (seg, batch, post, self.quality)
+        if cache_plans:
+            with self._plan_cache_lock:
+                got = self._plan_cache.get(key)
+                if got is not None:
+                    self._plan_cache.move_to_end(key)
+                    return got[0]
+        ctx = self._plan_context(seg)
+        with profiling.Timer('render.plan'):
+            node = ctx.plan(self.source)
+        result = _Prepared(*self._cut(seg, node, batch))
+        if cache_plans:
+            pinned = _pinned_bytes(result.plists)
+            budget = self.persistent_cache.budget
+            if pinned <= budget:
+                with self._plan_cache_lock:
+                    # An edit that invalidated mid-plan (gen moved since
+                    # the PlanContext was made) must not insert the now
+                    # stale plan. Checked under the lock: invalidation
+                    # bumps gen BEFORE it prunes plans, so either this
+                    # check fails or the prune runs after the insert and
+                    # removes it.
+                    if self.persistent_cache.gen != ctx.stage_gen:
+                        return result
+                    cache = self._plan_cache
+                    cache[key] = (result, pinned)
+                    total = sum(b for (_r, b) in cache.values())
+                    while len(cache) > 1 and (
+                            len(cache) > self.plan_cache_segments
+                            or total > budget):
+                        _k, (_r, b) = cache.popitem(last=False)
+                        total -= b
+        return result
+
     def iter_batches(self, start, stop, batch=16, device_out=True,
                      mesh=None, post=None, max_inflight=None):
         """Yield ``(frame_start, n_valid, out)`` for [start, stop) in
@@ -648,18 +916,38 @@ class RenderPlanner:
         interleaved u8 through the gamma45 ramp, 'yuv420' gives
         (B, H*W + 2*ceil(H/2)*ceil(W/2)) packed studio-range 4:2:0 u8.
 
-        Each structure segment is planned once, one segment ahead, on a
-        worker thread; host-to-device copies and launches happen on the
-        calling thread. ``mesh`` and ``max_inflight`` are not ported yet
-        (ROADMAP.md queue 1 items 8 and 6b) and must be None."""
-        for name, value, item in (('mesh', mesh, 'queue 1 item 8'),
-                                  ('max_inflight', max_inflight,
-                                   'queue 1 item 6b')):
-            if value is not None:
-                raise _not_ported('iter_batches(%s=...)' % (name,), item)
+        ``max_inflight`` bounds how many batches may be launched and not
+        yet finished on the device (render.py:1982-2033): a CUDA event is
+        recorded after each batch's last launch, and before launching
+        past depth k the host waits for the oldest, so it still runs k
+        batches ahead. None or a non-positive value is unbounded. With
+        ``device_out=False`` each batch's fetch already paces the host,
+        and off CUDA every op is synchronous: nothing is recorded.
+
+        Each structure segment is prepared once, one segment ahead, on a
+        worker thread (planning and staging); each batch's params go to
+        the device in one packed copy, and launches happen, on the
+        calling thread. Prepared segments are kept for the next call
+        with the params they uploaded (``plan_cache_segments``).
+        One live iterator per planner: the prepare thread shares the
+        planner's staging state. ``mesh`` is not ported yet (ROADMAP.md
+        queue 1 item 8) and must be None."""
+        if mesh is not None:
+            raise _not_ported('iter_batches(mesh=...)', 'queue 1 item 8')
         if post is not None and post not in color_ops.POSTS:
             raise ValueError('post must be one of %s, not %r'
                              % (sorted(color_ops.POSTS), post))
+        if max_inflight is not None and max_inflight <= 0:
+            max_inflight = None
+        _check_hbm_footprint(batch, self.window, post, max_inflight,
+                             self.device)
+        # Plans pin staged device stacks: no staging budget, no plan
+        # cache either (a cold staging measurement sets stage_cache_mb =
+        # 0 and relies on it disabling BOTH).
+        cache_plans = (self.plan_cache_segments > 0
+                       and self.persistent_cache.budget > 0)
+        pending = (deque() if max_inflight and device_out
+                   and self.device.type == 'cuda' else None)
         segs = self.segments(start, stop, min_span=batch)
         self._drain_plan_pool()
         self._watch_frames_updated()
@@ -667,19 +955,30 @@ class RenderPlanner:
         pool = self._plan_pool = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix='canvas-torch-plan')
         try:
-            fut = pool.submit(self._prepare, segs[0], batch) if segs else None
+            fut = (pool.submit(self._prepared, segs[0], batch, post,
+                               cache_plans) if segs else None)
             for i in range(len(segs)):
-                seg_start, sig, batches = fut.result()
+                prepared = fut.result()
                 if i + 1 < len(segs):
-                    fut = pool.submit(self._prepare, segs[i + 1], batch)
-                for (pos, take, cut_params) in batches:
-                    out = run(sig, params_to_torch(cut_params, self.device),
+                    fut = pool.submit(self._prepared, segs[i + 1], batch,
+                                      post, cache_plans)
+                for k, (pos, take) in enumerate(prepared.spans):
+                    if pending is not None and len(pending) >= max_inflight:
+                        # the oldest pending batch: the stream runs in
+                        # order, so everything older has finished too
+                        pending.popleft().synchronize()
+                    out = run(prepared.sig,
+                              prepared.device_params(k, self.device),
                               self.device, post)
+                    if pending is not None:
+                        done = torch.cuda.Event()
+                        done.record()
+                        pending.append(done)
                     if take < out.shape[0]:
                         out = out[:take]
                     if not device_out:
                         out = out.cpu().numpy()
-                    yield seg_start + pos, take, out
+                    yield prepared.seg_start + pos, take, out
         finally:
             pool.shutdown(wait=False)
             if getattr(self, '_plan_pool', None) is pool:
@@ -694,9 +993,17 @@ class RenderPlanner:
         self._drain_plan_pool()
         self._watch_frames_updated()
         self._note_render_stream()
+        # Every segment's output stays in `outs` until the concatenation,
+        # which holds a second buffer of the whole size: the footprint of
+        # a range of several segments is the whole range's.
+        _check_hbm_footprint(stop - start, self.window, None, 2, self.device,
+                             working_bpp=0)
         outs = []
         windows = []
         for seg in self.segments(start, stop):
+            # one segment renders at a time, its output kept: depth 1
+            _check_hbm_footprint(seg[1] - seg[0], self.window, None, 1,
+                                 self.device)
             node = self._plan(seg)
             outs.append(run(signature(node),
                             params_to_torch(flat_params(node), self.device),
@@ -814,16 +1121,17 @@ class RenderPlanner:
         return got
 
     def invalidate_display_cache(self, *args):
-        """Drop the cached display segment and staged device data (the
-        graph changed).
+        """Drop the cached display segment, cached plans and staged
+        device data (the graph changed).
 
         Sources edited through a signal-bearing layer call this through
         their ``frames_updated`` signal; code that mutates a raw graph
         directly must call it, or use a fresh planner, before rendering
         again. With a frame range (``frames_updated(lo, hi)``, hi
-        inclusive), a display segment outside it and staged stacks that
-        only ever served root segments outside it stay; without one,
-        everything drops (render.py:2288-2308)."""
+        inclusive), a display segment outside it, prepared plans of
+        segments outside it (they keep replaying with no planning) and
+        staged stacks that only ever served root segments outside it
+        stay; without one, everything drops (render.py:2288-2322)."""
         # bools are ints in Python: a trailing positional flag must not
         # read as the range's end
         ints = [a for a in args
@@ -836,13 +1144,21 @@ class RenderPlanner:
         if seg is not None and (lo is None
                                 or (seg['lo'] <= hi and lo < seg['hi'])):
             self._display_seg = None
-        cache = getattr(self, '_persistent_cache', None)
-        if cache is None:
-            return
+        # The stage cache first: it bumps its generation, which the plan
+        # cache's insert checks under the lock taken below.
+        cache = self.persistent_cache
         if lo is None:
             cache.clear()
         else:
             cache.invalidate_range(lo, hi)
+        with self._plan_cache_lock:
+            plans = self._plan_cache
+            if lo is None:
+                plans.clear()
+            else:
+                for key in [k for k in plans
+                            if k[0][0] <= hi and lo < k[0][1]]:
+                    del plans[key]
 
     def _watch_frames_updated(self):
         if getattr(self, '_watching_updates', False):
@@ -863,8 +1179,8 @@ class RenderPlanner:
 
     def close(self):
         """Deterministic teardown: disconnect from the source's
-        frames_updated signal and drop the display segment, staged stacks
-        and viewport matrices."""
+        frames_updated signal and drop the display segment, cached plans,
+        staged stacks and viewport matrices."""
         self._drain_plan_pool()
         if getattr(self, '_watching_updates', False):
             updated = getattr(self.source, 'frames_updated', None)

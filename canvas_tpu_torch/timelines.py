@@ -10,7 +10,14 @@
 - ``transfer_timeline(length)``: the single clip of ``benchmarks.py``
   config1 (``benchmarks.py:225-237``, rendered there at 1280x720): a
   solid whose color ramps from black to white, through the rec709 ->
-  linear transfer.
+  linear transfer;
+- ``pulldown_clip()``: the clip of ``benchmarks.py`` config3
+  (``benchmarks.py:255-275``): a 720x480 4:1:1 DV clip reconstructed
+  under 2:3 pulldown removal, rendered at ``PULLDOWN_WINDOW``;
+- ``planar_clip(length)``: the graph of ``benchmarks.py`` config8
+  (``benchmarks.py:705-728``): 1920x1080 4:2:0 planes through the
+  generic planar reconstruction, with seeded planes in the decoder's
+  place.
 
 Each matches the JAX package's builder item for item, so a planner given
 one plans the IR the JAX package plans for its own.
@@ -20,14 +27,21 @@ import numpy as np
 
 from canvas_tpu_torch.basetypes import box2i
 from canvas_tpu_torch.coded import (CodedImage, CodedImageSource,
-                                    DVReconstructionFilter)
+                                    DVReconstructionFilter,
+                                    PlanarReconstructionFilter,
+                                    Pulldown23RemovalFilter)
 from canvas_tpu_torch.framefuncs import LerpFunc, LinearFrameFunc
 from canvas_tpu_torch.sources import (SolidColorVideoSource,
                                       VideoColorTransferFilter,
                                       VideoGainOffsetFilter, VideoMixFilter,
                                       VideoScaler, VideoWorkspace)
 
-__all__ = ['build_timeline', 'mixed_timeline', 'transfer_timeline']
+__all__ = ['PULLDOWN_WINDOW', 'build_timeline', 'mixed_timeline',
+           'planar_clip', 'pulldown_clip', 'transfer_timeline']
+
+#: The window config3 renders ``pulldown_clip`` at: DV's picture, whose
+#: line zero belongs to the first field (row -1 on top).
+PULLDOWN_WINDOW = box2i(0, -1, 719, 478)
 
 
 def build_timeline(length=1024):
@@ -111,3 +125,58 @@ def transfer_timeline(length=1024):
     return VideoColorTransferFilter(
         SolidColorVideoSource(LerpFunc((0, 0, 0, 1), (1, 1, 1, 1), length)),
         'rec709_to_linear_scene')
+
+
+class FixedDV(CodedImageSource):
+    """Seeded 720x480 4:1:1 planes (``RandomState(0)``, as config3's), the
+    same for every frame."""
+
+    def __init__(self):
+        rng = np.random.RandomState(0)
+        self.planes = (rng.randint(16, 236, (480, 720)).astype(np.uint8),
+                       rng.randint(16, 241, (480, 180)).astype(np.uint8),
+                       rng.randint(16, 241, (480, 180)).astype(np.uint8))
+
+    def get_frame(self, frame_index, quality=0):
+        return CodedImage(list(self.planes))
+
+
+def pulldown_clip():
+    """DV 4:1:1 reconstruction under 2:3 pulldown removal at cadence
+    offset 0: three of four frames are one source frame, the fourth
+    interleaves the fields of two. Render it at ``PULLDOWN_WINDOW``."""
+    return Pulldown23RemovalFilter(DVReconstructionFilter(FixedDV()), 0)
+
+
+class RolledPlanar(CodedImageSource):
+    """Seeded 4:2:0 planes of *width* x *height* (``RandomState(8)``),
+    rolled down by the frame index, for frames 0..length-1; None
+    outside, as a decoder past the end of its file."""
+
+    def __init__(self, length, width=1920, height=1080):
+        rng = np.random.RandomState(8)
+        ch, cw = (height + 1) // 2, (width + 1) // 2
+        self.length = int(length)
+        self.planes = (rng.randint(16, 236, (height, width)).astype(np.uint8),
+                       rng.randint(16, 241, (ch, cw)).astype(np.uint8),
+                       rng.randint(16, 241, (ch, cw)).astype(np.uint8))
+
+    def get_frame(self, frame_index, quality=0):
+        if not 0 <= frame_index < self.length:
+            return None
+        return CodedImage([np.roll(p, frame_index, axis=0)
+                           for p in self.planes])
+
+
+def planar_clip(length=64):
+    """*length* frames of decoded 1920x1080 4:2:0 video through
+    ``PlanarReconstructionFilter(width=1920, height=1080)``.
+
+    config8 decodes an MPEG-4 file with ``libav.AVVideoDecoder``; the
+    port has no decoder yet (ROADMAP.md queue 1 item 5), so
+    ``RolledPlanar`` stands in for it: seeded planes rolled by the frame
+    index, so every frame's planes differ and really cross to the
+    device. What is left out is the decode itself: a number taken on this
+    clip is one with the decode bypassed."""
+    return PlanarReconstructionFilter(RolledPlanar(length), width=1920,
+                                      height=1080)

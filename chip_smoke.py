@@ -39,9 +39,10 @@ playback engine). Each phase prints one line or more; any failure raises
    finite f16 batches; frames 0, 1 and 70 against the NumPy pull path at
    atol 1e-2 with at least 99% of values bit-equal;
 7. mixed timing: config7_mixed_content_10layer_fps (cold: no stage
-   cache, no plan cache; frames 0..127, batch 16, one warm pass, best of
-   3), the device busy time of the same batches replayed and the idle
-   share, the replay's device time by kernel (torch.profiler),
+   cache, which switches the plan cache off too; frames 0..127, batch
+   16, one warm pass, best of 3), the device busy time of the same
+   batches replayed and the idle share, the replay's device time by
+   kernel (torch.profiler),
    and region_over beside its plain version at the path's three region
    shapes;
 8. studies (canvas_tpu_torch.studies): the fold_interior kernel in all
@@ -77,10 +78,35 @@ playback engine). Each phase prints one line or more; any failure raises
    60 fps, warmed, playing for 3 s, three times (full size, a 960x540
    viewport, quality 5 in that viewport), with its presented frames
    against the ideal count, the skipped indices and the mean batch time,
-   then one batch taken apart (render, conversion, fetch, host unpack).
+   then one batch taken apart (render, conversion, fetch, host unpack);
+11. coded video and replay: ``timelines.pulldown_clip()`` (benchmarks.py
+   config3's DV clip under 2:3 pulldown removal) at 720x480, frames
+   0..127 through iter_batches(batch=16), finite f16, frames 0, 1, 2, 3
+   and 70 (solid and mixed cadence frames) against the NumPy pull path
+   (atol 1e-2, at least 99% bit-equal), and
+   ``config3_dv_reconstruct_pulldown_fps`` cold; ``timelines.planar_clip(64)``
+   (config8's graph, seeded planes in the decoder's place) at 1080p,
+   frames 0..47 at batch 8, frames 0, 1, 20 and 47 against the pull path
+   under the same limits, ``config8_1080p_decoded_planar_fps`` cold, decode
+   bypassed, and ``planar_recon_rows``'s device time for one batch beside
+   its bytes and operations; the mixed timeline with one DV clip under
+   pulldown removal (region_over must launch; mixed cadence frame 2
+   against the pull path); the replay of the mixed timeline (frames
+   0..127, batch 16, caches on): ``config7b_mixed_content_cached_replay_fps``
+   and ``config7c_replay_while_editing_elsewhere_fps`` with, per pass,
+   the segments planned (0), the coded frames pulled (0) and the
+   host-to-device copies, the replay's device busy time and idle share,
+   then a pass after ``invalidate_display_cache(0, 10)`` (only the
+   segments touching it plan again), and the same for the headline at
+   batch 128; ``iter_batches(max_inflight=2)`` over the headline
+   bit-equal to the unpaced stream, with the most batches queued ahead of
+   the device; the memory guard's estimate beside the measured peak, and
+   a batch it refuses before any launch; one segment's params uploaded
+   copy by copy beside one packed copy a batch.
 
 Each path (the headline, the mixed timeline, the studies' timing runs,
-the export posts, the display path) runs with every launch counter set
+the export posts, the display path, the coded composite and the
+replays) runs with every launch counter set
 to 0 just before it and read just after; the kernels line reports each
 kernel's launches in those runs, its time, its plain version's, and its
 bound: the larger of the bytes it must move over the card's published
@@ -392,53 +418,69 @@ def _bit_share(a, b):
     return float(np.mean(a.view(np.uint16) == b.view(np.uint16)))
 
 
-def _mixed_slice(tag, window):
-    """Phase 6: the mixed-content timeline through the kernels. Returns
-    (the timeline, launches)."""
+def _pull_stack(src, window, frames):
     import numpy as np
+    return {i: np.asarray(src.get_frame_f16(i, window).data, np.float16)
+            for i in frames}
+
+
+def _vs_pull(what, picked, want):
+    """{frame: (max diff, share bit-equal)} of picked f16 frames against
+    the pull path's; raises beyond atol 1e-2 or under 99% bit-equal."""
+    import numpy as np
+    out = {}
+    for i, got in picked.items():
+        err = float(np.abs(got.astype(np.float32)
+                           - want[i].astype(np.float32)).max())
+        share = _bit_share(got, want[i])
+        out[i] = (err, share)
+        if not np.isfinite(got).all() or err > 1e-2 or share < 0.99:
+            raise AssertionError('%s frame %d differs from the pull path by '
+                                 '%r (%.5f bit-equal)' % (what, i, err, share))
+    return out
+
+
+def _stream_checked(what, planner, start, stop, batch, frames):
+    """Stream [start, stop), check every batch (f16, shape, finite) and
+    return the picked *frames* as numpy arrays."""
     import torch
-
-    from canvas_tpu_torch import timelines
-    from canvas_tpu_torch.render import RenderPlanner
-
-    H, W = window.height, window.width
-    ws = timelines.mixed_timeline(256)
-    planner = RenderPlanner(ws, window)
-    picked = {}
-    n_frames = 0
-    _zero_launch_counts()
-    for s, n, out in planner.iter_batches(0, 128, batch=16):
-        if (out.dtype != torch.float16
-                or tuple(out.shape) != (n, 4, H, W)
+    H, W = planner.window.height, planner.window.width
+    picked, n_frames = {}, 0
+    for s, n, out in planner.iter_batches(start, stop, batch=batch):
+        if (out.dtype != torch.float16 or tuple(out.shape) != (n, 4, H, W)
                 or not bool(torch.isfinite(out).all())):
-            raise AssertionError('mixed batch at %d: %s %s, finite=%s'
-                                 % (s, out.dtype, tuple(out.shape),
-                                    bool(torch.isfinite(out).all())))
-        for i in (0, 1, 70):
+            raise AssertionError('%s batch at %d: %s %s' % (
+                what, s, out.dtype, tuple(out.shape)))
+        for i in frames:
             if s <= i < s + n:
                 picked[i] = out[i - s].cpu().numpy()
         n_frames += n
+    if n_frames != stop - start or sorted(picked) != sorted(frames):
+        raise AssertionError('%s rendered %d frames' % (what, n_frames))
+    return picked
+
+
+def _mixed_slice(tag, window):
+    """Phase 6: the mixed-content timeline through the kernels. Returns
+    (the timeline, launches)."""
+    from canvas_tpu_torch import timelines
+    from canvas_tpu_torch.render import RenderPlanner
+
+    ws = timelines.mixed_timeline(256)
+    frames = (0, 1, 70)
+    _zero_launch_counts()
+    picked = _stream_checked('mixed', RenderPlanner(ws, window), 0, 128, 16,
+                             frames)
     launches = _launch_counts()
-    if n_frames != 128 or min(launches[k] for k in _RENDER_KERNELS) <= 0:
-        raise AssertionError('mixed slice rendered %d frames with launches '
-                             '%r' % (n_frames, launches))
-    errs, shares = {}, {}
-    for i in (0, 1, 70):
-        want = np.asarray(ws.get_frame_f16(i, window).data, np.float16)
-        errs[i] = float(np.abs(picked[i].astype(np.float32)
-                               - want.astype(np.float32)).max())
-        shares[i] = _bit_share(picked[i], want)
-        if (not np.isfinite(picked[i]).all() or errs[i] > 1e-2
-                or shares[i] < 0.99):
-            raise AssertionError('mixed frame %d differs from the pull path '
-                                 'by %r (%.5f bit-equal)'
-                                 % (i, errs[i], shares[i]))
+    if min(launches[k] for k in _RENDER_KERNELS) <= 0:
+        raise AssertionError('mixed slice ran with launches %r' % launches)
+    vs = _vs_pull('mixed', picked, _pull_stack(ws, window, frames))
     print('phase 6 mixed slice: 128 frames of timelines.mixed_timeline(256) '
           'at 1080p via iter_batches(0, 128, batch=16), finite f16; launches '
           '%s; vs the NumPy pull path frame 0 max diff %.3g (%.5f bit-equal), '
           '1 %.3g (%.5f), 70 %.3g (%.5f) (atol 1e-2, >= 0.99) %s'
-          % (json.dumps(launches), errs[0], shares[0], errs[1], shares[1],
-             errs[70], shares[70], tag), flush=True)
+          % ((json.dumps(launches),) + vs[0] + vs[1] + vs[70] + (tag,)),
+          flush=True)
     return ws, launches
 
 
@@ -749,6 +791,7 @@ def _posts(tag, window):
     H, W = window.height, window.width
     start, stop, batch = 128, 384, 128
     planner = RenderPlanner(timelines.build_timeline(1024), window)
+    planner.plan_cache_segments = 0     # cold: every pass plans anew
     f16 = {s: out.cpu()
            for s, _n, out in planner.iter_batches(start, stop, batch=batch)}
     sizes = {'bgra_u8': (H, W * 4),
@@ -1271,6 +1314,389 @@ def _display_path(tag, window):
     return launches, _bf16_timings(tag, p9, mixed5, window)
 
 
+
+def _cold_fps(make_planner, start, stop, batch):
+    """(fps, walls, device busy ms, idle share) of a cold stream: a new
+    planner with no stage cache and no plan cache, one warm pass, best of
+    3; then the same batches prepared beforehand and replayed back to
+    back for the device's busy time."""
+    import torch
+
+    from canvas_tpu_torch.backend import cuda_ms
+    from canvas_tpu_torch.render import params_to_torch, run
+
+    dev = torch.device('cuda')
+    planner = make_planner()
+    planner.stage_cache_mb = 0
+    planner.plan_cache_segments = 0
+    _stream_wall(planner, start, stop, batch)
+    walls = [_stream_wall(planner, start, stop, batch) for _rep in range(3)]
+    work = []
+    for seg in planner.segments(start, stop, min_span=batch):
+        _s0, sig, batches = planner._prepare(seg, batch)
+        work += [(sig, params_to_torch(pl, dev)) for _p, _t, pl in batches]
+    torch.cuda.synchronize()
+    busy = cuda_ms(lambda: [run(sg, tp, dev) for sg, tp in work], 3)
+    wall = min(walls)
+    return (stop - start) / wall, walls, busy, 1.0 - busy / (wall * 1e3), work
+
+
+def _coded_clips(tag):
+    """Phase 11.1-11.3: the pulldown clip, the planar clip, and the mixed
+    timeline with one clip under pulldown removal. Returns the launches
+    of the composite."""
+    import numpy as np
+    import torch
+
+    from canvas_tpu_torch import timelines
+    from canvas_tpu_torch.backend import cuda_ms
+    from canvas_tpu_torch.coded import Pulldown23RemovalFilter
+    from canvas_tpu_torch.render import RenderPlanner, _eval, box2i
+
+    dev = torch.device('cuda')
+    src, window = timelines.pulldown_clip(), timelines.PULLDOWN_WINDOW
+    frames = (0, 1, 2, 3, 70)
+    picked = _stream_checked('pulldown', RenderPlanner(src, window), 0, 128,
+                             16, frames)
+    vs = _vs_pull('pulldown', picked, _pull_stack(src, window, frames))
+    fps, walls, busy, idle, _work = _cold_fps(
+        lambda: RenderPlanner(src, window), 0, 128, 16)
+    print('phase 11 pulldown clip: 128 frames of timelines.pulldown_clip() at '
+          '%dx%d via iter_batches(0, 128, batch=16), finite f16; vs the NumPy '
+          'pull path %s (atol 1e-2, >= 0.99 bit-equal); '
+          'config3_dv_reconstruct_pulldown_fps %.1f (best of 3 cold passes, '
+          'stage cache and plan cache off; walls %s s); device busy %.3f ms, '
+          'device idle share %.3f %s'
+          % (window.width, window.height, ', '.join(
+              'frame %d max diff %.3g (%.5f)' % ((i,) + vs[i])
+              for i in frames), fps, ', '.join('%.4f' % w for w in walls),
+             busy, idle, tag), flush=True)
+
+    src, window = timelines.planar_clip(64), box2i(*WINDOW)
+    frames = (0, 1, 20, 47)
+    picked = _stream_checked('planar', RenderPlanner(src, window), 0, 48, 8,
+                             frames)
+    vs = _vs_pull('planar', picked, _pull_stack(src, window, frames))
+    fps, walls, busy, idle, work = _cold_fps(
+        lambda: RenderPlanner(src, window), 0, 48, 8)
+    print('phase 11 planar clip: 48 frames of timelines.planar_clip(64) at '
+          '%dx%d via iter_batches(0, 48, batch=8), finite f16; vs the NumPy '
+          'pull path %s (atol 1e-2, >= 0.99 bit-equal); '
+          'config8_1080p_decoded_planar_fps %.1f, decode bypassed (seeded '
+          'planes stand in for the decoder; best of 3 cold passes, stage '
+          'cache and plan cache off; walls %s s); device busy %.3f ms, device '
+          'idle share %.3f %s'
+          % (window.width, window.height, ', '.join(
+              'frame %d max diff %.3g (%.5f)' % ((i,) + vs[i])
+              for i in frames), fps, ', '.join('%.4f' % w for w in walls),
+             busy, idle, tag), flush=True)
+    # planar_recon_rows alone, on the first batch's params: the root is a
+    # 'place' whose only child is the reconstruction
+    sig, tparams = work[0]
+    if sig[0] != 'place' or sig[3][0][0] != 'planar_recon_rows':
+        raise AssertionError('unexpected planar plan %r' % (sig[0],))
+    p = tparams[1]
+    ms = cuda_ms(lambda: _eval(sig[3][0], iter(tparams[1:]), dev), 5)
+    B, (H, W) = p['rows'].shape[0], p['py'].shape[1:]
+    ch, cw = p['pcb'].shape[1:]
+    read = B * (H * W + 2 * ch * cw) + 4 * (W * cw + H * ch + 9 + B)
+    wrote = B * 4 * H * W * 4
+    ops = 2 * B * (2 * ch * cw * W + 2 * ch * W * H) + B * H * W * 15
+    bound, by = _bound(read + wrote, ops)
+    print('phase 11 planar_recon_rows (torch ops: three u8 gathers, two dense '
+          'f32 contractions a chroma plane, the 3x3 matrix, the f16 grid, the '
+          'transfer table), batch %d of %dx%d 4:2:0: %.3f ms on the card; it '
+          'reads %.1f MB and writes %.1f MB and does %.1f GFLOP in its dense '
+          'form: bound %.3f ms by %s at the published rates %s'
+          % (B, W, H, ms, read / 1e6, wrote / 1e6, ops / 1e9, bound, by, tag),
+          flush=True)
+    del work, tparams, picked
+    torch.cuda.empty_cache()
+
+    # The mixed timeline with the clip of layer 2 under pulldown removal:
+    # its placed region is a field_interleave of two scaled DV pulls.
+    ws = timelines.mixed_timeline(256)
+    clip = next(it for it in ws if it.z == 2).source
+    clip.source = Pulldown23RemovalFilter(clip.source, 0)
+    window = box2i(*WINDOW)
+    planner = RenderPlanner(ws, window)
+    if 'field_interleave' not in planner.explain(1, 17):
+        raise AssertionError('the composite plans no field_interleave')
+    _zero_launch_counts()
+    picked = _stream_checked('pulldown composite', planner, 0, 32, 16, (2,))
+    launches = _launch_counts()
+    if min(launches[k] for k in _RENDER_KERNELS) <= 0:
+        raise AssertionError('pulldown composite ran with launches %r'
+                             % launches)
+    vs = _vs_pull('pulldown composite', picked, _pull_stack(ws, window, (2,)))
+    print('phase 11 pulldown composite: frames 0..31 of '
+          'timelines.mixed_timeline(256) with the clip of layer 2 under '
+          'Pulldown23RemovalFilter(..., 0), batch 16, finite f16; launches '
+          '%s; frame 2 (mixed cadence) vs the NumPy pull path max diff %.3g '
+          '(%.5f bit-equal) %s' % (json.dumps(launches), vs[2][0], vs[2][1],
+                                   tag), flush=True)
+    return launches
+
+
+def _replay(tag, name, metrics, ws, window, start, stop, batch, elsewhere,
+            edit, counted):
+    """Phase 11.4: a cached replay of [start, stop). The first pass plans
+    and stages; three replays (the b metric), three more each after an
+    edit at *elsewhere*, outside the range (the c metric), each with its
+    segments planned, coded
+    frames pulled and host-to-device copies; the replay's device busy time
+    and idle share; then an edit inside, at *edit*, and one more pass.
+    *metrics* names the b and the c metric; *counted* is the coded source
+    class whose pulls count, or None.
+    Returns the path's launches."""
+    import torch
+
+    from canvas_tpu_torch import backend
+    from canvas_tpu_torch.backend import cuda_ms
+    from canvas_tpu_torch.render import RenderPlanner, run
+
+    dev = torch.device('cuda')
+    planner = RenderPlanner(ws, window)
+    planned, pulls = [], []
+    plan_context = planner._plan_context
+
+    def counting_context(seg):
+        planned.append(seg)
+        return plan_context(seg)
+
+    planner._plan_context = counting_context
+    get_frame = counted.get_frame if counted is not None else None
+    if counted is not None:
+        def counting_get_frame(self, frame_index, quality=0):
+            pulls.append(frame_index)
+            return get_frame(self, frame_index, quality)
+        counted.get_frame = counting_get_frame
+
+    def one_pass():
+        planned.clear()
+        pulls.clear()
+        h2d = dict(backend.transfer_stats)
+        wall = _stream_wall(planner, start, stop, batch)
+        return (wall, list(planned), len(pulls),
+                backend.transfer_stats['h2d_calls'] - h2d['h2d_calls'],
+                backend.transfer_stats['h2d_bytes'] - h2d['h2d_bytes'])
+
+    try:
+        _zero_launch_counts()
+        first = one_pass()
+        segs = planner.segments(start, stop, min_span=batch)
+        if first[1] != segs:
+            raise AssertionError('%s first pass planned %r' % (name, first[1]))
+        passes = {'b': [one_pass() for _rep in range(3)], 'c': []}
+        for _rep in range(3):
+            planner.invalidate_display_cache(*elsewhere)
+            passes['c'].append(one_pass())
+        launches = _launch_counts()
+        for kind, runs in passes.items():
+            for wall, pl, n_pulls, calls, nbytes in runs:
+                if pl or n_pulls:
+                    raise AssertionError(
+                        '%s replay (%s) planned %r and pulled %d coded frames'
+                        % (name, kind, pl, n_pulls))
+        work = [(pr.sig, params) for (pr, _b) in planner._plan_cache.values()
+                for params in pr.plists]
+        busy = cuda_ms(lambda: [run(sg, tp, dev) for sg, tp in work], 3)
+        best = {k: min(r[0] for r in runs) for k, runs in passes.items()}
+        planner.invalidate_display_cache(*edit)
+        after = one_pass()
+        touched = [sg for sg in segs if sg[0] <= edit[1] and edit[0] < sg[1]]
+        if after[1] != touched or not touched or len(touched) == len(segs):
+            raise AssertionError('%s after an edit at %r planned %r, not %r'
+                                 % (name, edit, after[1], touched))
+    finally:
+        if counted is not None:
+            counted.get_frame = get_frame
+    n = stop - start
+    print('phase 11 replay %s: frames %d..%d, batch %d, caches on; first pass '
+          '%.4f s (%d segments planned, %d coded frames pulled, %d '
+          'host-to-device copies, %.1f MB); replays: %s; device busy %.3f ms '
+          'of the best replay\'s %.3f ms wall, device idle share %.3f; after '
+          'invalidate_display_cache%r: %.4f s, segments %s planned again of '
+          '%s, %d coded frames pulled %s'
+          % (name, start, stop - 1, batch, first[0], len(first[1]), first[2],
+             first[3], first[4] / 1e6, '; '.join(
+                 '%s %.1f fps (best of 3%s; walls %s s; segments planned %s, '
+                 'coded frames pulled %s, host-to-device copies %s)'
+                 % (metric, n / best[k],
+                    ', each after invalidate_display_cache%r' % (elsewhere,)
+                    if k == 'c' else '',
+                    ', '.join('%.4f' % r[0] for r in passes[k]),
+                    [len(r[1]) for r in passes[k]],
+                    [r[2] for r in passes[k]], [r[3] for r in passes[k]])
+                 for k, metric in zip('bc', metrics)),
+             busy, best['b'] * 1e3, 1.0 - busy / (best['b'] * 1e3), edit,
+             after[0], after[1], segs, after[2], tag), flush=True)
+    planner.close()
+    return launches
+
+
+def _pacing(tag, ws, window):
+    """Phase 11.5: iter_batches(max_inflight=2) over the headline.
+    Frames 0..511 at batch 128, paced and unpaced in lockstep, bit-equal;
+    then frames 0..1023 streamed without looking at the outputs, an event
+    recorded after each batch is handed over: the most events not yet
+    complete at that moment is the most batches queued ahead of the
+    device."""
+    import torch
+
+    from canvas_tpu_torch.render import RenderPlanner
+
+    a, b = RenderPlanner(ws, window), RenderPlanner(ws, window)
+    n = 0
+    for (s1, n1, o1), (s2, n2, o2) in zip(
+            a.iter_batches(0, 512, batch=128),
+            b.iter_batches(0, 512, batch=128, max_inflight=2)):
+        if (s1, n1) != (s2, n2) or not torch.equal(o1, o2):
+            raise AssertionError('paced batch at %d differs' % s1)
+        n += n1
+    if n != 512:
+        raise AssertionError('paced stream gave %d frames' % n)
+    del o1, o2
+    queued = {}
+    for depth in (None, 2, 1):
+        for _out in b.iter_batches(0, 1024, batch=128):
+            pass                                # the plans are cached now
+        torch.cuda.synchronize()
+        events, most = [], 0
+        for _s, _n, _out in b.iter_batches(0, 1024, batch=128,
+                                           max_inflight=depth):
+            done = torch.cuda.Event()
+            done.record()
+            events.append(done)
+            most = max(most, sum(not e.query() for e in events))
+        torch.cuda.synchronize()
+        queued[depth] = most
+    print('phase 11 pacing: headline frames 0..511 at batch 128 with '
+          'max_inflight=2 bit-equal to the unpaced stream; over frames '
+          '0..1023 (8 batches, plans cached) the most batches queued ahead '
+          'of the device: unpaced %d, max_inflight=2 %d, max_inflight=1 %d '
+          '%s' % (queued[None], queued[2], queued[1], tag), flush=True)
+    if queued[2] > 2 or queued[1] > 1:
+        raise AssertionError('pacing let %r batches queue' % (queued,))
+
+
+def _guard(tag, ws, window):
+    """Phase 11.6: the memory guard's estimate for batch 128 at 1080p,
+    post=None, beside the measured peak of that stream; a batch whose
+    estimate exceeds the card's memory raises before any launch."""
+    import torch
+
+    from canvas_tpu_torch.render import RenderPlanner
+
+    planner = RenderPlanner(ws, window)
+    planner.plan_cache_segments = 0
+    px = window.width * window.height
+    est = (3 * 8 + 16) * 128 * px
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _stream_wall(planner, 128, 512, 128)
+    peak = torch.cuda.max_memory_allocated() - base
+    total = torch.cuda.mem_get_info()[1]
+    batch = total // (40 * px) + 8
+    _zero_launch_counts()
+    try:
+        next(planner.iter_batches(0, batch, batch=batch))
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError('the guard let batch %d through' % batch)
+    if any(_launch_counts().values()) or 'HBM budget' not in refused:
+        raise AssertionError('the guard: %r, launches %r'
+                             % (refused, _launch_counts()))
+    print('phase 11 guard: batch 128 at %dx%d, post=None: estimate %.3f GB '
+          '(3 retained f16 outputs and one 16 B/px working stack) beside a '
+          'measured peak of %.3f GB above the %.3f GB allocated before '
+          '(torch.cuda.max_memory_allocated over frames 128..511, plan cache '
+          'off): estimate / peak %.3f; card total %.3f GB; batch %d refused '
+          'before any launch: %s %s'
+          % (window.width, window.height, est / 1e9, peak / 1e9, base / 1e9,
+             est / peak, total / 1e9, batch, refused[:90], tag), flush=True)
+
+
+def _upload_cost(tag, name, planner, seg, batch):
+    """One segment's params to the card, a copy for every array
+    (backend.to_device) beside one packed copy a batch (params_to_torch):
+    host ms until the copies are done, median of 7, and the copies
+    counted."""
+    import numpy as np
+    import torch
+
+    from canvas_tpu_torch import backend
+    from canvas_tpu_torch.render import params_to_torch
+
+    dev = torch.device('cuda')
+    _s0, _sig, batches = planner._prepare(seg, batch)
+    plists = [pl for _p, _t, pl in batches]
+
+    def copy_each(plist):
+        return [{k: (v if k in ('dy0', 'dx0') or isinstance(v, torch.Tensor)
+                     else backend.to_device(np.asarray(v), dev))
+                 for k, v in p.items()} for p in plist]
+
+    def timed(fn):
+        times = []
+        for _rep in range(8):
+            torch.cuda.synchronize()
+            calls = backend.transfer_stats['h2d_calls']
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return (float(np.median(times[1:])),
+                backend.transfer_stats['h2d_calls'] - calls)
+
+    each = timed(lambda: [copy_each(pl) for pl in plists])
+    packed = timed(lambda: [params_to_torch(pl, dev) for pl in plists])
+    print('phase 11 upload %s segment [%d, %d), %d batches of %d: copy by '
+          'copy %.3f ms (%d copies), packed %.3f ms (%d copies) (host clock, '
+          'each ending in a synchronize) %s'
+          % ((name,) + tuple(seg) + (len(plists), batch) + each + packed
+             + (tag,)), flush=True)
+
+
+def _coded_and_replay(tag, window):
+    """Phase 11: coded video and replay. Returns the launches of its
+    paths (the composite and both replays) summed."""
+    import torch
+
+    from canvas_tpu_torch import timelines
+    from canvas_tpu_torch.render import RenderPlanner
+
+    total = _coded_clips(tag)
+    torch.cuda.empty_cache()
+    mixed = timelines.mixed_timeline(256)
+    headline = timelines.build_timeline(1024)
+    for launches in (
+            _replay(tag, 'mixed',
+                    ('config7b_mixed_content_cached_replay_fps',
+                     'config7c_replay_while_editing_elsewhere_fps'),
+                    mixed, window, 0, 128, 16, (500, 600), (0, 10),
+                    timelines.RolledDV),
+            _replay(tag, 'headline',
+                    ('headline_cached_replay_fps',
+                     'headline_replay_while_editing_elsewhere_fps'),
+                    headline, window, 128, 512, 128, (600, 700), (130, 140),
+                    None)):
+        total = {k: total[k] + launches[k] for k in total}
+    torch.cuda.empty_cache()
+    _pacing(tag, headline, window)
+    torch.cuda.empty_cache()
+    _guard(tag, headline, window)
+    _upload_cost(tag, 'headline', RenderPlanner(headline, window),
+                 (128, 256), 128)
+    _upload_cost(tag, 'mixed', RenderPlanner(mixed, window), (1, 65), 16)
+    print('phase 11 coded video and replay: launches %s %s'
+          % (json.dumps(total), tag), flush=True)
+    return total
+
+
 def main():
     sys.meta_path.insert(0, _Refuse())
     import numpy as np
@@ -1444,6 +1870,8 @@ def main():
 
     # 5. timing: cold streaming, device busy time, kernels vs plain
     start, stop, batch = 128, 512, 128
+    planner.invalidate_display_cache()
+    planner.plan_cache_segments = 0     # cold: every pass plans anew
     for _ in planner.iter_batches(0, batch, batch=batch):
         pass
     walls = [_stream_wall(planner, start, stop, batch) for _rep in range(3)]
@@ -1466,8 +1894,9 @@ def main():
     busy_ms = cuda_ms(replay, 3)
     idle = 1.0 - busy_ms / (wall * 1e3)
     print('phase 5 timing: 1080p_10layer_composite_fps_per_chip %.1f '
-          '(best of 3 cold passes over frames %d..%d, batch %d; walls %s s); '
-          'device busy %.3f ms of %.3f ms wall, device idle share %.3f %s'
+          '(best of 3 cold passes over frames %d..%d, batch %d, plan cache '
+          'off; walls %s s); device busy %.3f ms of %.3f ms wall, device '
+          'idle share %.3f %s'
           % (fps, start, stop - 1, batch,
              ', '.join('%.4f' % w for w in walls), busy_ms, wall * 1e3,
              idle, tag), flush=True)
@@ -1578,8 +2007,13 @@ def main():
     torch.cuda.empty_cache()
     display_launches, bf16 = _display_path(tag, window)
 
+    # 11. coded video and replay
+    torch.cuda.empty_cache()
+    replay_launches = _coded_and_replay(tag, window)
+
     total = {k: (launches[k] + mixed_launches[k] + post_launches[k]
-                 + display_launches[k]) for k in mixed_launches}
+                 + display_launches[k] + replay_launches[k])
+             for k in mixed_launches}
     fold_bound, fold_by = _bound(fold_bytes, fold_ops)
     reg_bound, reg_by = _bound(reg_bytes, reg_ops)
     kernels = [

@@ -20,7 +20,9 @@ most 0.1% of its u8 values (the viewport resample's f32 sums run in
 another order on the card; the level table is the same on both). A
 mixed-content frame (DV clips through
 scalers: f32 matmuls summed in cuBLAS's order) is held to the slice's
-tolerance, atol=1e-2 with at least 99% of values bit-equal.
+tolerance, atol=1e-2 with at least 99% of values bit-equal, and so are
+the pulldown and planar clips; a replay from the plan cache is
+bit-equal to the first pass on the same card.
 """
 
 import numpy as np
@@ -521,6 +523,99 @@ def test_render_display_on_card_matches_cpu(cuda):
         assert got.shape == want.shape
         diff = np.abs(got - want)
         assert diff.max() <= 1 and np.mean(diff != 0) <= 1e-3, kw
+
+
+def _f16_frames_close(got, want):
+    np.testing.assert_allclose(got.astype(np.float32),
+                               want.astype(np.float32), rtol=0, atol=1e-2)
+    assert np.mean(got.view(np.uint16) == want.view(np.uint16)) >= 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('clip', ['pulldown', 'planar'])
+def test_coded_clips_on_card_match_cpu(cuda, clip):
+    """``field_interleave`` and ``planar_recon_rows`` on the card against
+    the CPU (the contractions sum in cuBLAS's order: the slice's
+    tolerance, atol 1e-2 with at least 99% of values bit-equal)."""
+    from canvas_tpu_torch import timelines
+    from canvas_tpu_torch.render import RenderPlanner, box2i
+    if clip == 'pulldown':
+        src, window = timelines.pulldown_clip(), timelines.PULLDOWN_WINDOW
+    else:
+        src, window = timelines.planar_clip(8), box2i(1500, 900, 1950, 1100)
+    got = RenderPlanner(src, window).render(0, 6)
+    want = RenderPlanner(src, window, device='cpu').render(0, 6)
+    assert np.isfinite(got).all() and got[:, 3].max() == 1.0
+    _f16_frames_close(got, want)
+
+
+@pytest.mark.gpu
+def test_replay_on_card_is_bit_equal_and_copies_nothing(cuda):
+    """A second pass over a cached range uploads nothing and gives the
+    first pass's bits; pacing leaves them too."""
+    from canvas_tpu_torch import backend, timelines
+    from canvas_tpu_torch.render import RenderPlanner, box2i
+    ws = timelines.mixed_timeline(64)
+    planner = RenderPlanner(ws, box2i(0, 0, 959, 539))
+    first = [o.clone() for _s, _n, o in planner.iter_batches(0, 24, batch=8)]
+    assert len(planner._plan_cache) == 2
+    for prepared, _pinned in planner._plan_cache.values():
+        assert all(prepared.uploaded)
+        assert all(v.is_cuda for pl in prepared.plists for p in pl
+                   for v in p.values() if isinstance(v, torch.Tensor))
+    copies = backend.transfer_stats['h2d_calls']
+    for kw in ({}, {'max_inflight': 1}, {'max_inflight': 2}):
+        again = [o.clone() for _s, _n, o in
+                 planner.iter_batches(0, 24, batch=8, **kw)]
+        assert backend.transfer_stats['h2d_calls'] == copies
+        assert len(again) == len(first)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+    cpu = RenderPlanner(ws, box2i(0, 0, 959, 539), device='cpu')
+    want = np.concatenate([o.numpy() for _s, _n, o in
+                           cpu.iter_batches(0, 24, batch=8)])
+    _f16_frames_close(torch.cat(first).cpu().numpy(), want)
+    planner.close()
+    assert not planner._plan_cache
+
+
+@pytest.mark.gpu
+def test_params_to_torch_on_card(cuda):
+    from canvas_tpu_torch.render import _canonical, params_to_torch
+    rng = np.random.default_rng(5)
+    plist = [{'color': rng.uniform(0, 1, (5, 4)).astype(np.float32),
+              'box': rng.integers(0, 9, (5, 4)).astype(np.int32),
+              'f64': rng.uniform(0, 1, 3), 'scalar': np.float32(2.5)},
+             {'dy0': 3, 'dx0': np.int64(7)}]
+    got = params_to_torch(plist, cuda)
+    assert got[0]['color'].untyped_storage().nbytes() % 16 == 0
+    for p, q in zip(got, plist):
+        for k, v in q.items():
+            if k in ('dy0', 'dx0'):
+                assert p[k] == int(v) and type(p[k]) is int
+            else:
+                want = torch.from_numpy(np.array(_canonical(v)))
+                assert p[k].is_cuda and p[k].dtype == want.dtype
+                assert torch.equal(p[k].cpu(), want)
+
+
+@pytest.mark.gpu
+def test_memory_guard_on_card(cuda, monkeypatch):
+    """Without CANVAS_HBM_MB the budget is the card's total memory, and
+    a batch over it raises before any launch."""
+    from canvas_tpu_torch import timelines
+    from canvas_tpu_torch.render import (RenderPlanner, _hbm_budget_bytes,
+                                         box2i)
+    monkeypatch.delenv('CANVAS_HBM_MB', raising=False)
+    total = torch.cuda.mem_get_info(cuda)[1]
+    assert _hbm_budget_bytes(cuda) == total
+    window = box2i(0, 0, 1919, 1079)
+    planner = RenderPlanner(timelines.build_timeline(64), window)
+    batch = total // (40 * 1920 * 1080) + 8
+    launches = co.solid_fold.launches
+    with pytest.raises(ValueError, match='HBM budget'):
+        next(planner.iter_batches(0, batch, batch=batch))
+    assert co.solid_fold.launches == launches
 
 
 # Study kernels. Frame sizes that are not whole 16x128 tiles (1080 rows:

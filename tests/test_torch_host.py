@@ -302,6 +302,8 @@ def test_process_matches_jax():
     from canvas_tpu_torch import process
     for name in ('v2i', 'box2i', 'RgbaFrameF16', 'LerpFunc', 'VideoWorkspace',
                  'VideoScaler', 'DVReconstructionFilter', 'CodedImage',
+                 'PlanarReconstructionFilter', 'DVSubsampleFilter',
+                 'MPEG2SubsampleFilter', 'Pulldown23RemovalFilter',
                  'VideoWorkspaceItem', 'POINT_LINEAR'):
         assert hasattr(process, name) and hasattr(ref_process, name), name
     assert process.NS_PER_SEC == ref_process.NS_PER_SEC

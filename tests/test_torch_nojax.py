@@ -3,7 +3,9 @@ import system refuses every ``jax``/``jaxlib`` module, the JAX package
 (``canvas_tpu``) and the repository's root scripts and studies
 (``bench``, ``benchmarks``, ``scripts``), it imports, plans and renders
 on the CPU the headline timeline, the mixed-content timeline (DV clips
-staged by the port, through animated scalers) and a graph whose source
+staged by the port, through animated scalers), the pulldown and planar
+clips (replayed from the plan cache, paced), a coded round trip through
+the subsample filters and a graph whose source
 the planner host-stages, all built from the port's own classes
 (``canvas_tpu_torch.timelines``, ``canvas_tpu_torch.process``), pulls
 display frames (``render_display``, and a playback engine's
@@ -57,6 +59,27 @@ SCRIPT = textwrap.dedent('''
     got = [(s, n) for s, n, out in mixed.iter_batches(0, 3, batch=2)
            if np.isfinite(out.numpy()).all()]
     assert got == [(0, 1), (1, 2)], got
+
+    clip = RenderPlanner(timelines.pulldown_clip(),
+                         timelines.PULLDOWN_WINDOW, device='cpu')
+    first = [out.clone() for _s, _n, out in clip.iter_batches(0, 4, batch=4)]
+    assert len(clip._plan_cache) == 1
+    again = [out for _s, _n, out in clip.iter_batches(0, 4, batch=4,
+                                                      max_inflight=2)]
+    assert len(first) == 1 and (first[0] == again[0]).all()
+    assert 'field_interleave' in clip.explain(0, 4)
+    planar = RenderPlanner(timelines.planar_clip(2),
+                           box2i(1800, 1000, 1919, 1079), device='cpu')
+    out = planar.render(0, 2)
+    assert out.shape == (2, 4, 80, 120) and np.isfinite(out).all()
+    coded = process.MPEG2SubsampleFilter(process.SolidColorVideoSource(
+        (0.5, 0.25, 0.125, 1.0))).get_frame(0)
+    back = process.PlanarReconstructionFilter(
+        type('One', (process.CodedImageSource,),
+             {'get_frame': lambda self, i, quality=0: coded})())
+    px = back.get_frame_f32(0, box2i(0, 0, 719, 479)).data[:, 100, 100]
+    assert np.abs(px - (0.5, 0.25, 0.125, 1.0)).max() < 0.02, px
+    assert len(process.DVSubsampleFilter(back).get_frame(0)) == 3
 
     class Custom(process.VideoSource):
         def _render_f16(self, frame_index, frame):

@@ -186,7 +186,7 @@ def test_params_to_torch(timeline, ref_timeline):
 def test_out_of_slice_op_raises():
     """The ops left for later slices (no source of the port plans one)
     raise, naming the ROADMAP item that brings each."""
-    for op in ('field_interleave', 'planar_recon_rows', 'u8_linearize'):
+    for op in ('u8_linearize', 'solid_cells'):
         with pytest.raises(NotImplementedError, match=repr(op) + '.*ROADMAP'):
             port._eval((op, (), (), ()), iter([{}]), CPU)
     with pytest.raises(ValueError, match='unknown op'):
@@ -370,10 +370,18 @@ def test_quality_9_raises(timeline, ref_timeline):
 
 @pytest.mark.parametrize('kw', [{'mesh': object()}, {'max_inflight': 2}])
 def test_iter_batches_unported_options_raise(timeline, kw):
+    """``mesh`` still raises; ``max_inflight`` no longer does: it paces
+    the stream and leaves the frames as they were (more in
+    test_torch_replay.py)."""
     planner = port.RenderPlanner(timeline, box2i(0, 0, 255, 127),
                                  device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        next(planner.iter_batches(0, 4, batch=4, **kw))
+    if 'mesh' in kw:
+        with pytest.raises(NotImplementedError, match='ROADMAP'):
+            next(planner.iter_batches(0, 4, batch=4, **kw))
+    else:
+        _s, _n, want = next(planner.iter_batches(0, 4, batch=4))
+        _s, _n, got = next(planner.iter_batches(0, 4, batch=4, **kw))
+        assert torch.equal(got, want)
     with pytest.raises(ValueError, match='post'):
         next(planner.iter_batches(0, 4, batch=4, post='rgb24'))
 
