@@ -18,6 +18,10 @@ module):
 - ``timelines``: the headline and mixed-content timelines;
 - ``clock``, ``signal``: presentation clocks and the weakref signal a
   source's ``frames_updated`` is.
+- ``audio``: the audio engine (frames, mixing helpers, sequence,
+  workspace); ``formats``, ``timecode``, ``matroska``: probes, timecode
+  strings and the Matroska writer; ``x264``, ``faac``, ``libdv``: the
+  reference's codec classes over ``libav``.
 
 Device side:
 
@@ -34,7 +38,11 @@ Device side:
 - ``render``: the torch evaluator of the planner's IR and a
   ``RenderPlanner`` that streams batches through it and pulls single
   display frames (``render_display``);
-- ``playback``: the clock-driven ``VideoPlaybackEngine``.
+- ``playback``: the clock-driven ``VideoPlaybackEngine``;
+- ``libav``: media IO over the port's own build of
+  ``native/canvas_av.cpp`` (demux, decode, mux, packet encoders), and
+  ``write_video``, which renders through ``render`` on the card and
+  encodes on the host.
 
 Nothing here imports JAX.
 """

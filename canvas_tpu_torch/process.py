@@ -10,8 +10,9 @@ module surface, src/process/main.c:331-407)::
 Batched rendering on the card is ``canvas_tpu_torch.render.RenderPlanner``
 (``render_display`` for one display frame); clock-driven playback is
 ``canvas_tpu_torch.playback.VideoPlaybackEngine`` on the presentation
-clocks exported here. Audio and the pull queue are not ported yet
-(ROADMAP.md queue 1).
+clocks exported here; export and decode are
+``canvas_tpu_torch.libav`` (``write_video``, ``AVVideoDecoder``). The
+pull queue is not ported yet (ROADMAP.md queue 1).
 """
 
 from canvas_tpu_torch.basetypes import v2i, v2f, box2i, box2f, rgba  # noqa: F401
@@ -29,14 +30,18 @@ from canvas_tpu_torch.coded import (  # noqa: F401
     CodecPacketSource, CodedImage, CodedImageSource,
     DVReconstructionFilter, DVSubsampleFilter, MPEG2SubsampleFilter,
     PlanarReconstructionFilter, Pulldown23RemovalFilter)
+from canvas_tpu_torch.audio import (  # noqa: F401
+    AudioFrame, AudioSource, AudioPassThroughFilter, AudioSequence,
+    AudioWorkspace)
 from canvas_tpu_torch.clock import (  # noqa: F401
     ClockCallbackHandle, PresentationClock, SystemPresentationClock)
 
 NS_PER_SEC = 1000000000
 
 # The reference exposes separate item types per workspace kind
-# (VideoWorkspace.c:274); this build shares one.
+# (VideoWorkspace.c:274 / AudioWorkspace.c:230); this build shares one.
 VideoWorkspaceItem = WorkspaceItem
+AudioWorkspaceItem = WorkspaceItem
 
 
 def _cdiv(a, b):

@@ -558,6 +558,20 @@ def _hbm_budget_bytes(device):
     return int(torch.cuda.mem_get_info(device)[1])
 
 
+def _hbm_estimate_bytes(batch, window, post, max_inflight, working_bpp=16):
+    """The memory guard's model of a batched render, in bytes, and the
+    output depth it counted: ``depth`` retained output buffers
+    (``max_inflight``, 3 when unbounded or non-positive, as in
+    ``iter_batches``; 8 / 4 / 1.5 bytes per pixel by *post*) plus ONE
+    working stack of ``working_bpp`` bytes per pixel. See
+    ``_check_hbm_footprint``."""
+    px = window.width * window.height
+    out_bpp = {None: 8, 'rgba_u8': 4, 'bgra_u8': 4,
+               'yuv420': 1.5}.get(post, 8)
+    depth = max_inflight if (max_inflight and max_inflight > 0) else 3
+    return int((depth * out_bpp + working_bpp) * batch * px), depth
+
+
 def _check_hbm_footprint(batch, window, post, max_inflight, device,
                          working_bpp=16):
     """Estimate the device memory of a batched render and refuse a
@@ -580,12 +594,8 @@ def _check_hbm_footprint(batch, window, post, max_inflight, device,
     budget = _hbm_budget_bytes(device)
     if not budget:        # None: the CPU; 0: switched off
         return
-    px = window.width * window.height
-    out_bpp = {None: 8, 'rgba_u8': 4, 'bgra_u8': 4,
-               'yuv420': 1.5}.get(post, 8)
-    # non-positive max_inflight means unbounded, as in iter_batches
-    depth = max_inflight if (max_inflight and max_inflight > 0) else 3
-    est = int((depth * out_bpp + working_bpp) * batch * px)
+    est, depth = _hbm_estimate_bytes(batch, window, post, max_inflight,
+                                     working_bpp)
     if est > budget:
         raise ValueError(
             '%d frames at %dx%d estimate ~%.1f GiB on the device '
@@ -977,7 +987,7 @@ class RenderPlanner:
                     if take < out.shape[0]:
                         out = out[:take]
                     if not device_out:
-                        out = out.cpu().numpy()
+                        out = backend.to_host(out).numpy()
                     yield prepared.seg_start + pos, take, out
         finally:
             pool.shutdown(wait=False)
@@ -1017,7 +1027,7 @@ class RenderPlanner:
                               dtype=torch.float16, device=self.device)
             wins = np.zeros((0, 4), np.int64)
         if not device_out:
-            out = out.cpu().numpy()
+            out = backend.to_host(out).numpy()
         return (out, wins) if with_windows else out
 
     def render_display(self, frame_index, order=(2, 1, 0, 3), intent=None,

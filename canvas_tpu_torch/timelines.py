@@ -17,11 +17,19 @@
 - ``planar_clip(length)``: the graph of ``benchmarks.py`` config8
   (``benchmarks.py:705-728``): 1920x1080 4:2:0 planes through the
   generic planar reconstruction, with seeded planes in the decoder's
-  place.
+  place;
+- ``decoded_planar_clip(path, length)``: config8 itself: the same graph
+  over ``libav.AVVideoDecoder`` of an MPEG-4 file that ``write_video``
+  writes first;
+- ``CONFIG6_WINDOW``: the 4K window ``benchmarks.py`` config6 and
+  config6b render ``build_timeline()`` at (``benchmarks.py:549-602``).
 
 Each matches the JAX package's builder item for item, so a planner given
 one plans the IR the JAX package plans for its own.
 """
+
+import os
+from fractions import Fraction
 
 import numpy as np
 
@@ -36,12 +44,16 @@ from canvas_tpu_torch.sources import (SolidColorVideoSource,
                                       VideoGainOffsetFilter, VideoMixFilter,
                                       VideoScaler, VideoWorkspace)
 
-__all__ = ['PULLDOWN_WINDOW', 'build_timeline', 'mixed_timeline',
-           'planar_clip', 'pulldown_clip', 'transfer_timeline']
+__all__ = ['CONFIG6_WINDOW', 'PULLDOWN_WINDOW', 'build_timeline',
+           'decoded_planar_clip', 'mixed_timeline', 'planar_clip',
+           'pulldown_clip', 'transfer_timeline']
 
 #: The window config3 renders ``pulldown_clip`` at: DV's picture, whose
 #: line zero belongs to the first field (row -1 on top).
 PULLDOWN_WINDOW = box2i(0, -1, 719, 478)
+
+#: The 3840x2160 window config6 and config6b render the headline at.
+CONFIG6_WINDOW = box2i(0, 0, 3839, 2159)
 
 
 def build_timeline(length=1024):
@@ -172,11 +184,30 @@ def planar_clip(length=64):
     """*length* frames of decoded 1920x1080 4:2:0 video through
     ``PlanarReconstructionFilter(width=1920, height=1080)``.
 
-    config8 decodes an MPEG-4 file with ``libav.AVVideoDecoder``; the
-    port has no decoder yet (ROADMAP.md queue 1 item 5), so
-    ``RolledPlanar`` stands in for it: seeded planes rolled by the frame
-    index, so every frame's planes differ and really cross to the
-    device. What is left out is the decode itself: a number taken on this
-    clip is one with the decode bypassed."""
+    config8 decodes an MPEG-4 file with ``libav.AVVideoDecoder``
+    (``decoded_planar_clip``); here ``RolledPlanar`` stands in for it:
+    seeded planes rolled by the frame index, so every frame's planes
+    differ and really cross to the device. What is left out is the
+    decode itself: a number taken on this clip is one with the decode
+    bypassed."""
     return PlanarReconstructionFilter(RolledPlanar(length), width=1920,
                                       height=1080)
+
+
+def decoded_planar_clip(path, length=64, width=1920, height=1080,
+                        device=None):
+    """config8's graph over a real decode (``benchmarks.py:705-728``):
+    ``PlanarReconstructionFilter(AVVideoDecoder(path))`` at *width* x
+    *height*. When *path* does not exist it is written first, as config8
+    writes it: ``write_video`` of a solid ramping from opaque black to
+    opaque white over 64 frames (rendered on *device*), *length*
+    frames, 25 fps, MPEG-4 at 8 Mb/s in AVI."""
+    from canvas_tpu_torch import libav
+    if not os.path.exists(path):
+        src = SolidColorVideoSource(LerpFunc((0, 0, 0, 1), (1, 1, 1, 1), 64))
+        libav.write_video(path, src, None, 0, length,
+                          frame_size=(width, height),
+                          frame_rate=Fraction(25), video_codec='mpeg4',
+                          bit_rate=8_000_000, format='avi', device=device)
+    return PlanarReconstructionFilter(libav.AVVideoDecoder(path),
+                                      width=width, height=height)

@@ -9,7 +9,8 @@ config7's: the headline with three DV clips, decoded on the host and
 staged by the port, through animated scalers), then the fold studies and
 the roofline probe, then the headline's export conversions, then the
 editor's display path (``render_display``, the quality <= 9 tier and the
-playback engine). Each phase prints one line or more; any failure raises
+playback engine), then coded video and the plan cache's replays, then
+the export path at 4K. Each phase prints one line or more; any failure raises
 (traceback, nonzero exit, no result line):
 
 1. card: nvidia-smi's name and power limit, torch's device name;
@@ -102,15 +103,32 @@ playback engine). Each phase prints one line or more; any failure raises
    bit-equal to the unpaced stream, with the most batches queued ahead of
    the device; the memory guard's estimate beside the measured peak, and
    a batch it refuses before any launch; one segment's params uploaded
-   copy by copy beside one packed copy a batch.
+   copy by copy beside one packed copy a batch;
+12. the export path at 4K (benchmarks.py config6 and config6b): frames
+   0..63 of the headline at 3840x2160 through iter_batches(batch=8) with
+   post='rgba_u8' (``config6_4k_10layer_export_path_fps``) and
+   post='yuv420' (``config6b_4k_export_yuv420_transport_fps``), cold,
+   the batches left on the card as benchmarks.py leaves them; each
+   post's first pass is the checked one (its launches: 2 solid_fold and
+   2 region_over_sep a batch, nothing else), then one warm pass, best of
+   3; the device busy time and idle share, the post's
+   device time per batch, the memory guard's estimate beside the
+   measured peak; frames 0 and 63 of each post against the CPU's
+   conversion of the card's own f16 frames (at most 1 on at most 0.1%),
+   frame 0 against the NumPy pull path (atol 2e-3); the headline's
+   kernels at 4K, batch 8, beside their byte floors. Writing and
+   decoding files (``libav``) is not driven here: the card's machine has
+   no FFmpeg development files to build ``native/canvas_av.cpp`` against
+   (ROADMAP.md queue 1).
 
 Each path (the headline, the mixed timeline, the studies' timing runs,
-the export posts, the display path, the coded composite and the
-replays) runs with every launch counter set
-to 0 just before it and read just after; the kernels line reports each
-kernel's launches in those runs, its time, its plain version's, and its
-bound: the larger of the bytes it must move over the card's published
-memory rate and its f32 operations over the published f32 rate
+the export posts, the display path, the coded composite, the replays
+and each post's checked pass of the 4K export) runs with every launch
+counter set to 0 just before it and read just after; the kernels line
+reports each kernel's launches in those runs, its time, its plain
+version's, and its bound: the larger of the bytes it must move over the
+card's published memory rate and its f32 operations over the published
+f32 rate
 (PEAK_BYTES_PER_S, PEAK_F32_PER_S), from this run's shapes. The bf16
 form of each render kernel has an entry of its own. No single PyTorch
 call computes what any of the kernels computes, so ``library_ms`` is
@@ -760,6 +778,98 @@ def _studies(tag):
          'mult_ms': r['fold_ms'][True],
          'mult_plain_ms': r['fold_plain_ms'][True]},
     ]
+
+
+def _headline_kernels(batch_work, H, W, B):
+    """The headline's kernels on one batch's params (*batch_work*: the
+    signature and its params on the card), each against its plain
+    version (max diff, must be 0) and timed beside it in turns: the mid
+    fold (L=6), the finalize (L=2, to f16) and the two scalers' rank-1
+    regions. Returns the rows (name, ms, plain ms, bytes), the summed
+    times and the bytes and operations of each kernel's passes."""
+    import torch
+
+    from canvas_tpu_torch.backend import paired_ms
+    from canvas_tpu_torch.ops import cuda_ops
+    from canvas_tpu_torch.render import _scale_solid_factors
+
+    sig, tparams = batch_work
+    kids = sig[3]
+    idx = 1
+    folds, regions = [], []
+    for cs in kids:
+        if cs[0] == 'solid_stack':
+            folds.append(tparams[idx])
+            idx += 1
+        elif cs[0] == 'placed' and cs[3][0][0].startswith('scale_solid'):
+            inner = cs[3][0]
+            regions.append((tparams[idx], _scale_solid_factors(
+                inner[0], inner[1], tparams[idx + 1])))
+            idx += 2
+        else:
+            raise AssertionError('unexpected headline child %r' % (cs[0],))
+    if len(folds) != 2 or len(regions) != 2 or kids[-1][0] != 'solid_stack':
+        raise AssertionError('unexpected headline plan: %r'
+                             % ([c[0] for c in kids],))
+
+    def fargs(p):
+        return p['color'], p['box'], p['gain'], p['offset'], H, W
+
+    mid = lambda: cuda_ops.solid_fold(None, None, *fargs(folds[0]))
+    mid_p = lambda: cuda_ops.solid_fold_plain(None, None, *fargs(folds[0]))
+    baseP, baseA = mid()
+    fin = lambda: cuda_ops.solid_fold(baseP, baseA, *fargs(folds[1]),
+                                      finalize=True, out_dtype=torch.float16)
+    fin_p = lambda: cuda_ops.solid_fold_plain(
+        baseP, baseA, *fargs(folds[1]), finalize=True,
+        out_dtype=torch.float16)
+    out = {'rows': [], 'fold_ms': 0.0, 'fold_plain_ms': 0.0, 'reg_ms': 0.0,
+           'reg_plain_ms': 0.0, 'fold_bytes': 0, 'fold_ops': 0,
+           'reg_bytes': 0, 'reg_ops': 0, 'err_reg': 0.0}
+    out['err_main'] = max(
+        [float((g - w).abs().max()) for g, w in zip(mid(), mid_p())]
+        + [float((fin().float() - fin_p().float()).abs().max())])
+    if out['err_main'] != 0.0:
+        raise AssertionError('solid_fold at the main path shapes differs '
+                             'from plain by %r' % out['err_main'])
+    for name, k, p, nbytes, fp in (
+            ('mid fold L=6', mid, mid_p, 16, folds[0]),
+            ('finalize L=2 f16', fin, fin_p, 24, folds[1])):
+        tk, tp = paired_ms(k, p, 10, 2)
+        out['fold_ms'] += tk
+        out['fold_plain_ms'] += tp
+        out['rows'].append((name, tk, tp, B * H * W * nbytes))
+        # the mid fold writes P and A (16 B/px); the finalize reads them
+        # and writes f16 frames (24 B/px)
+        L = fp['color'].shape[0]
+        out['fold_bytes'] += B * H * W * nbytes + _fold_params_bytes(L, B)
+        out['fold_ops'] += B * H * W * (L * FOLD_OPS_PER_LAYER + (
+            FINALIZE_OPS if nbytes == 24 else 0))
+    for j, (pl, (color, ry, rx)) in enumerate(regions):
+        dy0, dx0 = pl['dy0'], pl['dx0']
+        h, w = ry.shape[1], rx.shape[1]
+        P1, A1 = baseP.clone(), baseA.clone()
+        P2, A2 = baseP.clone(), baseA.clone()
+        cuda_ops.region_over_sep(P1, A1, color, ry, rx, dy0, dx0)
+        cuda_ops.region_over_sep_plain(P2, A2, color, ry, rx, dy0, dx0)
+        out['err_reg'] = max(out['err_reg'], float((P1 - P2).abs().max()),
+                             float((A1 - A2).abs().max()))
+        k = lambda: cuda_ops.region_over_sep(P1, A1, color, ry, rx, dy0, dx0)
+        p = lambda: cuda_ops.region_over_sep_plain(P2, A2, color, ry, rx,
+                                                   dy0, dx0)
+        tk, tp = paired_ms(k, p, 20, 3)
+        out['reg_ms'] += tk
+        out['reg_plain_ms'] += tp
+        px = B * min(h, H - dy0) * min(w, W - dx0)
+        out['rows'].append(('region %d %dx%d @ (%d, %d)' % (j, h, w, dy0, dx0),
+                            tk, tp, px * 32))
+        # P and A read and written in the region; color, ry, rx read
+        out['reg_bytes'] += px * 32 + B * (4 + h + w) * 4
+        out['reg_ops'] += px * (RANK1_OPS + OVER_OPS)
+    if out['err_reg'] != 0.0:
+        raise AssertionError('region_over_sep at the main path shapes '
+                             'differs from plain by %r' % out['err_reg'])
+    return out
 
 
 def _stream_wall(planner, start, stop, batch, post=None):
@@ -1586,12 +1696,12 @@ def _guard(tag, ws, window):
     estimate exceeds the card's memory raises before any launch."""
     import torch
 
-    from canvas_tpu_torch.render import RenderPlanner
+    from canvas_tpu_torch.render import RenderPlanner, _hbm_estimate_bytes
 
     planner = RenderPlanner(ws, window)
     planner.plan_cache_segments = 0
     px = window.width * window.height
-    est = (3 * 8 + 16) * 128 * px
+    est = _hbm_estimate_bytes(128, window, None, None)[0]
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
@@ -1697,16 +1807,154 @@ def _coded_and_replay(tag, window):
     return total
 
 
+def _export_4k(tag):
+    """Phase 12: config6 and config6b, the headline exported at 4K
+    (benchmarks.py:549-602): frames 0..63 of timelines.build_timeline(1024)
+    at timelines.CONFIG6_WINDOW through iter_batches(batch=8,
+    post='rgba_u8') and (post='yuv420'), plan cache off, the batches left
+    on the card as benchmarks.py leaves them (device_out=True: nothing is
+    fetched); one warm pass, best of 3. Beside each: the device busy time
+    of the same batches replayed and the idle share, the post's device
+    time per batch, the replay's device time by kernel (torch.profiler),
+    the memory guard's estimate beside the measured peak,
+    frames 0 and 63 against the CPU's conversion of the card's own f16
+    frames, and one f16 frame against the NumPy pull path; then the
+    headline's kernels at 4K, batch 8, beside their byte floors. Returns
+    the launches of each post's first pass summed: the counters are set
+    to 0 just before it and read just after, before the walls, the
+    replays and the profiler launch the kernels again."""
+    import numpy as np
+    import torch
+
+    from canvas_tpu_torch import timelines
+    from canvas_tpu_torch.backend import cuda_ms
+    from canvas_tpu_torch.ops import color as color_ops
+    from canvas_tpu_torch.render import (RenderPlanner, _hbm_estimate_bytes,
+                                         params_to_torch, run)
+
+    dev = torch.device('cuda')
+    window = timelines.CONFIG6_WINDOW
+    H, W = window.height, window.width
+    start, stop, batch = 0, 64, 8
+    ws = timelines.build_timeline(1024)
+    planner = RenderPlanner(ws, window)
+    planner.plan_cache_segments = 0     # cold, as benchmarks.py
+    picked = {}
+    for s, n, out in planner.iter_batches(start, stop, batch=batch):
+        for i in (0, 63):
+            if s <= i < s + n:
+                picked[i] = out[i - s].clone()
+    want0 = np.asarray(ws.get_frame_f16(0, window).data, np.float16)
+    err_pull = float(np.abs(picked[0].cpu().numpy().astype(np.float32)
+                            - want0.astype(np.float32)).max())
+    if not bool(torch.isfinite(picked[0]).all()) or err_pull > 2e-3:
+        raise AssertionError('4K frame 0 differs from the pull path by %r'
+                             % err_pull)
+    work = []
+    for seg in planner.segments(start, stop, min_span=batch):
+        _s0, sig, batches = planner._prepare(seg, batch)
+        work += [(sig, params_to_torch(pl, dev)) for _p, _t, pl in batches]
+    # frame 0 is a segment of its own (an item's plan cut at frame 1):
+    # the kernels are timed on the first batch of 8
+    full = next(w for w in work if w[1][1]['color'].shape[1] == batch)
+    metrics = {'rgba_u8': 'config6_4k_10layer_export_path_fps',
+               'yuv420': 'config6b_4k_export_yuv420_transport_fps'}
+    launches = dict.fromkeys(_launch_counts(), 0)
+    for post, metric in metrics.items():
+        agree = {}
+        n_batches = 0
+        # the main path's counts: this pass alone, read before the walls,
+        # the replays and the profiler launch the kernels again
+        _zero_launch_counts()
+        for s, n, out in planner.iter_batches(start, stop, batch=batch,
+                                              post=post):
+            n_batches += 1
+            for i in (0, 63):
+                if s <= i < s + n:
+                    got = out[i - s:i - s + 1].cpu().int()
+                    want = color_ops.POSTS[post](picked[i][None].cpu()).int()
+                    d = (got - want).abs()
+                    agree[i] = (float((d != 0).float().mean()), int(d.max()))
+        seen = _launch_counts()
+        # the headline folds its solids in two runs, one under and one
+        # over its two scalers: 2 solid_fold and 2 region_over_sep a batch
+        want_seen = dict.fromkeys(seen, 0)
+        want_seen.update(solid_fold=2 * n_batches,
+                         region_over_sep=2 * n_batches)
+        if seen != want_seen:
+            raise AssertionError('4K export post=%r ran %d batches with '
+                                 'launches %r' % (post, n_batches, seen))
+        launches = {k: launches[k] + seen[k] for k in launches}
+        if any(wd > 1 or sh > 1e-3 for sh, wd in agree.values()):
+            raise AssertionError('%s differs from the CPU: %r' % (post, agree))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _stream_wall(planner, start, stop, batch, post)
+        walls = [_stream_wall(planner, start, stop, batch, post)
+                 for _rep in range(3)]
+        peak = torch.cuda.max_memory_allocated() - base
+        wall = min(walls)
+
+        def replay():
+            for sg, tp in work:
+                run(sg, tp, dev, post)
+
+        busy = cuda_ms(replay, 3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        replay()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        kernels, device_ms = _profile_kernels(replay)
+        x16 = run(*full, dev)
+        post_ms = cuda_ms(lambda: color_ops.POSTS[post](x16), 5)
+        del x16
+        est = _hbm_estimate_bytes(batch, window, post, None)[0]
+        print('phase 12 %s %.1f (headline at %dx%d, frames %d..%d, '
+              'iter_batches(batch=%d, post=%r), batches left on the card, '
+              'plan cache off; best of 3 after one warm pass; walls %s s; '
+              'the checked pass: %d batches, launches %s); '
+              'the %d batches replayed back to back: %.3f ms (CUDA events), '
+              'host enqueue %.3f ms, device time %.3f ms (torch.profiler), '
+              'device idle share %.3f; the post %.3f ms a batch of %d on the '
+              'card; memory guard estimate %.3f GB beside a measured peak of '
+              '%.3f GB (ratio %.3f); frames 0 and 63 vs the CPU conversion of '
+              'the card\'s f16 frames %s (at most 1 on at most 0.1%%) %s'
+              % (metric, (stop - start) / wall, W, H, start, stop - 1, batch,
+                 post, ', '.join('%.4f' % w for w in walls), n_batches,
+                 json.dumps(seen), len(work), busy,
+                 enqueue_ms, device_ms, 1.0 - device_ms / (wall * 1e3),
+                 post_ms, batch, est / 1e9, peak / 1e9, est / peak, ', '.join(
+                     'frame %d %.4g differ, max %d' % ((i,) + agree[i])
+                     for i in sorted(agree)), tag), flush=True)
+        for name, ms, calls in kernels[:6]:
+            print('phase 12 %s replay kernel %.3f ms (%.1f%%), %d calls: %s'
+                  % (post, ms, 100.0 * ms / device_ms, calls, name[:120]),
+                  flush=True)
+    print('phase 12 4K frame 0 vs the NumPy pull path: max diff %.3g (atol '
+          '2e-3); launches of the two checked passes %s %s'
+          % (err_pull, json.dumps(launches), tag), flush=True)
+    kern = _headline_kernels(full, H, W, batch)
+    for name, tk, tp, nbytes in kern['rows']:
+        floor = _bound(nbytes, 0)[0]
+        print('phase 12 kernel %s at %dx%d, batch %d: cuda %.4f ms (byte '
+              'floor %.4f ms, time / floor %.2f), plain torch %.4f ms %s'
+              % (name, W, H, batch, tk, floor, tk / floor, tp, tag),
+              flush=True)
+    return launches
+
+
 def main():
     sys.meta_path.insert(0, _Refuse())
     import numpy as np
     import torch
 
     from canvas_tpu_torch import timelines
-    from canvas_tpu_torch.backend import cuda_ms, paired_ms
+    from canvas_tpu_torch.backend import cuda_ms
     from canvas_tpu_torch.ops import _build, cuda_ops
-    from canvas_tpu_torch.render import (RenderPlanner, _scale_solid_factors,
-                                         box2i, params_to_torch, run)
+    from canvas_tpu_torch.render import (RenderPlanner, box2i,
+                                         params_to_torch, run)
 
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py needs a CUDA device and '
@@ -1902,91 +2150,21 @@ def main():
              idle, tag), flush=True)
 
     # Kernels at the main path's shapes: the first timed batch's params.
-    sig, tparams = work[0]
-    kids = sig[3]
-    idx = 1
-    folds, regions = [], []
-    for cs in kids:
-        if cs[0] == 'solid_stack':
-            folds.append(tparams[idx])
-            idx += 1
-        elif cs[0] == 'placed' and cs[3][0][0].startswith('scale_solid'):
-            inner = cs[3][0]
-            regions.append((tparams[idx], _scale_solid_factors(
-                inner[0], inner[1], tparams[idx + 1])))
-            idx += 2
-        else:
-            raise AssertionError('unexpected headline child %r' % (cs[0],))
-    if len(folds) != 2 or len(regions) != 2 or kids[-1][0] != 'solid_stack':
-        raise AssertionError('unexpected headline plan: %r'
-                             % ([c[0] for c in kids],))
-    B = batch
-
-    def fargs(p):
-        return p['color'], p['box'], p['gain'], p['offset'], H, W
-
-    mid = lambda: cuda_ops.solid_fold(None, None, *fargs(folds[0]))
-    mid_p = lambda: cuda_ops.solid_fold_plain(None, None, *fargs(folds[0]))
-    baseP, baseA = mid()
-    fin = lambda: cuda_ops.solid_fold(baseP, baseA, *fargs(folds[1]),
-                                      finalize=True, out_dtype=torch.float16)
-    fin_p = lambda: cuda_ops.solid_fold_plain(
-        baseP, baseA, *fargs(folds[1]), finalize=True,
-        out_dtype=torch.float16)
-    err_main = max([float((g - w).abs().max())
-                    for g, w in zip(mid(), mid_p())]
-                   + [float((fin().float() - fin_p().float()).abs().max())])
-    if err_main != 0.0:
-        raise AssertionError('solid_fold at the main path shapes differs '
-                             'from plain by %r' % err_main)
-    rows = []
-    fold_ms = fold_plain_ms = reg_ms = reg_plain_ms = 0.0
-    fold_bytes = fold_ops = reg_bytes = reg_ops = 0
-    for name, k, p, nbytes, fp in (
-            ('mid fold L=6', mid, mid_p, 16, folds[0]),
-            ('finalize L=2 f16', fin, fin_p, 24, folds[1])):
-        tk, tp = paired_ms(k, p, 10, 2)
-        fold_ms += tk
-        fold_plain_ms += tp
-        rows.append((name, tk, tp, B * H * W * nbytes))
-        # the mid fold writes P and A (16 B/px); the finalize reads them
-        # and writes f16 frames (24 B/px)
-        L = fp['color'].shape[0]
-        fold_bytes += B * H * W * nbytes + _fold_params_bytes(L, B)
-        fold_ops += B * H * W * (L * FOLD_OPS_PER_LAYER
-                                 + (FINALIZE_OPS if nbytes == 24 else 0))
-    for j, (pl, (color, ry, rx)) in enumerate(regions):
-        dy0, dx0 = pl['dy0'], pl['dx0']
-        h, w = ry.shape[1], rx.shape[1]
-        P1, A1 = baseP.clone(), baseA.clone()
-        P2, A2 = baseP.clone(), baseA.clone()
-        cuda_ops.region_over_sep(P1, A1, color, ry, rx, dy0, dx0)
-        cuda_ops.region_over_sep_plain(P2, A2, color, ry, rx, dy0, dx0)
-        err_reg = max(err_reg, float((P1 - P2).abs().max()),
-                      float((A1 - A2).abs().max()))
-        k = lambda: cuda_ops.region_over_sep(P1, A1, color, ry, rx, dy0, dx0)
-        p = lambda: cuda_ops.region_over_sep_plain(P2, A2, color, ry, rx,
-                                                   dy0, dx0)
-        tk, tp = paired_ms(k, p, 20, 3)
-        reg_ms += tk
-        reg_plain_ms += tp
-        px = B * min(h, H - dy0) * min(w, W - dx0)
-        rows.append(('region %d %dx%d @ (%d, %d)' % (j, h, w, dy0, dx0),
-                     tk, tp, px * 32))
-        # P and A read and written in the region; color, ry, rx read
-        reg_bytes += px * 32 + B * (4 + h + w) * 4
-        reg_ops += px * (RANK1_OPS + OVER_OPS)
-    if err_reg != 0.0:
-        raise AssertionError('region_over_sep at the main path shapes '
-                             'differs from plain by %r' % err_reg)
-    for name, tk, tp, nbytes in rows:
+    kern = _headline_kernels(work[0], H, W, batch)
+    err_main = kern['err_main']
+    err_reg = max(err_reg, kern['err_reg'])
+    fold_ms, fold_plain_ms = kern['fold_ms'], kern['fold_plain_ms']
+    reg_ms, reg_plain_ms = kern['reg_ms'], kern['reg_plain_ms']
+    fold_bytes, fold_ops = kern['fold_bytes'], kern['fold_ops']
+    reg_bytes, reg_ops = kern['reg_bytes'], kern['reg_ops']
+    for name, tk, tp, nbytes in kern['rows']:
         floor = _bound(nbytes, 0)[0]
         print('phase 5 kernel %s, batch %d: cuda %.4f ms (%.1f GB/s for %.1f '
               'MB; byte floor %.4f ms, time / floor %.2f), plain torch %.4f '
-              'ms %s' % (name, B, tk, nbytes / tk / 1e6, nbytes / 1e6, floor,
-                         tk / floor, tp, tag), flush=True)
+              'ms %s' % (name, batch, tk, nbytes / tk / 1e6, nbytes / 1e6,
+                         floor, tk / floor, tp, tag), flush=True)
 
-    del work, baseP, baseA, P1, A1, P2, A2
+    del work, kern
     torch.cuda.empty_cache()
 
     # 6-7. the mixed-content path
@@ -2011,8 +2189,13 @@ def main():
     torch.cuda.empty_cache()
     replay_launches = _coded_and_replay(tag, window)
 
+    # 12. config6 and config6b: the export path at 4K
+    torch.cuda.empty_cache()
+    export_launches = _export_4k(tag)
+
     total = {k: (launches[k] + mixed_launches[k] + post_launches[k]
-                 + display_launches[k] + replay_launches[k])
+                 + display_launches[k] + replay_launches[k]
+                 + export_launches[k])
              for k in mixed_launches}
     fold_bound, fold_by = _bound(fold_bytes, fold_ops)
     reg_bound, reg_by = _bound(reg_bytes, reg_ops)

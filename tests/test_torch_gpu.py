@@ -722,3 +722,24 @@ def test_study_wrappers_refuse_noncontiguous(cuda):
         so.roofline_fold(x, color[:, 0], box[:, 0], False)
     with pytest.raises(ValueError):
         so.fma_chain(x, torch.zeros(8, device=cuda), 8)
+
+
+@pytest.mark.gpu
+def test_4k_yuv420_batch_on_card_matches_cpu(cuda):
+    """One config6b batch: the headline at 3840x2160 with post='yuv420',
+    on the card against the same conversion of the CPU's f16 frames, to
+    the posts' gate (1 u8 step on at most 0.1% of values)."""
+    from canvas_tpu_torch import timelines
+    from canvas_tpu_torch.ops import color
+    from canvas_tpu_torch.render import RenderPlanner
+    ws = timelines.build_timeline(1024)
+    planner = RenderPlanner(ws, timelines.CONFIG6_WINDOW)
+    (_s, n, got), = planner.iter_batches(0, 2, batch=2, post='yuv420')
+    assert n == 2 and got.dtype == torch.uint8
+    assert tuple(got.shape) == (2, 3840 * 2160 + 2 * 1920 * 1080)
+    frames = RenderPlanner(ws, timelines.CONFIG6_WINDOW, device='cpu').render(
+        0, 2)
+    want = color.POSTS['yuv420'](torch.from_numpy(frames))
+    diff = (got.cpu().int() - want.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff != 0).float().mean()) <= 1e-3
+

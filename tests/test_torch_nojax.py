@@ -9,9 +9,13 @@ the subsample filters and a graph whose source
 the planner host-stages, all built from the port's own classes
 (``canvas_tpu_torch.timelines``, ``canvas_tpu_torch.process``), pulls
 display frames (``render_display``, and a playback engine's
-``display_frame`` at quality 5), and runs the studies'
+``display_frame`` at quality 5), runs the studies'
 ``--check --device cpu`` entry points
-(canvas_tpu_torch.studies); and nothing it runs even tries such an
+(canvas_tpu_torch.studies), writes a 12-frame ``write_video`` file with
+audio, decodes it with ``AVVideoDecoder`` and renders a batch of
+``timelines.decoded_planar_clip`` (the port's own build of the native
+library, and its ``audio``, ``x264``, ``faac``, ``libdv``, ``formats``,
+``timecode`` and ``matroska`` imported); and nothing it runs even tries such an
 import (a refused attempt could be swallowed by an optional-import
 probe, so attempts are recorded)."""
 
@@ -123,6 +127,33 @@ SCRIPT = textwrap.dedent('''
                                      '--device', 'cpu']) == 0
     assert fold_tile_study.main(['--check', '--device', 'cpu']) == 0
     assert vpu_roofline.main(['--check', '--device', 'cpu']) == 0
+
+    import os
+    import tempfile
+    from canvas_tpu_torch import (faac, formats, libav, libdv, matroska,
+                                  timecode, x264)
+    tmp = tempfile.mkdtemp()
+    path = os.path.join(tmp, 'headline.avi')
+    tone = process.AudioWorkspace()
+    tone.add(source=process.AudioFrame(0, 9599, 2, data=np.full(
+        (9600, 2), 0.25, np.float32)), x=0, length=9600)
+    libav.write_video(path, timelines.build_timeline(64), tone, 0, 12,
+                      frame_size=(320, 180), frame_rate=25, batch=4,
+                      format='avi', audio_codec='pcm_s16le', device='cpu')
+    dec = libav.AVVideoDecoder(path)
+    assert dec.get_frame(11).planes[0].shape == (180, 320)
+    assert dec.get_frame(12) is None
+    assert formats.probe_container(path).streams[0].length == 12
+    assert timecode.TimeAndFrames(25).format(30) == '00:00:01:05'
+    clip = timelines.decoded_planar_clip(os.path.join(tmp, 'c8.avi'),
+                                         length=4, width=160, height=96,
+                                         device='cpu')
+    decoded = RenderPlanner(clip, box2i(0, 0, 159, 95), device='cpu')
+    decoded.stage_cache_mb = 0
+    (_s, n, out), = decoded.iter_batches(0, 4, batch=4)
+    assert n == 4 and tuple(out.shape) == (4, 4, 96, 160)
+    assert bool(torch.isfinite(out).all()) and float(out[:, 3].min()) == 1.0
+    assert float(out[3, 0].mean()) > float(out[0, 0].mean())
 
     loaded = sorted(m for m in sys.modules if m.split('.')[0] in REFUSED)
     assert not loaded, loaded

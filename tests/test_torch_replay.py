@@ -490,6 +490,26 @@ def test_hbm_footprint_guard_cumulative_render(monkeypatch):
     planner.close()
 
 
+@pytest.mark.parametrize('post, max_inflight, want_bpp, want_depth', [
+    (None, None, 3 * 8 + 16, 3),
+    ('rgba_u8', None, 3 * 4 + 16, 3),
+    ('bgra_u8', 2, 2 * 4 + 16, 2),
+    ('yuv420', 0, 3 * 1.5 + 16, 3),
+    (None, 1, 1 * 8 + 16, 1),
+])
+def test_hbm_estimate_per_post(post, max_inflight, want_bpp, want_depth):
+    """The one model the guard refuses by (and chip_smoke prints): depth
+    retained outputs of 8 / 4 / 1.5 B/px by post plus a 16 B/px working
+    stack, exact in bytes."""
+    window = box2i(0, 0, 3839, 2159)
+    est, depth = port._hbm_estimate_bytes(8, window, post, max_inflight)
+    assert depth == want_depth
+    assert est == int(want_bpp * 8 * 3840 * 2160)
+    assert port._hbm_estimate_bytes(8, window, post, max_inflight,
+                                    working_bpp=0)[0] == \
+        int((want_bpp - 16) * 8 * 3840 * 2160)
+
+
 def test_hbm_budget_is_the_cards_total(monkeypatch):
     """Without CANVAS_HBM_MB the budget of a CUDA device is its total
     memory, not the free share."""
