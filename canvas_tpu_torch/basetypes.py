@@ -1,6 +1,7 @@
 """Geometry and color base types of the port: the counterpart of
-``canvas_tpu/basetypes.py`` without its YAML tags (they belong to the
-editor's project files, which the port does not read).
+``canvas_tpu/basetypes.py`` without its YAML tags: the editor's
+project files register those on its own YAML classes
+(``canvas_tpu_torch.editor.yamlio``).
 
 The semantics are the reference's (framework.h:46-149): inclusive box
 bounds, and a box is empty when ``max < min`` on either axis.

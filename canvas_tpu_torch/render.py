@@ -62,11 +62,9 @@ DISPLAY_TRANSPORTS = ('u8', 'rgb24', 'yuv420')
 #: Viewport sizes whose device resample matrices a planner keeps.
 _DISPLAY_MATS_KEPT = 8
 
-#: Ops of the IR that the slice does not evaluate yet, with the
-#: ROADMAP.md queue-1 item that ports each together with its only
-#: emitter; the port has no source that plans any of them.
+#: Ops of the IR that the port does not evaluate, with the ROADMAP.md
+#: queue-1 item that says why; the port has no source that plans them.
 _LATER = {
-    'u8_linearize': 'queue 1 item 10',
     'solid_cells': 'queue 1 item 9 (not ported)',
 }
 
@@ -351,6 +349,17 @@ def _eval(node_sig, params_iter, device, out_dtype=torch.float32):
         return color_ops.device_transfer(static[0],
                                          color_ops.quantize_f16(child))
 
+    if op == 'u8_linearize':
+        # decoded u8 RGBA, staged in the decoder's interleaved (B, H, W, 4)
+        # layout: made planar on the device, /255 in f32, rounded to the
+        # f16 grid to nearest (not the curves' truncating grid), then the
+        # rec709 -> linear scene curve on all four channels
+        # (render.py:1157-1167)
+        data = params['data'].permute(0, 3, 1, 2).contiguous()
+        return color_ops.device_transfer(
+            'rec709_to_linear_scene',
+            color_ops.quantize_f16(data.float() / 255.0))
+
     if op == 'matrix':
         # a 3x3 color matrix over rgb at full f32 (TF32 stays off); alpha
         # passes through (render.py:1149-1155)
@@ -558,18 +567,43 @@ def _hbm_budget_bytes(device):
     return int(torch.cuda.mem_get_info(device)[1])
 
 
+#: The working set of each export post of ``color_ops.POSTS`` at its
+#: peak, in bytes per pixel of the batch, one term per tensor live there.
+#: All three start with ``_gamma45_floor``'s level gather
+#: (``_display_levels``), and its gather is the peak: the f16 bits widen
+#: to int32 and are masked (a second int32 tensor, the first freed when
+#: the mask is done), the gather converts its int32 indices to int64,
+#: and writes f32 levels, while the caller still holds the f16 frame.
+#: The ``floor`` of the levels (16 B/px, beside the 16 of the levels)
+#: comes after the bits and indices are freed, and what follows it (the
+#: u8 copies of the interleave, yuv420's f32 planes of 4 B/px each) is
+#: smaller again, so none of it adds to that peak.
+POST_WORKING_BPP = {
+    post: (('f16 frame', 8), ('int32 bits', 16), ('int64 indices', 32),
+           ('f32 levels', 16))
+    for post in ('rgba_u8', 'bgra_u8', 'yuv420')}
+
+
 def _hbm_estimate_bytes(batch, window, post, max_inflight, working_bpp=16):
     """The memory guard's model of a batched render, in bytes, and the
     output depth it counted: ``depth`` retained output buffers
     (``max_inflight``, 3 when unbounded or non-positive, as in
-    ``iter_batches``; 8 / 4 / 1.5 bytes per pixel by *post*) plus ONE
-    working stack of ``working_bpp`` bytes per pixel. See
+    ``iter_batches``; 8 / 4 / 1.5 bytes per pixel by *post*), ONE
+    working stack of ``working_bpp`` bytes per pixel (the f32 (P, A)
+    accumulators), and with a *post* that post's working set,
+    ``POST_WORKING_BPP``: per pixel, the f16 frame it reads (8), the
+    int32 bits of its level gather (16), the gather's int64 indices
+    (32) and the f32 levels (16), 72 bytes for each of ``rgba_u8``,
+    ``bgra_u8`` and ``yuv420``. The accumulators are freed by the
+    finalize before the post runs, so the sum is an upper bound. See
     ``_check_hbm_footprint``."""
     px = window.width * window.height
     out_bpp = {None: 8, 'rgba_u8': 4, 'bgra_u8': 4,
                'yuv420': 1.5}.get(post, 8)
+    post_bpp = sum(b for _name, b in POST_WORKING_BPP.get(post, ()))
     depth = max_inflight if (max_inflight and max_inflight > 0) else 3
-    return int((depth * out_bpp + working_bpp) * batch * px), depth
+    return (int((depth * out_bpp + working_bpp + post_bpp) * batch * px),
+            depth)
 
 
 def _check_hbm_footprint(batch, window, post, max_inflight, device,
@@ -581,15 +615,16 @@ def _check_hbm_footprint(batch, window, post, max_inflight, device,
     and its message names an allocation size, not the batch that asked
     too much.
 
-    Model: ``depth`` retained output buffers (``max_inflight``, 3 when
-    unbounded; 8 / 4 / 1.5 bytes per pixel by *post*) plus ONE working
-    stack of ``working_bpp`` bytes per pixel for the executing batch,
-    the f32 accumulators (0 for the cumulative check of a collector that
-    keeps every batch's output; its per-batch working set is checked
-    apart). PyTorch's allocator hands a dropped output's memory to the
-    next batch in stream order, so the depth stands for the batches a
-    caller holds at once (an exporter converts one while the next
-    renders), not for queued work. Raises above the budget
+    Model (``_hbm_estimate_bytes``): ``depth`` retained output buffers
+    (``max_inflight``, 3 when unbounded; 8 / 4 / 1.5 bytes per pixel by
+    *post*) plus ONE working stack of ``working_bpp`` bytes per pixel
+    for the executing batch, the f32 accumulators (0 for the cumulative
+    check of a collector that keeps every batch's output; its per-batch
+    working set is checked apart), plus the post's working set
+    (``POST_WORKING_BPP``). PyTorch's allocator hands a dropped output's
+    memory to the next batch in stream order, so the depth stands for
+    the batches a caller holds at once (an exporter converts one while
+    the next renders), not for queued work. Raises above the budget
     (``_hbm_budget_bytes``), logs a warning above 80% of it."""
     budget = _hbm_budget_bytes(device)
     if not budget:        # None: the CPU; 0: switched off
@@ -599,12 +634,13 @@ def _check_hbm_footprint(batch, window, post, max_inflight, device,
     if est > budget:
         raise ValueError(
             '%d frames at %dx%d estimate ~%.1f GiB on the device '
-            '(%d retained output buffers%s) against a ~%.1f GiB HBM '
+            '(%d retained output buffers%s%s) against a ~%.1f GiB HBM '
             'budget; the render would run out of memory part-way. Reduce '
             'batch, bound max_inflight, or override with CANVAS_HBM_MB '
             '(0 disables this check).'
             % (batch, window.width, window.height, est / (1 << 30), depth,
                ' + f32 working set' if working_bpp else '',
+               ' + the %s post\'s working set' % post if post else '',
                budget / (1 << 30)))
     if est > 0.8 * budget:
         _log.warning(

@@ -22,7 +22,15 @@
   over ``libav.AVVideoDecoder`` of an MPEG-4 file that ``write_video``
   writes first;
 - ``CONFIG6_WINDOW``: the 4K window ``benchmarks.py`` config6 and
-  config6b render ``build_timeline()`` at (``benchmarks.py:549-602``).
+  config6b render ``build_timeline()`` at (``benchmarks.py:549-602``);
+- ``editor_headline(length)``: the headline as an editor project: each
+  of its ten layers a ``Clip`` in a lane of its own of a 1920x1080
+  ``Space``, which the editor's graph managers turn back into the same
+  composite (the same plan signature, bit-equal frames);
+- ``editor_cut(length)``: the editor's own shape of content: the
+  headline's background, a ``Sequence`` of three DV clips with two
+  12-frame crossfades, and the white strip; ``editor_video(asset)``
+  brings a project's ``SpaceAsset`` online and gives its video stream.
 
 Each matches the JAX package's builder item for item, so a planner given
 one plans the IR the JAX package plans for its own.
@@ -44,9 +52,11 @@ from canvas_tpu_torch.sources import (SolidColorVideoSource,
                                       VideoGainOffsetFilter, VideoMixFilter,
                                       VideoScaler, VideoWorkspace)
 
-__all__ = ['CONFIG6_WINDOW', 'PULLDOWN_WINDOW', 'build_timeline',
-           'decoded_planar_clip', 'mixed_timeline', 'planar_clip',
-           'pulldown_clip', 'transfer_timeline']
+__all__ = ['CONFIG6_WINDOW', 'CUT_CLIP', 'CUT_TRANSITION', 'EDITOR_LAYERS',
+           'PULLDOWN_WINDOW', 'build_timeline', 'decoded_planar_clip',
+           'editor_cut', 'editor_headline', 'editor_video',
+           'mixed_timeline', 'planar_clip', 'pulldown_clip',
+           'transfer_timeline']
 
 #: The window config3 renders ``pulldown_clip`` at: DV's picture, whose
 #: line zero belongs to the first field (row -1 on top).
@@ -211,3 +221,116 @@ def decoded_planar_clip(path, length=64, width=1920, height=1080,
                           bit_rate=8_000_000, format='avi', device=device)
     return PlanarReconstructionFilter(libav.AVVideoDecoder(path),
                                       width=width, height=height)
+
+
+#: The asset names of the headline's ten layers in ``editor_headline``,
+#: bottom (workspace z 0) to top (z 9).
+EDITOR_LAYERS = ('background', 'card1', 'card2', 'card3', 'card4', 'card5',
+                 'scaler1', 'scaler2', 'crossfade', 'strip')
+
+
+def _editor_format():
+    from canvas_tpu_torch.editor import plugins
+    video = plugins.VideoFormat(full_frame=box2i(0, 0, 1919, 1079),
+                                frame_rate=Fraction(25))
+    audio = plugins.AudioFormat(sample_rate=48000,
+                                channel_assignment=['FrontLeft',
+                                                    'FrontRight'])
+    return video, audio
+
+
+def _runtime_asset(assets, name, source, video_format):
+    """An asset *name* in *assets* whose one stream, 'video', is
+    *source* behind a live ``plugins.VideoStream``; its stream ref."""
+    from canvas_tpu_torch.editor import model, plugins
+    stream = plugins.VideoStream(source, video_format, name='video')
+    assets[name] = model.RuntimeSourceAsset(
+        model.RuntimeSource(name, {'video': stream}))
+    return model.AssetStreamRef(asset_path=name, stream='video')
+
+
+def _project(name, clips, assets, video_format, audio_format):
+    from canvas_tpu_torch.editor import model
+    space = model.Space(name, video_format, audio_format)
+    space[:] = clips
+    space_asset = model.SpaceAsset(space, name=name)
+    assets[name] = space_asset
+    return assets, space_asset
+
+
+def editor_headline(length=1024):
+    """``build_timeline(length)`` as an editor project: each workspace
+    item is a video ``Clip`` over a ``RuntimeSourceAsset`` (named by
+    ``EDITOR_LAYERS``) in a lane of its own, lane ``9 - z`` for the
+    item at workspace z, so the graph managers' stacking key ``(-y,
+    -z)`` keeps the headline's order. Returns the project's
+    ``AssetList`` and its ``SpaceAsset`` ('headline')."""
+    from canvas_tpu_torch.editor import model
+    video_format, audio_format = _editor_format()
+    assets = model.AssetList()
+    clips = []
+    for item in sorted(build_timeline(length), key=lambda it: it.z):
+        ref = _runtime_asset(assets, EDITOR_LAYERS[item.z], item.source,
+                             video_format)
+        clips.append(model.Clip(type='video', source=ref, offset=item.offset,
+                                x=item.x, y=float(9 - item.z),
+                                length=item.length, height=1.0))
+    return _project('headline', clips, assets, video_format, audio_format)
+
+
+#: ``editor_cut``'s sequence: three clips of this many frames, each after
+#: the first entering through a crossfade of ``CUT_TRANSITION`` frames.
+CUT_CLIP = 64
+CUT_TRANSITION = 12
+
+
+def editor_cut(length=256):
+    """The editor's own shape of content at 1080p: lane 2 the
+    headline's background solid, lane 1 a ``Sequence`` of three
+    ``CUT_CLIP``-frame clips over the mixed timeline's three DV sources
+    (``VideoScaler(DVReconstructionFilter(RolledDV()))`` at 1.25x, as
+    ``mixed_timeline(length)`` builds them) with ``CUT_TRANSITION``-frame
+    crossfades between them (frames 52..63 and 104..115), lane 0 the
+    headline's white strip. Returns the project's ``AssetList`` and its
+    ``SpaceAsset`` ('cut')."""
+    from canvas_tpu_torch.editor import model
+    video_format, audio_format = _editor_format()
+    assets = model.AssetList()
+    background = _runtime_asset(
+        assets, 'background',
+        SolidColorVideoSource((0.1, 0.1, 0.12, 1.0)), video_format)
+    strip = _runtime_asset(
+        assets, 'strip',
+        SolidColorVideoSource((1, 1, 1, 0.08),
+                              window=box2i(0, 980, 1919, 1079)),
+        video_format)
+    items = []
+    for i, (tx, ty) in enumerate(((0, 0), (640, 120), (960, 480))):
+        clip = VideoScaler(
+            DVReconstructionFilter(RolledDV()),
+            target_point=LerpFunc((tx, ty), (tx + 60, ty + 40), length),
+            source_point=(0.0, -1.0),
+            scale_factors=(1.25, 1.25),
+            source_rect=box2i(0, -1, 719, 478))
+        ref = _runtime_asset(assets, 'dv%d' % i, clip, video_format)
+        items.append(model.SequenceItem(
+            source=ref, offset=0, length=CUT_CLIP,
+            transition_length=CUT_TRANSITION if i else 0))
+    clips = [
+        model.Clip(type='video', source=background, x=0, y=2.0,
+                   length=length, height=1.0),
+        model.Sequence(type='video', items=items, x=0, y=1.0, height=1.0),
+        model.Clip(type='video', source=strip, x=0, y=0.0, length=length,
+                   height=1.0),
+    ]
+    return _project('cut', clips, assets, video_format, audio_format)
+
+
+def editor_video(space_asset):
+    """The video stream of an editor project's ``SpaceAsset``: its
+    ``SpaceVideoManager``, a source the planner renders, brought online
+    first."""
+    source = space_asset.get_source()
+    if source.offline:
+        source.bring_online()
+    return source.get_stream('Video')

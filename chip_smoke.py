@@ -10,7 +10,8 @@ staged by the port, through animated scalers), then the fold studies and
 the roofline probe, then the headline's export conversions, then the
 editor's display path (``render_display``, the quality <= 9 tier and the
 playback engine), then coded video and the plan cache's replays, then
-the export path at 4K. Each phase prints one line or more; any failure raises
+the export path at 4K, then the editor's projects through its graph
+managers. Each phase prints one line or more; any failure raises
 (traceback, nonzero exit, no result line):
 
 1. card: nvidia-smi's name and power limit, torch's device name;
@@ -102,8 +103,9 @@ the export path at 4K. Each phase prints one line or more; any failure raises
    batch 128; ``iter_batches(max_inflight=2)`` over the headline
    bit-equal to the unpaced stream, with the most batches queued ahead of
    the device; the memory guard's estimate beside the measured peak, and
-   a batch it refuses before any launch; one segment's params uploaded
-   copy by copy beside one packed copy a batch;
+   a batch it refuses before any launch (the estimate must not be below
+   the peak); one segment's params uploaded copy by copy beside one
+   packed copy a batch;
 12. the export path at 4K (benchmarks.py config6 and config6b): frames
    0..63 of the headline at 3840x2160 through iter_batches(batch=8) with
    post='rgba_u8' (``config6_4k_10layer_export_path_fps``) and
@@ -113,18 +115,42 @@ the export path at 4K. Each phase prints one line or more; any failure raises
    2 region_over_sep a batch, nothing else), then one warm pass, best of
    3; the device busy time and idle share, the post's
    device time per batch, the memory guard's estimate beside the
-   measured peak; frames 0 and 63 of each post against the CPU's
-   conversion of the card's own f16 frames (at most 1 on at most 0.1%),
-   frame 0 against the NumPy pull path (atol 2e-3); the headline's
+   measured peak (the estimate must not be below it); frames 0 and 63
+   of each post against the CPU's conversion of the card's own f16
+   frames (at most 1 on at most 0.1%), frame 0 against the NumPy pull
+   path (atol 2e-3); the headline's
    kernels at 4K, batch 8, beside their byte floors. Writing and
    decoding files (``libav``) is not driven here: the card's machine has
    no FFmpeg development files to build ``native/canvas_av.cpp`` against
-   (ROADMAP.md queue 1).
+   (ROADMAP.md queue 1);
+13. the editor at 1080p (``canvas_tpu_torch.editor``: projects of Clips
+   and Sequences over the port's sources, through the graph managers):
+   (a) ``timelines.editor_headline(1024)`` (the headline's ten layers as
+   Clips in ten lanes) frames 128..511 via iter_batches(batch=128), plan
+   cache off, every batch bit-equal to phase 5's planner over
+   build_timeline(1024), with its launches a batch (1 mid fold, 1
+   finalize, 2 region_over_sep) and its plan signature, then its cold
+   fps, device busy time, idle share and planning ms per segment beside
+   phase 5's; (b) with the plan cache on, an AdjustClipLengthCommand on
+   an UndoStack trims the white strip to 300 frames: no segment of the
+   first pass that ends at or before frame 300 plans again, frames 299
+   and 300 within 2e-3 of the pull path, and after undo() frames
+   128..511 bit-equal to the first pass; (c) ``timelines.editor_cut(256)``
+   (three DV clips in a Sequence with two 12-frame crossfades) frames
+   0..127 at batch 16, cold: region_over must launch, frames 0, 58, 70
+   and 110 against the pull path under phase 6's gate, cold fps, device
+   time and idle share beside config7's; (d) render_display rgb24 of the
+   headline project: warm p50/p95 beside phase 10's, frames 0 and 130
+   against a CPU planner (at most 1 on at most 0.1%); (e) ``u8_linearize``
+   (the libav plugin's RGBA decode op) on a seeded (8, 1080, 1920, 4)
+   batch bit-equal to the CPU, its time beside its byte floor. The
+   libav plugin's file import is not driven (no FFmpeg there).
 
 Each path (the headline, the mixed timeline, the studies' timing runs,
-the export posts, the display path, the coded composite, the replays
-and each post's checked pass of the 4K export) runs with every launch
-counter set to 0 just before it and read just after; the kernels line
+the export posts, the display path, the coded composite, the replays,
+each post's checked pass of the 4K export and the editor's passes) runs
+with every launch counter set to 0 just before it and read just after;
+the kernels line
 reports each kernel's launches in those runs, its time, its plain
 version's, and its bound: the larger of the bytes it must move over the
 card's published memory rate and its f32 operations over the published
@@ -528,7 +554,8 @@ def _mixed_timing(tag, ws, window):
     """Phase 7: cold streaming fps, host prepare time, device busy and
     idle share, the replay's kernels, region_over vs plain. Returns
     region_over's (max diff, ms, plain ms, bound ms, bound by) at the
-    path's shapes."""
+    path's shapes, and config7's fps, device busy ms, batches and idle
+    share (a dict)."""
     import numpy as np
     import torch
 
@@ -639,7 +666,8 @@ def _mixed_timing(tag, ws, window):
                              'plain by %r' % err)
 
     # per pixel: the layer read (16 B), P and A read and written (32 B)
-    return (err, ms, plain_ms) + _bound(px_all * 48, px_all * OVER_OPS)
+    return ((err, ms, plain_ms) + _bound(px_all * 48, px_all * OVER_OPS)
+            + (dict(fps=fps, busy_ms=busy_ms, batches=len(work), idle=idle),))
 
 
 def _studies(tag):
@@ -1397,7 +1425,8 @@ def _playback_breakdown(tag, ws, window):
 def _display_path(tag, window):
     """Phase 10, the editor's display path, with the launch counters zeroed
     before and read after; then the bf16 forms' timings (whose launches
-    count nowhere). Returns (launches, the bf16 timings)."""
+    count nowhere). Returns (launches, the bf16 timings, the latencies
+    of ``_display_latency``)."""
     import torch
 
     from canvas_tpu_torch import timelines
@@ -1408,7 +1437,7 @@ def _display_path(tag, window):
     seen = _launch_counts()
     if min(seen['solid_fold'], seen['region_over_sep']) <= 0:
         raise AssertionError('render_display ran with launches %r' % seen)
-    _display_latency(tag, ws, window)
+    latency = _display_latency(tag, ws, window)
     torch.cuda.empty_cache()
     p9, mixed5 = _quality_tier(tag, ws, window)
     torch.cuda.empty_cache()
@@ -1421,7 +1450,7 @@ def _display_path(tag, window):
         raise AssertionError('a bf16 form did not launch on the display '
                              'path: %r' % launches)
     torch.cuda.empty_cache()
-    return launches, _bf16_timings(tag, p9, mixed5, window)
+    return launches, _bf16_timings(tag, p9, mixed5, window), latency
 
 
 
@@ -1728,6 +1757,9 @@ def _guard(tag, ws, window):
           'before any launch: %s %s'
           % (window.width, window.height, est / 1e9, peak / 1e9, base / 1e9,
              est / peak, total / 1e9, batch, refused[:90], tag), flush=True)
+    if est < peak:
+        raise AssertionError('the memory guard estimates %d bytes below the '
+                             'measured peak of %d' % (est, peak))
 
 
 def _upload_cost(tag, name, planner, seg, batch):
@@ -1928,6 +1960,10 @@ def _export_4k(tag):
                  post_ms, batch, est / 1e9, peak / 1e9, est / peak, ', '.join(
                      'frame %d %.4g differ, max %d' % ((i,) + agree[i])
                      for i in sorted(agree)), tag), flush=True)
+        if est < peak:
+            raise AssertionError('the memory guard estimates %d bytes for '
+                                 'post=%r below the measured peak of %d'
+                                 % (est, post, peak))
         for name, ms, calls in kernels[:6]:
             print('phase 12 %s replay kernel %.3f ms (%.1f%%), %d calls: %s'
                   % (post, ms, 100.0 * ms / device_ms, calls, name[:120]),
@@ -1942,6 +1978,358 @@ def _export_4k(tag):
               'floor %.4f ms, time / floor %.2f), plain torch %.4f ms %s'
               % (name, W, H, batch, tk, floor, tk / floor, tp, tag),
               flush=True)
+    return launches
+
+
+def _editor_headline(tag, window, head, p5):
+    """Phase 13(a): the editor's headline project (``editor_headline``:
+    ten Clips in ten lanes, through the editor's graph managers) over
+    frames 128..511, iter_batches(batch=128), plan cache off, every batch
+    bit-equal to *head* (phase 5's planner over build_timeline(1024)) in
+    this run, with the same launches a batch and the same plan signature;
+    then its cold fps (phase 5's protocol), device busy time, idle share
+    and planning ms per segment beside the headline's. The headline's
+    comparison pass runs first and counts apart. Returns the project's
+    (asset list, space asset, video stream) and the launches of the
+    checked pass."""
+    import torch
+
+    from canvas_tpu_torch import timelines
+    from canvas_tpu_torch.backend import cuda_ms
+    from canvas_tpu_torch.render import (RenderPlanner, params_to_torch, run,
+                                         signature)
+
+    dev = torch.device('cuda')
+    start, stop, batch = 128, 512, 128
+    _zero_launch_counts()
+    want = [(s, n, out.clone()) for s, n, out in
+            head.iter_batches(start, stop, batch=batch)]
+    head_seen = _launch_counts()
+    assets, space_asset = timelines.editor_headline(1024)
+    video = timelines.editor_video(space_asset)
+    planner = RenderPlanner(video, window)
+    planner.plan_cache_segments = 0     # cold, as phase 5
+    _zero_launch_counts()
+    got = [(s, n, out.clone()) for s, n, out in
+           planner.iter_batches(start, stop, batch=batch)]
+    seen = _launch_counts()
+    if [(s, n) for s, n, _o in got] != [(s, n) for s, n, _o in want]:
+        raise AssertionError('editor headline batches %r, headline %r' % (
+            [(s, n) for s, n, _o in got], [(s, n) for s, n, _o in want]))
+    for (s, _n, g), (_s, _n2, w) in zip(got, want):
+        if g.dtype != torch.float16 or not torch.equal(g, w):
+            raise AssertionError('editor headline batch at %d differs from '
+                                 'the headline by %r' % (
+                                     s, float((g.float() - w.float())
+                                              .abs().max())))
+    n_batches = len(got)
+    per_batch = dict.fromkeys(seen, 0)
+    per_batch.update(solid_fold=2 * n_batches,
+                     region_over_sep=2 * n_batches)
+    if seen != head_seen or seen != per_batch:
+        raise AssertionError('editor headline launches %r, headline %r'
+                             % (seen, head_seen))
+    del got, want
+    segs = planner.segments(start, stop, min_span=batch)
+    if segs != head.segments(start, stop, min_span=batch):
+        raise AssertionError('editor headline segments %r' % (segs,))
+    plan_ms = {'editor': [], 'headline': []}
+    for seg in segs:
+        sigs = []
+        for key, p in (('editor', planner), ('headline', head)):
+            t0 = time.perf_counter()
+            node = p._plan(seg)
+            plan_ms[key].append((time.perf_counter() - t0) * 1e3)
+            sigs.append(signature(node))
+        if sigs[0] != sigs[1]:
+            raise AssertionError('editor headline segment %r plans another '
+                                 'signature' % (seg,))
+    _stream_wall(planner, start, stop, batch)
+    walls = [_stream_wall(planner, start, stop, batch) for _rep in range(3)]
+    wall = min(walls)
+    work = []
+    for seg in segs:
+        _s0, sig, batches = planner._prepare(seg, batch)
+        work += [(sig, params_to_torch(pl, dev)) for _p, _t, pl in batches]
+    torch.cuda.synchronize()
+    busy = cuda_ms(lambda: [run(sg, tp, dev) for sg, tp in work], 3)
+    del work
+    print('phase 13a editor headline: editor_headline(1024) frames %d..%d '
+          'via iter_batches(batch=%d), plan cache off: %d batches bit-equal '
+          'to phase 5\'s planner over build_timeline(1024) (max diff 0), '
+          'launches %s beside the headline\'s %s (1 mid fold + 1 finalize + '
+          '2 region_over_sep a batch), the same plan signature on segments '
+          '%s %s' % (start, stop - 1, batch, n_batches, json.dumps(seen),
+                     json.dumps(head_seen), segs, tag), flush=True)
+    print('phase 13a editor headline timing: %.1f fps cold (best of 3 after '
+          'one warm pass; walls %s s) beside phase 5\'s '
+          '1080p_10layer_composite_fps_per_chip %.1f; device busy %.3f ms of '
+          '%.3f ms wall (phase 5 %.3f ms), device idle share %.3f (phase 5 '
+          '%.3f); planning ms per segment %s beside the headline\'s %s %s'
+          % ((stop - start) / wall, ', '.join('%.4f' % w for w in walls),
+             p5['fps'], busy, wall * 1e3, p5['busy_ms'],
+             1.0 - busy / (wall * 1e3), p5['idle'],
+             ', '.join('%.2f' % m for m in plan_ms['editor']),
+             ', '.join('%.2f' % m for m in plan_ms['headline']), tag),
+          flush=True)
+    planner.close()
+    return assets, space_asset, video, seen
+
+
+def _editor_edit(tag, window, space_asset, video):
+    """Phase 13(b): an undoable edit on the card, plan cache on. A first
+    pass over frames 0..511 (batch 128); AdjustClipLengthCommand trims
+    the white strip's clip to 300 frames (dirty range [300, 1023]): the
+    next pass plans again no segment that ends at or before frame 300,
+    and its frames 299 and 300 are within 2e-3 of the edited project's
+    NumPy pull; undo(), and frames 128..511 are bit-equal to the first
+    pass's. Returns the launches of the three passes."""
+    import numpy as np
+    import torch
+
+    from canvas_tpu_torch.editor import model
+    from canvas_tpu_torch.render import RenderPlanner
+
+    start, stop, batch = 0, 512, 128
+    planner = RenderPlanner(video, window)
+    planned = []
+    plan_context = planner._plan_context
+
+    def counting_context(seg):
+        planned.append(seg)
+        return plan_context(seg)
+
+    planner._plan_context = counting_context
+    _zero_launch_counts()
+
+    def one_pass(keep):
+        planned.clear()
+        out = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s, n, o in planner.iter_batches(start, stop, batch=batch):
+            if keep(s, n):
+                out.append((s, n, o.clone()))
+        torch.cuda.synchronize()
+        return out, list(planned), time.perf_counter() - t0
+
+    first, first_planned, first_wall = one_pass(lambda s, n: s + n > 128)
+    strip = next(it for it in space_asset.space
+                 if it.source.asset_path == 'strip')
+    stack = model.UndoStack()
+    stack.push(model.AdjustClipLengthCommand(strip, 300 - strip.length))
+    edited, again, edited_wall = one_pass(
+        lambda s, n: s <= 300 and s + n > 299)
+    # the first pass's segments that end at or before frame 300 hold no
+    # dirty frame: none may plan again (the trim adds a cut at 300, so
+    # the segment that now ends there is new and plans once)
+    early = [sg for sg in first_planned if sg[1] <= 300]
+    if set(early) & set(again) or not again or not early:
+        raise AssertionError('after the trim the planner planned %r again '
+                             '(first pass %r)' % (again, first_planned))
+    errs = {}
+    for f in (299, 300):
+        s, n, out = next(b for b in edited if b[0] <= f < b[0] + b[1])
+        got = out[f - s].float().cpu().numpy()
+        want = np.asarray(video.get_frame_f16(f, window).data, np.float32)
+        errs[f] = float(np.abs(got - want).max())
+        if not np.isfinite(got).all() or errs[f] > 2e-3:
+            raise AssertionError('edited frame %d differs from the pull path '
+                                 'by %r' % (f, errs[f]))
+    del edited
+    stack.undo()
+    back, back_planned, back_wall = one_pass(lambda s, n: s + n > 128)
+    seen = _launch_counts()
+    if [(s, n) for s, n, _o in back] != [(s, n) for s, n, _o in first]:
+        raise AssertionError('after undo the batches are %r' % (
+            [(s, n) for s, n, _o in back],))
+    for (s, n, g), (_s, _n, w) in zip(back, first):
+        lo = max(128 - s, 0)
+        if not torch.equal(g[lo:n], w[lo:n]):
+            raise AssertionError('after undo the batch at %d differs from '
+                                 'the first pass' % s)
+    print('phase 13b undoable edit, plan cache on: first pass over frames '
+          '%d..%d %.4f s (segments planned %s); AdjustClipLengthCommand '
+          'trims the strip to 300 frames: %.4f s, segments planned %s (none '
+          'of the first pass\'s that end at or before frame 300), frames '
+          '299 and 300 vs the '
+          'edited project\'s NumPy pull max diff %.3g and %.3g (atol 2e-3); '
+          'undo(): %.4f s, segments planned %s, frames 128..511 bit-equal to '
+          'the first pass %s'
+          % (start, stop - 1, first_wall, first_planned, edited_wall, again,
+             errs[299], errs[300], back_wall, back_planned, tag), flush=True)
+    planner.close()
+    return seen
+
+
+def _editor_cut(tag, window, c7):
+    """Phase 13(c): ``editor_cut(256)`` (a Sequence of three DV clips
+    with two 12-frame crossfades between the headline's background and
+    white strip), frames 0..127 via iter_batches(batch=16), cold (no
+    stage cache, so no plan cache): region_over must launch; frames 0,
+    58 (in a crossfade), 70 and 110 against the NumPy pull path with
+    phase 6's gate; then cold fps, device busy time and idle share, and
+    device time per batch beside phase 7's config7. Returns the launches
+    of the checked pass."""
+    import torch
+
+    from canvas_tpu_torch import timelines
+    from canvas_tpu_torch.render import RenderPlanner
+
+    video = timelines.editor_video(timelines.editor_cut(256)[1])
+    frames = (0, 58, 70, 110)
+    planner = RenderPlanner(video, window)
+    planner.stage_cache_mb = 0
+    _zero_launch_counts()
+    picked = _stream_checked('editor cut', planner, 0, 128, 16, frames)
+    seen = _launch_counts()
+    ro = seen['region_over']
+    if ro <= 0:
+        raise AssertionError('the editor cut launched no region_over')
+    vs = _vs_pull('editor cut', picked, _pull_stack(video, window, frames))
+
+    def make():
+        return RenderPlanner(video, window)
+
+    fps, walls, busy, idle, work = _cold_fps(make, 0, 128, 16)
+    print('phase 13c editor cut: editor_cut(256) frames 0..127 via '
+          'iter_batches(batch=16), stage and plan cache off; region_over '
+          'launches %d; vs the NumPy pull path %s (atol 1e-2, >= 0.99); '
+          '%.1f fps cold (best of 3; walls %s s) beside phase 7\'s '
+          'config7_mixed_content_10layer_fps %.1f; device busy %.3f ms, '
+          '%.3f ms a batch of 16 (config7 %.3f), device idle share %.3f '
+          '(config7 %.3f) %s'
+          % (ro, ', '.join('frame %d max diff %.3g (%.5f bit-equal)'
+                           % ((i,) + vs[i]) for i in frames),
+             fps, ', '.join('%.4f' % w for w in walls), c7['fps'], busy,
+             busy / len(work), c7['busy_ms'] / c7['batches'], idle,
+             c7['idle'], tag), flush=True)
+    del work
+    torch.cuda.empty_cache()
+    return seen
+
+
+def _editor_scrub(tag, window, video, p10):
+    """Phase 13(d): render_display of the headline project's stream,
+    rgb24 at full size: warm p50 and p95 over frames 1..63 of a cached
+    segment beside phase 10's headline numbers; frames 0 and 130 against
+    a device='cpu' planner's pull (at most 1 on at most 0.1% of u8
+    values). Returns the launches of the card's pulls."""
+    import numpy as np
+
+    from canvas_tpu_torch.render import RenderPlanner
+
+    planner = RenderPlanner(video, window)
+    kw = dict(transport='rgb24', intent=1.25, display_size=None)
+    _zero_launch_counts()
+    planner.render_display(1, **kw)
+
+    def pull(i):
+        t0 = time.perf_counter()
+        planner.render_display(i, **kw)
+        return (time.perf_counter() - t0) * 1e3
+
+    warm = [pull(i) for i in range(1, 64)]
+    cpu = RenderPlanner(video, window, device='cpu')
+    agree = {}
+    for f in (0, 130):
+        got = planner.render_display(f, **kw).astype(np.int32)
+        if f == 130:
+            seen = _launch_counts()
+        want = cpu.render_display(f, **kw).astype(np.int32)
+        if got.shape != (window.height, window.width, 4) or \
+                want.shape != got.shape:
+            raise AssertionError('editor scrub frame %d: %s vs %s'
+                                 % (f, got.shape, want.shape))
+        d = np.abs(got - want)
+        agree[f] = (int(d.max()), float(np.mean(d != 0)))
+        if agree[f][0] > 1 or agree[f][1] > 1e-3:
+            raise AssertionError('editor scrub frame %d differs from the CPU '
+                                 'by %r' % (f, agree[f]))
+    print('phase 13d editor scrub: render_display rgb24 %dx%d of the '
+          'headline project: warm p50 %.3f p95 %.3f ms (frames 1..63, '
+          'segment cached; host clock) beside phase 10\'s headline p50 %.3f '
+          'p95 %.3f; frames 0 and 130 vs a device=\'cpu\' planner %s (at '
+          'most 1 on at most 0.1%% of u8 values) %s'
+          % (window.width, window.height, float(np.percentile(warm, 50)),
+             float(np.percentile(warm, 95)), p10[0], p10[1], ', '.join(
+                 'frame %d max |diff| %d on %.3g' % ((f,) + agree[f])
+                 for f in sorted(agree)), tag), flush=True)
+    planner.close()
+    cpu.close()
+    return seen
+
+
+def _u8_linearize_on_card(tag, window):
+    """Phase 13(e): a seeded (8, 1080, 1920, 4) u8 batch through the
+    port's _eval on a ``u8_linearize`` node, on the card and on the CPU,
+    bit-equal; its device time beside its byte floor (4 B/px in, 8 out:
+    the planar f16-valued frames the planner keeps)."""
+    import numpy as np
+    import torch
+
+    from canvas_tpu_torch.backend import cuda_ms
+    from canvas_tpu_torch.ir import Node, tile_window
+    from canvas_tpu_torch.render import (_eval, flat_params, params_to_torch,
+                                         signature)
+
+    dev, cpu = torch.device('cuda'), torch.device('cpu')
+    B, H, W = 8, window.height, window.width
+    rng = np.random.default_rng(SEED + 13)
+    node = Node('u8_linearize', params={
+        'data': rng.integers(0, 256, (B, H, W, 4), dtype=np.uint8)},
+        windows=tile_window(window, B))
+    sig = signature(node)
+    on_card = params_to_torch(flat_params(node), dev)
+    got = _eval(sig, iter(on_card), dev)
+    want = _eval(sig, iter(params_to_torch(flat_params(node), cpu)), cpu)
+    err = float((got.cpu() - want).abs().max())
+    if got.shape != (B, 4, H, W) or err != 0.0:
+        raise AssertionError('u8_linearize on the card differs from the CPU '
+                             'by %r (%s)' % (err, tuple(got.shape)))
+    ms = cuda_ms(lambda: _eval(sig, iter(on_card), dev), 5)
+    floor = _bound(12 * B * H * W, 0)[0]
+    print('phase 13e u8_linearize: (%d, %d, %d, 4) u8 -> (%d, 4, %d, %d) on '
+          'the card, max diff vs the CPU %r (must be 0); %.4f ms on the card '
+          'beside a byte floor of %.4f ms (12 B/px, %.1f MB, time / floor '
+          '%.1f) %s' % (B, H, W, B, H, W, err, ms, floor, 12 * B * H * W / 1e6,
+                        ms / floor, tag), flush=True)
+
+
+def _editor(tag, window, head, earlier):
+    """Phase 13, the editor on the card. Each of its passes (a)'s checked
+    pass after the headline's comparison pass, (b)'s three passes, (c)'s
+    checked pass and (d)'s pulls on the card, runs with the launch
+    counters set to 0 just before it and read just after; their sum is
+    the editor path's launches, which this returns. *earlier* holds the
+    numbers printed beside phase 13's: phase 5's and config7's fps,
+    device busy ms, batches and idle share, and phase 10's full-size
+    latencies."""
+    import torch
+
+    assets, space_asset, video, seen = _editor_headline(
+        tag, window, head, earlier['phase5'])
+    parts = [seen]
+    torch.cuda.empty_cache()
+    parts.append(_editor_edit(tag, window, space_asset, video))
+    torch.cuda.empty_cache()
+    parts.append(_editor_cut(tag, window, earlier['config7']))
+    parts.append(_editor_scrub(tag, window, video, earlier['display']))
+    launches = {k: sum(p[k] for p in parts) for k in parts[0]}
+    torch.cuda.empty_cache()
+    _u8_linearize_on_card(tag, window)
+    print('phase 13 not driven: the libav plugin\'s file import (the card\'s '
+          'machine has no FFmpeg development files to build '
+          'native/canvas_av.cpp against; ROADMAP.md queue 1) %s' % tag,
+          flush=True)
+    print('phase 13 editor path: launches %s (a) %s, (b) %s, (c) %s, (d) %s '
+          '%s' % ((json.dumps(launches),) + tuple(json.dumps(p)
+                                                   for p in parts) + (tag,)),
+          flush=True)
+    if min(launches[k] for k in _RENDER_KERNELS) <= 0:
+        raise AssertionError('the editor path did not launch every render '
+                             'kernel: %r' % launches)
+    del assets
     return launches
 
 
@@ -2141,6 +2529,7 @@ def main():
 
     busy_ms = cuda_ms(replay, 3)
     idle = 1.0 - busy_ms / (wall * 1e3)
+    phase5 = dict(fps=fps, busy_ms=busy_ms, batches=len(work), idle=idle)
     print('phase 5 timing: 1080p_10layer_composite_fps_per_chip %.1f '
           '(best of 3 cold passes over frames %d..%d, batch %d, plan cache '
           'off; walls %s s); device busy %.3f ms of %.3f ms wall, device '
@@ -2169,7 +2558,8 @@ def main():
 
     # 6-7. the mixed-content path
     mixed, mixed_launches = _mixed_slice(tag, window)
-    err_ro_path, ro_ms, ro_plain_ms, ro_bound, ro_by = _mixed_timing(
+    (err_ro_path, ro_ms, ro_plain_ms, ro_bound, ro_by,
+     config7) = _mixed_timing(
         tag, mixed, window)
 
     # 8. the fold studies and the roofline probe
@@ -2183,7 +2573,7 @@ def main():
 
     # 10. the editor's display path
     torch.cuda.empty_cache()
-    display_launches, bf16 = _display_path(tag, window)
+    display_launches, bf16, latency = _display_path(tag, window)
 
     # 11. coded video and replay
     torch.cuda.empty_cache()
@@ -2193,9 +2583,15 @@ def main():
     torch.cuda.empty_cache()
     export_launches = _export_4k(tag)
 
+    # 13. the editor on the card; phase 5's planner is the headline its
+    # headline project is held to
+    torch.cuda.empty_cache()
+    editor_launches = _editor(tag, window, planner, dict(
+        phase5=phase5, config7=config7, display=latency[None]))
+
     total = {k: (launches[k] + mixed_launches[k] + post_launches[k]
                  + display_launches[k] + replay_launches[k]
-                 + export_launches[k])
+                 + export_launches[k] + editor_launches[k])
              for k in mixed_launches}
     fold_bound, fold_by = _bound(fold_bytes, fold_ops)
     reg_bound, reg_by = _bound(reg_bytes, reg_ops)

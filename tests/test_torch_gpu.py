@@ -743,3 +743,34 @@ def test_4k_yuv420_batch_on_card_matches_cpu(cuda):
     diff = (got.cpu().int() - want.int()).abs()
     assert int(diff.max()) <= 1 and float((diff != 0).float().mean()) <= 1e-3
 
+
+@pytest.mark.gpu
+def test_editor_headline_on_card_matches_headline(cuda):
+    """The editor's headline project (ten Clips in ten lanes of a Space,
+    through the editor's graph managers) at 640x360, batch 8, on the
+    card: bit-equal to build_timeline's batches on the same card, with
+    the headline's launches, one solid_fold mid fold, one finalize and
+    two region_over_sep a batch."""
+    from canvas_tpu_torch import timelines
+    from canvas_tpu_torch.render import RenderPlanner, box2i
+    window = box2i(0, 0, 639, 359)
+    video = timelines.editor_video(timelines.editor_headline(64)[1])
+    planners = [RenderPlanner(src, window)
+                for src in (video, timelines.build_timeline(64))]
+    outs, counts = [], []
+    for planner in planners:
+        planner.plan_cache_segments = 0
+        before = (co.solid_fold.launches, co.region_over_sep.launches,
+                  co.region_over.launches)
+        outs.append([(s, n, out.clone()) for s, n, out in
+                     planner.iter_batches(8, 40, batch=8)])
+        torch.cuda.synchronize()
+        counts.append(tuple(after - b for after, b in zip(
+            (co.solid_fold.launches, co.region_over_sep.launches,
+             co.region_over.launches), before)))
+    assert [(s, n) for s, n, _o in outs[0]] == [(8, 8), (16, 8), (24, 8),
+                                                (32, 8)]
+    for (s, n, got), (s2, n2, want) in zip(*outs):
+        assert (s, n) == (s2, n2) and got.dtype == torch.float16
+        assert torch.equal(got, want), s
+    assert counts[0] == counts[1] == (2 * 4, 2 * 4, 0)

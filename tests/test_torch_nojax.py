@@ -15,9 +15,13 @@ display frames (``render_display``, and a playback engine's
 audio, decodes it with ``AVVideoDecoder`` and renders a batch of
 ``timelines.decoded_planar_clip`` (the port's own build of the native
 library, and its ``audio``, ``x264``, ``faac``, ``libdv``, ``formats``,
-``timecode`` and ``matroska`` imported); and nothing it runs even tries such an
-import (a refused attempt could be swallowed by an optional-import
-probe, so attempts are recorded)."""
+``timecode`` and ``matroska`` imported), loads the editor's plugins (the
+port's ``libav.plugin``), renders the editor's headline project (equal to
+the headline) and its cut, imports the written file through the libav
+plugin into an edited, saved and reloaded project, and renders its
+decoder's RGBA through ``u8_linearize``; and nothing it runs even tries
+such an import (a refused attempt could be swallowed by an
+optional-import probe, so attempts are recorded)."""
 
 import os
 import subprocess
@@ -154,6 +158,53 @@ SCRIPT = textwrap.dedent('''
     assert n == 4 and tuple(out.shape) == (4, 4, 96, 160)
     assert bool(torch.isfinite(out).all()) and float(out[:, 3].min()) == 1.0
     assert float(out[3, 0].mean()) > float(out[0, 0].mean())
+
+    from canvas_tpu_torch import ezlist, logging, sortlist
+    from canvas_tpu_torch.editor import (graph, model, plugins, settings,
+                                         yamlio)
+    from canvas_tpu_torch.editor.plugins import libav_plugin
+    settings.set_settings_path(None)
+    plugins.PluginManager.load_all()
+    assert [m.module for m in plugins.PluginManager.plugin_modules] == [
+        libav_plugin]
+    for p in plugins.PluginManager.find_plugins(enabled_only=False):
+        plugins.PluginManager.set_plugin_enabled(p, True)
+    small = box2i(0, 0, 95, 63)
+    _assets, head = timelines.editor_headline(16)
+    video = timelines.editor_video(head)
+    assert isinstance(video, graph.SpaceVideoManager)
+    ed = RenderPlanner(video, small, device='cpu').render(0, 2)
+    assert (ed == RenderPlanner(timelines.build_timeline(16), small,
+                                device='cpu').render(0, 2)).all()
+    cut = RenderPlanner(timelines.editor_video(timelines.editor_cut(128)[1]),
+                        small, device='cpu')
+    cut.stage_cache_mb = 0
+    assert np.isfinite(cut.render(57, 59)).all()
+    src = libav_plugin.LibavSourcePlugin.create_source_from_file('h', path)
+    assets = model.AssetList()
+    assets['h'] = model.PluginSourceAsset(
+        'h', libav_plugin.LibavSourcePlugin.plugin_urn, src.get_definition())
+    space = model.Space('s', plugins.VideoFormat(
+        full_frame=box2i(0, 0, 319, 179), frame_rate=25),
+        plugins.AudioFormat(sample_rate=48000))
+    assets['s'] = model.SpaceAsset(space, name='s')
+    stack = model.UndoStack()
+    clip = model.Clip(type='video', x=0, y=0.0, length=12, height=1.0,
+                      source=model.AssetStreamRef('h', '0'), offset=0)
+    stack.push(model.InsertItemCommand(space, clip, 0))
+    stack.push(model.AdjustClipLengthCommand(clip, -4))
+    edited = timelines.editor_video(assets['s'])
+    assert edited.get_frame_f16(9, box2i(0, 0, 319, 179)) \
+        .current_window.empty()
+    assert not edited.get_frame_f16(5, box2i(0, 0, 319, 179)) \
+        .current_window.empty()
+    project = yamlio.load(yamlio.dump(model.Project(assets=assets)))
+    project.fixup()
+    assert len(project.assets['s'].space) == 1
+    rgba = RenderPlanner(libav_plugin._RgbaDecoderSource(
+        libav.AVVideoDecoder(path), 320, 180), box2i(0, 0, 319, 179),
+        device='cpu').render(0, 2)
+    assert rgba.shape == (2, 4, 180, 320) and (rgba[:, 3] == 1.0).all()
 
     loaded = sorted(m for m in sys.modules if m.split('.')[0] in REFUSED)
     assert not loaded, loaded

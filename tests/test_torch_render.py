@@ -184,9 +184,11 @@ def test_params_to_torch(timeline, ref_timeline):
 
 
 def test_out_of_slice_op_raises():
-    """The ops left for later slices (no source of the port plans one)
-    raise, naming the ROADMAP item that brings each."""
-    for op in ('u8_linearize', 'solid_cells'):
+    """The op the port leaves out (no source of the port plans it)
+    raises, naming the ROADMAP item that says why; u8_linearize, the
+    last op a later slice brought, evaluates
+    (tests/test_torch_editor_plugins.py)."""
+    for op in ('solid_cells',):
         with pytest.raises(NotImplementedError, match=repr(op) + '.*ROADMAP'):
             port._eval((op, (), (), ()), iter([{}]), CPU)
     with pytest.raises(ValueError, match='unknown op'):

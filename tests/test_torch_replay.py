@@ -428,7 +428,12 @@ def test_hbm_footprint_guard(monkeypatch, caplog):
     monkeypatch.setenv('CANVAS_HBM_MB', str(est_mb * 0.9))
     _s, n, _out = next(planner.iter_batches(0, 8, batch=8, max_inflight=1))
     assert n == 8
-    # a u8 post retains less per pixel: (3 * 4 + 16) / 40 of the estimate
+    # a u8 post retains less per pixel but adds its 72 B/px working set:
+    # (3 * 4 + 16 + 72) / 40 of the estimate, refused under this budget
+    # and let through under one that holds it
+    with pytest.raises(ValueError, match="bgra_u8 post's working set"):
+        next(planner.iter_batches(0, 8, batch=8, post='bgra_u8'))
+    monkeypatch.setenv('CANVAS_HBM_MB', str(est_mb * 100 / 40 * 1.1))
     _s, n, _out = next(planner.iter_batches(0, 8, batch=8, post='bgra_u8'))
     assert n == 8
 
@@ -490,17 +495,24 @@ def test_hbm_footprint_guard_cumulative_render(monkeypatch):
     planner.close()
 
 
+#: A post's working set at its level gather: the f16 frame (8), the
+#: int32 bits (16), the int64 indices (32) and the f32 levels (16).
+_POST_BPP = 8 + 16 + 32 + 16
+
+
 @pytest.mark.parametrize('post, max_inflight, want_bpp, want_depth', [
     (None, None, 3 * 8 + 16, 3),
-    ('rgba_u8', None, 3 * 4 + 16, 3),
-    ('bgra_u8', 2, 2 * 4 + 16, 2),
-    ('yuv420', 0, 3 * 1.5 + 16, 3),
+    ('rgba_u8', None, 3 * 4 + 16 + _POST_BPP, 3),
+    ('bgra_u8', 2, 2 * 4 + 16 + _POST_BPP, 2),
+    ('yuv420', 0, 3 * 1.5 + 16 + _POST_BPP, 3),
     (None, 1, 1 * 8 + 16, 1),
+    ('bgra_u8', None, 3 * 4 + 16 + _POST_BPP, 3),
 ])
 def test_hbm_estimate_per_post(post, max_inflight, want_bpp, want_depth):
     """The one model the guard refuses by (and chip_smoke prints): depth
-    retained outputs of 8 / 4 / 1.5 B/px by post plus a 16 B/px working
-    stack, exact in bytes."""
+    retained outputs of 8 / 4 / 1.5 B/px by post, a 16 B/px working
+    stack and, with a post, its 72 B/px working set term by term, exact
+    in bytes."""
     window = box2i(0, 0, 3839, 2159)
     est, depth = port._hbm_estimate_bytes(8, window, post, max_inflight)
     assert depth == want_depth
@@ -508,6 +520,11 @@ def test_hbm_estimate_per_post(post, max_inflight, want_bpp, want_depth):
     assert port._hbm_estimate_bytes(8, window, post, max_inflight,
                                     working_bpp=0)[0] == \
         int((want_bpp - 16) * 8 * 3840 * 2160)
+    terms = dict(port.POST_WORKING_BPP.get(post, ()))
+    assert sum(terms.values()) == (_POST_BPP if post else 0)
+    if post:
+        assert terms == {'f16 frame': 8, 'int32 bits': 16,
+                         'int64 indices': 32, 'f32 levels': 16}
 
 
 def test_hbm_budget_is_the_cards_total(monkeypatch):
