@@ -19,6 +19,13 @@ CPU tensors. There is no host NumPy branch and no fallback.
 
 The display sink is any callable ``present(frame_index, bgra_u8)`` where
 bgra_u8 is an (H, W, 4) uint8 BGRA array.
+
+One deliberate difference from the JAX package's engine: when an edit
+(``frames_updated``) or a display change (quality, viewport, intent,
+window, source) drops the frame under the playhead, the render thread
+presents it again once re-rendered, also while paused. The JAX engine
+presents an index once, so a paused preview there keeps the stale frame
+(an edit's, or a scrub's quality-4 one) until the playhead moves.
 """
 
 import atexit
@@ -134,6 +141,10 @@ class VideoPlaybackEngine:
         self._wake = threading.Event()
         self._quit = False
         self._cache = {}            # frame_index -> u8 BGRA array
+        #: Bumped whenever ring entries are dropped (an edit, a seek, a
+        #: display-state change): the render thread presents the frame
+        #: under a paused playhead again once it is re-rendered.
+        self._ring_gen = 0
         self._clock_handle = self.clock.register_callback(
             self._clock_changed, None)
         # Live editor streams publish frames_updated(stream, lo, hi) when
@@ -189,20 +200,31 @@ class VideoPlaybackEngine:
         playhead = getattr(self, '_playhead', None)
         if playhead is None or abs(frame - playhead) > max(self.batch, 4):
             with self._lock:
-                self._cache.clear()
+                self._drop_ring()
         self._wake.set()
+
+    def _drop_ring(self, keys=None):
+        """Drop ring entries *keys* (all when None); the caller holds
+        ``_lock``."""
+        if keys is None:
+            self._cache.clear()
+        elif not keys:
+            return
+        else:
+            for key in keys:
+                del self._cache[key]
+        self._ring_gen += 1
 
     def _frames_updated(self, *args):
         # Accept (lo, hi) or (stream, lo, hi); None bounds = everything
         lo, hi = args[-2], args[-1]
         with self._lock:
             if lo is None and hi is None:
-                self._cache.clear()
+                self._drop_ring()
             else:
                 lo = -10**12 if lo is None else lo
                 hi = 10**12 if hi is None else hi
-                for key in [k for k in self._cache if lo <= k <= hi]:
-                    del self._cache[key]
+                self._drop_ring([k for k in self._cache if lo <= k <= hi])
         self._wake.set()
 
     # -- display semantics (widget_gl.c:818-969) --------------------------
@@ -216,7 +238,7 @@ class VideoPlaybackEngine:
         (widget_gl_set_display_window)."""
         with self._lock:
             self.window = box2i(window)
-            self._cache.clear()
+            self._drop_ring()
             # Re-clamp the viewport against the NEW window: a stored
             # viewport larger than a shrunk window would upscale on
             # device and fetch more bytes than full frames.
@@ -259,7 +281,7 @@ class VideoPlaybackEngine:
             return
         self._rendering_intent = intent
         with self._lock:
-            self._cache.clear()
+            self._drop_ring()
         self._wake.set()
 
     def warm(self, frame=0):
@@ -335,7 +357,7 @@ class VideoPlaybackEngine:
                 planner.set_quality(quality)
         with self._lock:
             self._quality = quality
-            self._cache.clear()
+            self._drop_ring()
         self._wake.set()
 
     def set_viewport(self, size):
@@ -357,7 +379,7 @@ class VideoPlaybackEngine:
             if size == self._viewport:
                 return
             self._viewport = size
-            self._cache.clear()
+            self._drop_ring()
         self._wake.set()
 
     def _render_batch(self, start, stop):
@@ -443,7 +465,7 @@ class VideoPlaybackEngine:
         old = getattr(self, 'source', None)
         with self._lock:
             self.source = source
-            self._cache.clear()
+            self._drop_ring()
         old_updated = getattr(old, 'frames_updated', None)
         if old_updated is not None:
             try:
@@ -517,9 +539,10 @@ class VideoPlaybackEngine:
 
             with self._lock:
                 frame = self._cache.get(current)
-            if frame is not None and current != last_presented:
+                shown = (current, self._ring_gen)
+            if frame is not None and shown != last_presented:
                 self.present(current, frame)
-                last_presented = current
+                last_presented = shown
 
             if speed == 0:
                 self._wake.wait()

@@ -11,7 +11,8 @@ the roofline probe, then the headline's export conversions, then the
 editor's display path (``render_display``, the quality <= 9 tier and the
 playback engine), then coded video and the plan cache's replays, then
 the export path at 4K, then the editor's projects through its graph
-managers. Each phase prints one line or more; any failure raises
+managers, then an editor session through its UI layer. Each phase
+prints one line or more; any failure raises
 (traceback, nonzero exit, no result line):
 
 1. card: nvidia-smi's name and power limit, torch's device name;
@@ -144,11 +145,37 @@ managers. Each phase prints one line or more; any failure raises
    against a CPU planner (at most 1 on at most 0.1%); (e) ``u8_linearize``
    (the libav plugin's RGBA decode op) on a seeded (8, 1080, 1920, 4)
    batch bit-equal to the CPU, its time beside its byte floor. The
-   libav plugin's file import is not driven (no FFmpeg there).
+   libav plugin's file import is not driven (no FFmpeg there);
+14. an editor session through the UI layer (``canvas_tpu_torch.editor.ui``)
+   at 1080p: (a) an ``EditorApp`` whose clock is its ``AudioPlayer``
+   (audio-master, a ``NullSink`` at 48 kHz) over
+   ``editor_headline(1024)`` plus a seeded tone added with
+   ``add_asset_to_space``; its space's playback engine
+   (``start_playback``, batch 4, 25 fps) warmed and played 3 s: presented
+   against the ideal count, skipped, mean batch ms, the samples the sink
+   consumed (at least 80% of 3 s) and its peak (the tone's level), the
+   presentation time advanced, the launches; presented indices must
+   increase, at least half the ideal frames show, no batch fails, and two
+   presented frames are u8-equal to a ``device='cpu'`` engine's; (b) 8
+   thumbnails (160x90 of [0, 1024), B=1 planned pulls through a
+   ``VideoPullQueue`` on the card) alone and while the engine plays
+   (three threads rendering on the card): ms to the last delivery, ms
+   each, segments planned, launches, each u8-equal to the CPU's; (c)
+   ``paint_timeline(1280, 240)`` with those thumbnails u8-equal to a CPU
+   app's, its ms; (d) a ``DragController`` drag moves the white strip by
+   +40 frames while paused: the segments the engine plans again (inside
+   the edit's ``frames_updated`` ranges), the paused frame presented
+   again, frames 20 and 1030 u8-equal to the CPU's after the drag and
+   bit-equal to before it after ``undo()``; (e) 8 thumbnails of
+   ``editor_cut(256)``: region_over launches and no solid_fold, each
+   within 1 u8 step of the CPU's on at most 0.1% of values. ``RenderJob``
+   and ``EditorApp.import_file`` reach libav (no FFmpeg there): CPU
+   tests only.
 
 Each path (the headline, the mixed timeline, the studies' timing runs,
 the export posts, the display path, the coded composite, the replays,
-each post's checked pass of the 4K export and the editor's passes) runs
+each post's checked pass of the 4K export, the editor's passes and the
+editor session's) runs
 with every launch counter set to 0 just before it and read just after;
 the kernels line
 reports each kernel's launches in those runs, its time, its plain
@@ -1290,7 +1317,6 @@ def _playback(tag, ws, window):
     increase, if fewer than half of the ideal frames were presented, or
     if the engine logged a failed batch. Returns [(label, presented,
     ideal, skipped, batches, mean batch ms)]."""
-    import logging
     from fractions import Fraction
 
     import numpy as np
@@ -1313,21 +1339,10 @@ def _playback(tag, ws, window):
             finally:
                 self.batch_ms.append((time.perf_counter() - t0) * 1e3)
 
-    class Failures(logging.Handler):
-        def __init__(self):
-            super().__init__()
-            self.seen = []
-
-        def emit(self, record):
-            if 'render batch failed' in record.getMessage():
-                self.seen.append(record)
-
     rate, seconds = Fraction(60, 1), 3.0
-    failures = Failures()
-    logger = logging.getLogger('canvas_tpu_torch.playback')
-    logger.addHandler(failures)
     out = []
-    try:
+    with _Warnings('canvas_tpu_torch.playback',
+                   'render batch failed') as failures:
         for label, setup in (('full size', {}),
                              ('viewport %dx%d' % VIEWPORT,
                               {'set_viewport': VIEWPORT}),
@@ -1369,9 +1384,7 @@ def _playback(tag, ws, window):
                                      % (label, len(shown), ideal))
             if failures.seen:
                 raise AssertionError('playback %s: %s' % (
-                    label, failures.seen[0].getMessage()))
-    finally:
-        logger.removeHandler(failures)
+                    label, failures.seen[0]))
     return out
 
 
@@ -2333,6 +2346,536 @@ def _editor(tag, window, head, earlier):
     return launches
 
 
+#: Phase 14's editor session: the audio clock's rate, the play time, the
+#: thumbnails (count, size, the window they pull) and the edit's shift.
+SESSION_RATE = 48000
+SESSION_SECONDS = 3.0
+THUMBS = 8
+THUMB_SIZE = (160, 90)
+SESSION_SHIFT = 40
+
+
+class _Warnings:
+    """Collects the messages of *logger* that hold *text*, for
+    the duration of a ``with`` block."""
+
+    def __init__(self, logger, text):
+        import logging
+        self.logger = logging.getLogger(logger)
+        self.text = text
+        self.seen = []
+        handler = logging.Handler()
+        handler.emit = lambda record: (
+            self.seen.append(record.getMessage())
+            if text in record.getMessage() else None)
+        self._handler = handler
+
+    def __enter__(self):
+        self.logger.addHandler(self._handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self._handler)
+
+
+class _PullPlans:
+    """On the pull queue's worker threads ('canvas-pull*'), for the
+    duration of a ``with`` block: the ``RenderPlanner._plan`` calls
+    (the segments the thumbnails plan, apart from the playback
+    engine's) and the ms spent planning and in ``backend.to_host``
+    (the fetch of each rendered frame, which first waits for the
+    device to finish it)."""
+
+    def __enter__(self):
+        import threading
+
+        from canvas_tpu_torch import backend, render
+        self.count = 0
+        self.plan_ms = self.fetch_ms = 0.0
+        lock = threading.Lock()
+
+        def timed(fn, field):
+            def call(*args):
+                if not threading.current_thread().name.startswith(
+                        'canvas-pull'):
+                    return fn(*args)
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args)
+                finally:
+                    with lock:
+                        setattr(self, field, getattr(self, field)
+                                + (time.perf_counter() - t0) * 1e3)
+                        if field == 'plan_ms':
+                            self.count += 1
+            return call
+        self._undo = [(render.RenderPlanner, '_plan',
+                       render.RenderPlanner._plan),
+                      (backend, 'to_host', backend.to_host)]
+        render.RenderPlanner._plan = timed(render.RenderPlanner._plan,
+                                           'plan_ms')
+        backend.to_host = timed(backend.to_host, 'fetch_ms')
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in self._undo:
+            setattr(owner, name, orig)
+
+
+def _thumbnails(video, window, length, device, card):
+    """THUMBS thumbnails of *video* over [0, length) through a
+    ``ThumbnailPainter`` on a ``VideoPullQueue(device=device)``. Returns
+    (thumbnails, ms from the request to the last delivery, segments the
+    pulls planned, launches of the run when *card*, the median ms of a
+    pull (plan, render, fetch: a worker) and of a delivery (the NumPy
+    scale and gamma: the dispatch thread), and a pull's mean ms planning
+    and fetching). A failed pull raises (the queue logs it and delivers
+    None)."""
+    import numpy as np
+
+    from canvas_tpu_torch.editor.ui import ThumbnailPainter
+    from canvas_tpu_torch.pullqueue import VideoPullQueue
+
+    def timed(fn, into):
+        def call(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                into.append((time.perf_counter() - t0) * 1e3)
+        return call
+
+    pull_ms, deliver_ms = [], []
+    queue = VideoPullQueue(device=device)
+    queue._render = timed(queue._render, pull_ms)
+    try:
+        painter = ThumbnailPainter(video, window=window, size=THUMB_SIZE,
+                                   count=THUMBS, queue=queue)
+        painter._deliver = timed(painter._deliver, deliver_ms)
+        painter.set_range(0, length)
+        landed = {}
+        painter.thumbnail_ready.connect(
+            lambda slot, bgra: landed.__setitem__(slot, time.perf_counter()))
+        with _Warnings('canvas_tpu_torch.pullqueue', 'frame pull failed') \
+                as failed, _PullPlans() as plans:
+            if card:
+                _zero_launch_counts()
+            t0 = time.perf_counter()
+            painter.request_all()
+            deadline = t0 + 60.0
+            while (len(landed) < THUMBS and not failed.seen
+                   and time.perf_counter() < deadline):
+                time.sleep(0.002)
+            launches = _launch_counts() if card else None
+        if failed.seen or len(landed) < THUMBS:
+            raise AssertionError('thumbnails: %d of %d arrived in 60 s (%s)'
+                                 % (len(landed), THUMBS, failed.seen[:1]))
+        thumbs = [painter.thumbnail(s) for s in range(THUMBS)]
+        if any(t is None for t in thumbs):
+            raise AssertionError('a thumbnail is None')
+        return (thumbs, (max(landed.values()) - t0) * 1e3, plans.count,
+                launches, float(np.median(pull_ms)),
+                float(np.median(deliver_ms)), plans.plan_ms / THUMBS,
+                plans.fetch_ms / THUMBS)
+    finally:
+        queue.close()
+
+
+def _cpu_presented(video, rate, window, frames):
+    """{frame: BGRA} the playback engine presents on the CPU for each of
+    *frames*: a ``device='cpu'`` engine (batch 1) on a paused clock
+    seeked to each frame in turn."""
+    from canvas_tpu_torch.clock import SystemPresentationClock
+    from canvas_tpu_torch.playback import VideoPlaybackEngine
+    from canvas_tpu_torch.process import get_frame_time
+
+    seen = {}
+    clock = SystemPresentationClock()
+    clock.seek(get_frame_time(rate, frames[0]))
+    engine = VideoPlaybackEngine(video, clock, rate, window,
+                                 lambda i, f: seen.__setitem__(i, f),
+                                 batch=1, device='cpu')
+    try:
+        for i in frames:
+            clock.seek(get_frame_time(rate, i))
+            deadline = time.perf_counter() + 60.0
+            while i not in seen and time.perf_counter() < deadline:
+                time.sleep(0.005)
+            if i not in seen:
+                raise AssertionError('the CPU engine did not present frame %d'
+                                     % i)
+    finally:
+        engine.stop()
+    return seen
+
+
+def _u8_share(got, want):
+    """(largest |difference|, share of values that differ) of two u8
+    arrays."""
+    import numpy as np
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    return int(diff.max()), float((diff != 0).mean())
+
+
+def _session_audio(np_rng):
+    """A seeded tone as an editor asset (``RuntimeSourceAsset`` over the
+    port's audio sources, as tests/test_editor_ui.py:1086-1144 builds
+    one): its frequency and level drawn from *np_rng*."""
+    import numpy as np
+
+    from canvas_tpu_torch import audio
+    from canvas_tpu_torch.editor import model, plugins
+
+    freq = float(np_rng.uniform(220.0, 880.0))
+    level = float(np_rng.uniform(0.2, 0.5))
+
+    class Tone(audio.AudioSource):
+        def _render(self, frame):
+            t = np.arange(frame.full_min_sample,
+                          frame.full_max_sample + 1) / float(SESSION_RATE)
+            tone = level * np.sin(2.0 * np.pi * freq * t)
+            frame.data = np.repeat(tone[:, None], frame.channels,
+                                   axis=1).astype(np.float32)
+            frame.current_min_sample = frame.full_min_sample
+            frame.current_max_sample = frame.full_max_sample
+
+    stream = plugins.AudioStream(Tone(), range=(0, SESSION_RATE * 60),
+                                 name='audio')
+    return model.RuntimeSourceAsset(model.RuntimeSource('tone',
+                                                        {'audio': stream})), \
+        freq, level
+
+
+def _editor_session(tag, window, device=None):
+    """Phase 14: an editor session through the UI layer's entry points
+    (``canvas_tpu_torch.editor.ui``), on *device* (None: the card; the
+    CPU for a rehearsal, where nothing launches and the card-vs-CPU
+    checks compare the CPU with itself). Each counted pass ((a)'s play,
+    (b)'s thumbnails alone and beside playback, (d)'s edit, (e)'s
+    thumbnails) runs with the launch counters set to 0 just before it
+    and read just after; returns their sum."""
+    from fractions import Fraction
+
+    import numpy as np
+    import torch
+
+    from canvas_tpu_torch import timelines
+    from canvas_tpu_torch.audioout import NullSink
+    from canvas_tpu_torch.editor.ui import EditorApp
+    from canvas_tpu_torch.process import get_time_frame
+
+    card = device is None
+    started = time.perf_counter()
+    print('phase 14 editor session: EditorApp (audio-master clock, NullSink '
+          'at %d Hz) over editor_headline(1024) plus a seeded tone, its '
+          'playback engine, thumbnails through a VideoPullQueue while it '
+          'plays, paint_timeline, a drag through the scene model, the cut\'s '
+          'thumbnails; RenderJob and EditorApp.import_file reach libav, which '
+          'needs FFmpeg\'s development files that the card\'s machine lacks: '
+          'they run in the CPU tests only (tests/test_torch_editor_ui.py) %s'
+          % (SESSION_RATE, tag), flush=True)
+    parts = {}
+
+    class Sink(NullSink):
+        """The NullSink, counting what it consumed and its peak level."""
+
+        def __init__(self, rate):
+            NullSink.__init__(self, rate)
+            self.consumed = 0
+            self.peak = 0.0
+
+        def write(self, samples):
+            n = NullSink.write(self, samples)
+            self.consumed += n
+            if n:
+                self.peak = max(self.peak, float(np.abs(samples[:n]).max()))
+            return n
+
+    sink = Sink(SESSION_RATE)
+    app = EditorApp(load_plugins=False, audio_master=True,
+                    audio_rate=SESSION_RATE, audio_channels=2,
+                    audio_sink=sink, device=device)
+    engine = None
+    try:
+        assets, _space = timelines.editor_headline(1024)
+        app.set_asset_list(assets)
+        assets['tone'], freq, level = _session_audio(
+            np.random.default_rng(SEED + 14))
+        editor = app.open_space('headline')
+        app.add_asset_to_space(editor, 'tone', x=0, length=SESSION_RATE * 60)
+        if editor.undo_stack.count() != 1:
+            raise AssertionError('add_asset_to_space left %d undo entries'
+                                 % editor.undo_stack.count())
+        # re-open, as tests/test_editor_ui.py's audio-master test does:
+        # the clock takes the space's updated audio graph
+        editor = app.open_space('headline')
+        rate = Fraction(editor.space.video_format.frame_rate)
+        video = editor.video_stream
+
+        # (a) playback under the audio-master clock
+        presented, order, batch_ms = {}, [], []
+
+        def present(i, frame):
+            presented[i] = frame
+            order.append(i)
+
+        engine = editor.start_playback(present, window, batch=4)
+        render_batch = engine._render_batch
+
+        def timed(start, stop):
+            t0 = time.perf_counter()
+            try:
+                return render_batch(start, stop)
+            finally:
+                batch_ms.append((time.perf_counter() - t0) * 1e3)
+        engine._render_batch = timed
+        engine.warm(0)
+        with _Warnings('canvas_tpu_torch.playback',
+                       'render batch failed') as failed:
+            t0 = app.clock.get_presentation_time()
+            c0 = sink.consumed
+            if card:
+                _zero_launch_counts()
+            app.play(1)
+            time.sleep(SESSION_SECONDS)
+            app.stop()
+            parts['a'] = _launch_counts() if card else None
+            t1 = app.clock.get_presentation_time()
+        consumed = sink.consumed - c0
+        last = get_time_frame(rate, t1)
+        shown = list(order)
+        ideal = last + 1
+        skipped = sorted(set(range(ideal)) - set(shown))
+        print('phase 14a playback under the audio clock: %d of %d ideal '
+              'frames presented (%s fps, %.0f s; %d skipped %s), %d render '
+              'batches of 4 at %dx%d, mean %.2f ms; the sink consumed %d '
+              'samples against %d (%.3f), peak %.3f (tone %.1f Hz at %.3f); '
+              'presentation time advanced %.3f s; launches %s %s'
+              % (len(shown), ideal, rate, SESSION_SECONDS, len(skipped),
+                 skipped[:12] + (['...'] if len(skipped) > 12 else []),
+                 len(batch_ms), window.width, window.height,
+                 float(np.mean(batch_ms)), consumed,
+                 int(SESSION_SECONDS * SESSION_RATE),
+                 consumed / (SESSION_SECONDS * SESSION_RATE), sink.peak, freq,
+                 level, (t1 - t0) / 1e9, json.dumps(parts['a']), tag),
+              flush=True)
+        if any(a >= b for a, b in zip(shown, shown[1:])):
+            raise AssertionError('playback presented %r' % shown)
+        if 2 * len(shown) < ideal:
+            raise AssertionError('playback presented %d of %d frames'
+                                 % (len(shown), ideal))
+        if consumed < 0.8 * SESSION_SECONDS * SESSION_RATE:
+            raise AssertionError('the sink consumed %d samples in %.0f s'
+                                 % (consumed, SESSION_SECONDS))
+        if abs(sink.peak - level) > 0.01:
+            raise AssertionError('the sink heard a peak of %r, the tone is %r'
+                                 % (sink.peak, level))
+        if failed.seen:
+            raise AssertionError('playback: %s' % failed.seen[0])
+        if card and min(parts['a']['solid_fold'],
+                        parts['a']['region_over_sep']) <= 0:
+            raise AssertionError('playback launched %r' % parts['a'])
+        picks = [shown[len(shown) // 3], shown[2 * len(shown) // 3]]
+        want = _cpu_presented(video, rate, window, picks)
+        for i in picks:
+            if not np.array_equal(presented[i], want[i]):
+                raise AssertionError('presented frame %d differs from the '
+                                     'CPU by %r' % (i, _u8_share(
+                                         presented[i], want[i])))
+        print('phase 14a presented frames %s u8-equal to a device=\'cpu\' '
+              'engine\'s %s' % (picks, tag), flush=True)
+
+        # (b) thumbnails alone, then while the engine plays
+        full = window
+        (thumbs, idle_ms, idle_plans, parts['b idle'], idle_pull,
+         idle_deliver, idle_plan_ms, idle_fetch_ms) = _thumbnails(
+            video, full, 1024, device, card)
+        n0 = len(order)
+        f0 = get_time_frame(rate, app.clock.get_presentation_time())
+        app.play(1)
+        time.sleep(0.5)
+        (busy, busy_ms, busy_plans, parts['b busy'], busy_pull,
+         busy_deliver, busy_plan_ms, busy_fetch_ms) = _thumbnails(
+            video, full, 1024, device, card)
+        time.sleep(max(0.0, SESSION_SECONDS - 0.5 - busy_ms / 1e3))
+        app.stop()
+        playing = order[n0:]
+        ideal = get_time_frame(rate, app.clock.get_presentation_time()) - f0
+        cpu_thumbs = _thumbnails(video, full, 1024, 'cpu', False)[0]
+        for label, got in (('alone', thumbs), ('beside playback', busy)):
+            for s, (g, w) in enumerate(zip(got, cpu_thumbs)):
+                if g.shape != (THUMB_SIZE[1], THUMB_SIZE[0], 4) or \
+                        not np.array_equal(g, w):
+                    raise AssertionError('thumbnail %d (%s) differs from the '
+                                         'CPU\'s by %r' % (
+                                             s, label, _u8_share(g, w)))
+        print('phase 14b thumbnails (%d at %dx%d of [0, 1024) from %dx%d, B=1 '
+              'planned pulls on two workers): alone %.1f ms to the last '
+              'delivery (%.2f ms each; median pull %.2f ms, of which %.2f '
+              'planning and %.2f in the fetch, which waits for the device, '
+              'on average; median delivery (NumPy scale) %.2f ms), %d '
+              'segments planned, launches %s; while the engine plays '
+              '%.1f ms (%.2f ms each; pull %.2f, planning %.2f, fetching '
+              '%.2f, delivery %.2f), %d segments planned, launches with '
+              'playback\'s %s, playback presenting %d of %d ideal frames '
+              'over its %.0f s; all u8-equal to the CPU\'s %s'
+              % (THUMBS, THUMB_SIZE[0], THUMB_SIZE[1], full.width, full.height,
+                 idle_ms, idle_ms / THUMBS, idle_pull, idle_plan_ms,
+                 idle_fetch_ms, idle_deliver, idle_plans,
+                 json.dumps(parts['b idle']), busy_ms, busy_ms / THUMBS,
+                 busy_pull, busy_plan_ms, busy_fetch_ms, busy_deliver,
+                 busy_plans,
+                 json.dumps(parts['b busy']), len(playing), ideal,
+                 SESSION_SECONDS, tag),
+              flush=True)
+        if any(a >= b for a, b in zip(playing, playing[1:])):
+            raise AssertionError('playback beside the thumbnails presented %r'
+                                 % playing)
+
+        # (c) the timeline as the editor paints it
+        clips = sorted((c for c in editor.space if c.type() == 'video'),
+                       key=lambda c: c.y)
+        mapping = {c: thumbs[k % THUMBS] for k, c in enumerate(clips)}
+        t0 = time.perf_counter()
+        painted = editor.paint_timeline(1280, 240, thumbnails=mapping)
+        paint_ms = (time.perf_counter() - t0) * 1e3
+        cpu_app = EditorApp(load_plugins=False, device='cpu')
+        cpu_app.set_asset_list(app.asset_list)
+        cpu_editor = cpu_app.open_space('headline')
+        cpu_app.seek(app.clock.get_presentation_time())
+        cpu_painted = cpu_editor.paint_timeline(1280, 240, thumbnails={
+            c: cpu_thumbs[k % THUMBS] for k, c in enumerate(clips)})
+        if painted.shape != (240, 1280, 4) or \
+                not np.array_equal(painted, cpu_painted):
+            raise AssertionError('paint_timeline differs from the CPU\'s '
+                                 'by %r' % (_u8_share(painted, cpu_painted),))
+        print('phase 14c paint_timeline(1280, 240) with %d clip thumbnails: '
+              '%.2f ms (host NumPy), u8-equal to the CPU run\'s %s'
+              % (len(mapping), paint_ms, tag), flush=True)
+
+        # (d) an edit through the scene model while paused
+        probe = (20, 1030)
+        for i in probe:
+            engine.display_frame(i)
+        before = {i: presented[i].copy() for i in probe}
+        strip = [c for c in editor.space
+                 if getattr(c.source, 'asset_path', None) == 'strip'][0]
+        planner = engine._planner
+        plans, ranges = [], []
+        plan = planner._plan
+        planner._plan = lambda seg: (plans.append(tuple(seg)), plan(seg))[1]
+        video.frames_updated.connect(lambda *a: ranges.append(tuple(a[-2:])))
+        playhead = engine._playhead
+        n0 = len(order)
+        x0 = strip.x
+        if card:
+            _zero_launch_counts()
+        t0 = time.perf_counter()
+        editor.drag.start(strip, x0 / float(rate), strip.y + 0.5)
+        editor.drag.move_to_space((x0 + SESSION_SHIFT) / float(rate),
+                                  strip.y + 0.5)
+        editor.drag.drop()
+        deadline = t0 + 30.0
+        while len(order) == n0 and time.perf_counter() < deadline:
+            time.sleep(0.002)
+        edit_ms = (time.perf_counter() - t0) * 1e3
+        parts['d'] = _launch_counts() if card else None
+        replanned = list(plans)
+        planner._plan = plan
+        if strip.x != x0 + SESSION_SHIFT or editor.undo_stack.count() != 1:
+            raise AssertionError('the drag left the strip at %d with %d undo '
+                                 'entries' % (strip.x,
+                                              editor.undo_stack.count()))
+        if order[n0:n0 + 1] != [playhead]:
+            raise AssertionError('after the edit the engine presented %r, '
+                                 'not the paused frame %d'
+                                 % (order[n0:], playhead))
+        lo = min(-1 if r[0] is None else r[0] for r in ranges)
+        hi = max(1 << 30 if r[1] is None else r[1] for r in ranges)
+        if not replanned or any(s1 <= lo or s0 > hi for s0, s1 in replanned):
+            raise AssertionError('segments planned again %r outside the '
+                                 'edit\'s ranges %r' % (replanned, ranges))
+        for i in probe:
+            engine.display_frame(i)
+        moved = {i: presented[i].copy() for i in probe}
+        want = _cpu_presented(video, rate, window, list(probe))
+        for i in probe:
+            if not np.array_equal(moved[i], want[i]):
+                raise AssertionError('frame %d after the drag differs from '
+                                     'the CPU by %r'
+                                     % (i, _u8_share(moved[i], want[i])))
+            if np.array_equal(moved[i], before[i]):
+                raise AssertionError('frame %d did not change with the drag'
+                                     % i)
+        editor.undo_stack.undo()
+        for i in probe:
+            engine.display_frame(i)
+            if strip.x != x0 or not np.array_equal(presented[i], before[i]):
+                raise AssertionError('frame %d after undo() differs from '
+                                     'before the drag' % i)
+        print('phase 14d drag: DragController moved the strip by +%d frames '
+              '(one undo entry); frames_updated %s; the paused engine planned '
+              'again %s and presented frame %d again %.1f ms after the drop; '
+              'launches %s; frames %s after the drag u8-equal to the CPU, '
+              'after undo() bit-equal to before the drag %s'
+              % (SESSION_SHIFT, ranges, replanned, playhead, edit_ms,
+                 json.dumps(parts['d']), list(probe), tag), flush=True)
+
+        engine.stop()
+        engine = None
+        # (e) the cut's thumbnails. Its Sequence spans frames 0..167
+        # (three CUT_CLIP clips, two CUT_TRANSITION overlaps): a sampled
+        # frame inside it composites one placed region (region_over; a
+        # crossfade mixes its two clips into that one region), a frame
+        # past it only the two solids (one solid_fold).
+        cut_assets, cut_space = timelines.editor_cut(256)
+        cut = timelines.editor_video(cut_space)
+        seq = [c for c in cut_space.space if hasattr(c, '__len__')][0]
+        span = seq.x + seq.length
+        sampled = [(256 - 1) * s // (THUMBS - 1) for s in range(THUMBS)]
+        inside = sum(1 for f in sampled if seq.x <= f < span)
+        (got, cut_ms, cut_plans, parts['e'], cut_pull, cut_deliver,
+         cut_plan_ms, cut_fetch_ms) = _thumbnails(cut, full, 256, device,
+                                                  card)
+        want = _thumbnails(cut, full, 256, 'cpu', False)[0]
+        shares = [_u8_share(g, w) for g, w in zip(got, want)]
+        print('phase 14e cut thumbnails: %d of editor_cut(256) (frames %s; '
+              'its sequence spans %d..%d) in %.1f ms (%.2f ms each; median '
+              'pull %.2f ms, planning %.2f, fetching %.2f, delivery %.2f '
+              'ms), %d segments planned, launches %s (%d region_over inside '
+              'the sequence, %d solid_fold past it); against the CPU\'s: '
+              'largest difference %d, share differing %.2e (at most 1 on at '
+              'most 0.1%%) %s'
+              % (THUMBS, sampled, seq.x, span - 1, cut_ms, cut_ms / THUMBS,
+                 cut_pull, cut_plan_ms, cut_fetch_ms, cut_deliver, cut_plans,
+                 json.dumps(parts['e']),
+                 inside, THUMBS - inside,
+                 max(m for m, _s in shares), max(s for _m, s in shares), tag),
+              flush=True)
+        if any(m > 1 or s > 1e-3 for m, s in shares):
+            raise AssertionError('a cut thumbnail differs from the CPU\'s: '
+                                 '%r' % shares)
+        if card and (parts['e']['region_over'] != inside
+                     or parts['e']['solid_fold'] != THUMBS - inside
+                     or parts['e']['region_over_sep'] != 0):
+            raise AssertionError('the cut\'s thumbnails launched %r, not %d '
+                                 'region_over and %d solid_fold'
+                                 % (parts['e'], inside, THUMBS - inside))
+    finally:
+        if engine is not None:
+            engine.stop()
+        app.close()
+    if not card:
+        return None
+    launches = {k: sum(p[k] for p in parts.values()) for k in parts['a']}
+    print('phase 14 editor session: %.1f s; launches %s (%s) %s'
+          % (time.perf_counter() - started, json.dumps(launches), ', '.join(
+              '%s %s' % (k, json.dumps(v)) for k, v in parts.items()), tag),
+          flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     sys.meta_path.insert(0, _Refuse())
     import numpy as np
@@ -2589,9 +3132,15 @@ def main():
     editor_launches = _editor(tag, window, planner, dict(
         phase5=phase5, config7=config7, display=latency[None]))
 
+    # 14. an editor session through the UI layer
+    del planner
+    torch.cuda.empty_cache()
+    session_launches = _editor_session(tag, window)
+
     total = {k: (launches[k] + mixed_launches[k] + post_launches[k]
                  + display_launches[k] + replay_launches[k]
-                 + export_launches[k] + editor_launches[k])
+                 + export_launches[k] + editor_launches[k]
+                 + session_launches[k])
              for k in mixed_launches}
     fold_bound, fold_by = _bound(fold_bytes, fold_ops)
     reg_bound, reg_by = _bound(reg_bytes, reg_ops)

@@ -726,16 +726,20 @@ def test_study_wrappers_refuse_noncontiguous(cuda):
 
 @pytest.mark.gpu
 def test_4k_yuv420_batch_on_card_matches_cpu(cuda):
-    """One config6b batch: the headline at 3840x2160 with post='yuv420',
-    on the card against the same conversion of the CPU's f16 frames, to
-    the posts' gate (1 u8 step on at most 0.1% of values)."""
+    """Frames 0 and 1 of config6b: the headline at 3840x2160 with
+    post='yuv420', on the card against the same conversion of the CPU's
+    f16 frames, to the posts' gate (1 u8 step on at most 0.1% of
+    values). At 4K frame 0 is a segment of its own (an item's plan cuts
+    at frame 1), so the two frames come as two batches of one."""
     from canvas_tpu_torch import timelines
     from canvas_tpu_torch.ops import color
     from canvas_tpu_torch.render import RenderPlanner
     ws = timelines.build_timeline(1024)
     planner = RenderPlanner(ws, timelines.CONFIG6_WINDOW)
-    (_s, n, got), = planner.iter_batches(0, 2, batch=2, post='yuv420')
-    assert n == 2 and got.dtype == torch.uint8
+    batches = list(planner.iter_batches(0, 2, batch=2, post='yuv420'))
+    assert [(s, n) for s, n, _g in batches] == [(0, 1), (1, 1)]
+    got = torch.cat([g for _s, _n, g in batches])
+    assert got.dtype == torch.uint8
     assert tuple(got.shape) == (2, 3840 * 2160 + 2 * 1920 * 1080)
     frames = RenderPlanner(ws, timelines.CONFIG6_WINDOW, device='cpu').render(
         0, 2)
@@ -774,3 +778,86 @@ def test_editor_headline_on_card_matches_headline(cuda):
         assert (s, n) == (s2, n2) and got.dtype == torch.float16
         assert torch.equal(got, want), s
     assert counts[0] == counts[1] == (2 * 4, 2 * 4, 0)
+
+
+def _thumbnails_of(video, window, device):
+    """4 thumbnails (160x90) of frames [0, 1024) of *video* through a
+    ThumbnailPainter over a VideoPullQueue on *device*."""
+    import time
+
+    from canvas_tpu_torch.editor.ui import ThumbnailPainter
+    from canvas_tpu_torch.pullqueue import VideoPullQueue
+    queue = VideoPullQueue(device=device)
+    try:
+        painter = ThumbnailPainter(stream=video, window=window,
+                                   size=(160, 90), count=4, queue=queue)
+        painter.set_range(0, 1024)
+        painter.request_all()
+        deadline = time.time() + 60
+        while any(painter.thumbnail(s) is None for s in range(4)) and \
+                time.time() < deadline:
+            time.sleep(0.02)
+        return [painter.thumbnail(s) for s in range(4)]
+    finally:
+        queue.close()
+
+
+@pytest.mark.gpu
+def test_pullqueue_on_card_matches_cpu(cuda):
+    """4 thumbnails of the editor's headline project at 640x360 through
+    the card's pull queue (B=1 planned renders: solid_fold and
+    region_over_sep launch), u8-equal to the CPU's."""
+    from canvas_tpu_torch import timelines
+    from canvas_tpu_torch.render import box2i
+    video = timelines.editor_video(timelines.editor_headline(1024)[1])
+    window = box2i(0, 0, 639, 359)
+    before = (co.solid_fold.launches, co.region_over_sep.launches)
+    got = _thumbnails_of(video, window, None)
+    assert co.solid_fold.launches > before[0]
+    assert co.region_over_sep.launches > before[1]
+    want = _thumbnails_of(video, window, 'cpu')
+    for g, w in zip(got, want):
+        assert g is not None and g.shape == (90, 160, 4)
+        assert np.array_equal(g, w)
+
+
+@pytest.mark.gpu
+def test_qt_widget_on_card_with_fake_binding(cuda):
+    """The port's Qt VideoWidget (tests/fake_qt.py binding) on the card
+    presents at least one frame of the headline project, u8-equal to
+    the same frame presented by a CPU widget (the clock stands at frame
+    12, the first frame each engine renders and presents)."""
+    import time
+    from fractions import Fraction
+
+    import fake_qt
+    from canvas_tpu_torch import timelines
+    from canvas_tpu_torch.clock import SystemPresentationClock
+    from canvas_tpu_torch.editor.ui import qt as qt_mod
+    from canvas_tpu_torch.render import box2i
+    video = timelines.editor_video(timelines.editor_headline(64)[1])
+    old = qt_mod._qt
+    fake_qt.install(qt_mod)
+    frames = {}
+    try:
+        for device in (None, 'cpu'):
+            clock = SystemPresentationClock()
+            clock.seek(int(12 * 1e9 / 25))
+            widget = qt_mod.VideoWidget(video, clock, Fraction(25),
+                                        box2i(0, 0, 319, 179),
+                                        device=device)
+            try:
+                assert widget.engine.device.type == (device or 'cuda')
+                deadline = time.time() + 60
+                while widget._image is None and time.time() < deadline:
+                    time.sleep(0.02)
+                img = widget._image
+                assert img is not None
+                frames[device] = np.frombuffer(img.data, np.uint8).reshape(
+                    img.height(), img.width(), 4).copy()
+            finally:
+                widget.closeEvent(None)
+    finally:
+        qt_mod._qt = old
+        fake_qt.QPainter.instances.clear()
+    assert np.array_equal(frames[None], frames['cpu'])

@@ -19,7 +19,13 @@ library, and its ``audio``, ``x264``, ``faac``, ``libdv``, ``formats``,
 port's ``libav.plugin``), renders the editor's headline project (equal to
 the headline) and its cut, imports the written file through the libav
 plugin into an edited, saved and reloaded project, and renders its
-decoder's RGBA through ``u8_linearize``; and nothing it runs even tries
+decoder's RGBA through ``u8_linearize``; imports every module of the
+editor's UI layer (``canvas_tpu_torch.editor.ui``, its entry point
+``canvas_tpu_torch.editor.__main__``), pulls a crossfade
+(``transitions``) through a ``pullqueue.VideoPullQueue``, plays a tone
+through an ``audioout.AudioPlayer``, and opens the headline project in
+an ``EditorApp`` whose thumbnails and painted timeline it takes; and
+nothing it runs even tries
 such an import (a refused attempt could be swallowed by an
 optional-import probe, so attempts are recorded)."""
 
@@ -33,6 +39,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = textwrap.dedent('''
     import importlib.abc
     import sys
+    import time
 
     ATTEMPTS = []
 
@@ -205,6 +212,53 @@ SCRIPT = textwrap.dedent('''
         libav.AVVideoDecoder(path), 320, 180), box2i(0, 0, 319, 179),
         device='cpu').render(0, 2)
     assert rgba.shape == (2, 4, 180, 320) and (rgba[:, 3] == 1.0).all()
+
+    import importlib
+    import threading
+    from canvas_tpu_torch import audioout, pullqueue, transitions
+    from canvas_tpu_torch.editor import ui
+    for name in ('app', 'canvas_models', 'gtk', 'gtk_ctypes', 'mainwindow',
+                 'notification', 'paint', 'qt', 'renderprogress', 'ruler',
+                 'settings_models', 'thumbnails', 'tkui'):
+        importlib.import_module('canvas_tpu_torch.editor.ui.' + name)
+    entry = importlib.import_module('canvas_tpu_torch.editor.__main__')
+    assert callable(entry.main)
+    fade = transitions.Crossfade().create_source(
+        process.SolidColorVideoSource((1, 0, 0, 1)),
+        process.SolidColorVideoSource((0, 0, 1, 1)), 8)
+    queue = pullqueue.VideoPullQueue(device='cpu')
+    pulled = threading.Event()
+    got = {}
+    queue.enqueue(fade, 4, small, lambda i, f, d: (got.update(f=f),
+                                                   pulled.set()))
+    assert pulled.wait(60) and got['f'] is not None
+    assert abs(float(got['f'].data[2, 5, 5]) - 0.5) < 0.01
+    queue.close()
+    chunks = []
+    player = audioout.AudioPlayer(8000, 2, tone, sink=lambda d: chunks.append(
+        len(d)))
+    player.play(1)
+    deadline = time.time() + 10
+    while not chunks and time.time() < deadline:
+        time.sleep(0.01)
+    player.close()
+    assert chunks
+    app = ui.EditorApp(load_plugins=False, device='cpu')
+    app.set_asset_list(timelines.editor_headline(16)[0])
+    editor = app.open_space('headline')
+    painter = ui.ThumbnailPainter(editor.video_stream, small, size=(16, 9),
+                                  count=2, device='cpu')
+    painter.set_range(0, 16)
+    painter.request_all()
+    deadline = time.time() + 60
+    while painter.thumbnail(1) is None and time.time() < deadline:
+        time.sleep(0.05)
+    assert painter.thumbnail(1).shape == (9, 16, 4)
+    painter._queue.close()
+    buf = editor.paint_timeline(160, 60, thumbnails={
+        editor.space[0]: painter.thumbnail(0)})
+    assert buf.shape == (60, 160, 4)
+    app.close()
 
     loaded = sorted(m for m in sys.modules if m.split('.')[0] in REFUSED)
     assert not loaded, loaded

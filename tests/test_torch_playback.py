@@ -347,6 +347,41 @@ def test_playback_frames_updated_drops_the_ring():
         engine.stop()
 
 
+def test_paused_engine_presents_an_edit_and_a_quality_restore():
+    """Paused on a frame, an edit of that frame (frames_updated) or a
+    ring-clearing change (set_quality back to 10 after a scrub) shows
+    up: the render thread re-renders the frame under the playhead and
+    presents it again, with the new content. (Before, it re-rendered
+    the frame and never presented it: the preview kept the stale
+    frame until the playhead moved.)"""
+    from canvas_tpu_torch.sources import VideoPassThroughFilter
+    src = VideoPassThroughFilter(SolidColorVideoSource((1, 0, 0, 1)))
+    src.frames_updated = Signal()
+    shown = []
+    clock = SystemPresentationClock()
+    clock.seek(process.get_frame_time(Fraction(30, 1), 6))
+    engine = _engine(src, clock, Fraction(30, 1), box2i(0, 0, 15, 15),
+                     lambda idx, bgra: shown.append((idx, bgra.copy())))
+    try:
+        assert _wait(lambda: len(shown) == 1)
+        assert shown[0][0] == 6 and shown[0][1][4, 4, 2] > 200
+        src._source = SolidColorVideoSource((0, 0, 1, 1))
+        src.frames_updated(src, 0, 10)
+        assert _wait(lambda: len(shown) == 2), len(shown)
+        assert shown[1][0] == 6 and shown[1][1][4, 4, 0] > 200
+        engine.set_quality(4)
+        assert _wait(lambda: len(shown) == 3)
+        engine.set_quality(10)
+        assert _wait(lambda: len(shown) == 4)
+        assert [i for i, _f in shown] == [6, 6, 6, 6]
+        np.testing.assert_array_equal(shown[3][1], shown[1][1])
+        src.frames_updated(src, 20, 30)       # elsewhere: no re-render
+        time.sleep(0.2)
+        assert len(shown) == 4
+    finally:
+        engine.stop()
+
+
 def test_default_device_is_cuda_and_raises_without_it():
     import torch
     if torch.cuda.is_available():
