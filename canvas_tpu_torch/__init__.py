@@ -3,18 +3,19 @@ GPU. The package stands on its own: it imports nothing of ``canvas_tpu``
 and keeps its own copy of the host side it needs. Its public import is
 ``canvas_tpu_torch.process``.
 
-Host side (NumPy, the JAX package's NumPy arm, copied module for
-module):
+Host side (the JAX package's host code, copied module for module):
 
 - ``basetypes``, ``framefuncs``, ``frames``, ``sources``, ``coded``:
-  sources, filters and frames with their NumPy pull path and their
+  sources, filters and frames with their eager pull path and their
   emitters;
 - ``ir``: the planner's ``Node`` IR, signatures and window algebra;
 - ``plan``: the planning context and the persistent stage cache;
-- ``ops.window``, ``ops.mix``, ``ops.scale``, ``ops.chroma`` and the
-  host half of ``ops.color``: the pull path's pixel math and the
-  planner's tap builders;
-- ``profiling``: the planner's stage timers;
+- ``ops.window``, ``ops.mix``, ``ops.scale``, ``ops.chroma`` and
+  ``ops.color``: the pull path's pixel math, each op with a NumPy arm
+  and a plain torch arm (the JAX arm's form), and the planner's tap
+  builders;
+- ``profiling``: the planner's stage timers and a ``torch.profiler``
+  trace;
 - ``timelines``: the headline and mixed-content timelines;
 - ``clock``, ``signal``: presentation clocks and the weakref signal a
   source's ``frames_updated`` is.
@@ -25,7 +26,9 @@ module):
 
 Device side:
 
-- ``backend``: device resolution, host-to-device transfer, math mode;
+- ``backend``: the eager pull's thread-local backend mode (``'auto'``:
+  frames of 16,384 pixels or more run the torch arms of the pixel ops
+  on the card), device resolution, host-to-device transfer, math mode;
 - ``ops.cuda_ops``: the hand-written CUDA kernels (``csrc/``) and their
   plain PyTorch versions;
 - ``ops.study_ops``: the CUDA kernels of the fold studies and the
@@ -46,3 +49,5 @@ Device side:
 
 Nothing here imports JAX.
 """
+
+NS_PER_SEC = 1000000000

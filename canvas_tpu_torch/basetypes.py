@@ -8,9 +8,15 @@ bounds, and a box is empty when ``max < min`` on either axis.
 """
 
 import collections
+import fractions
 
+# 'fractions' is exported as in the JAX package: the reference's
+# basetypes module has no __all__, so its `import fractions` leaks into
+# star-imports, and client code uses `fractions.Fraction` after
+# `from ...basetypes import *`.
 __all__ = ['v2i', 'v2f', 'box2i', 'box2f', 'rgba',
-           'box2i_intersect', 'box2i_union', 'box2i_normalize']
+           'box2i_intersect', 'box2i_union', 'box2i_normalize',
+           'fractions']
 
 
 _v2i_base = collections.namedtuple('_v2i_base', 'x y')

@@ -7,8 +7,9 @@ the reconstruction, subsample and pulldown filters: the port's copy of
 * ``coded_image_source`` / CodedImageSource.c -> :class:`CodedImageSource`;
 * DVReconstructionFilter.c -> :class:`DVReconstructionFilter`, and its
   generalisation to any integer-factor planar YCbCr geometry,
-  :class:`PlanarReconstructionFilter`: the pull path reconstructs with
-  NumPy (``ops.chroma``), ``emit`` plans the batched form. Decode stays
+  :class:`PlanarReconstructionFilter`: the pull path reconstructs through
+  ``ops.chroma`` (NumPy, or torch as ``backend.use_torch_for`` chooses),
+  ``emit`` plans the batched form. Decode stays
   on the host (``CodedImageSource.get_frame``). Every unique coded frame
   a segment needs is decoded once, its Y/Cb/Cr planes stacked and
   shipped to the device once per segment through the port's
@@ -18,7 +19,8 @@ the reconstruction, subsample and pulldown filters: the port's copy of
   the frame hints and the persistent-cache keys are the JAX package's,
   so the planner's staging caches behave the same;
 * DVSubsampleFilter.c / MPEG2SubsampleFilter.c ->
-  :class:`DVSubsampleFilter`, :class:`MPEG2SubsampleFilter` (NumPy);
+  :class:`DVSubsampleFilter`, :class:`MPEG2SubsampleFilter` (NumPy
+  planes out, computed where the pulled frame lies);
 * Pulldown23RemovalFilter.c -> :class:`Pulldown23RemovalFilter`: its
   ``emit`` plans solid and mixed cadence frames as one
   ``field_interleave`` of two pulls of its child.
@@ -27,7 +29,9 @@ the reconstruction, subsample and pulldown filters: the port's copy of
 import bisect
 
 import numpy as np
+import torch
 
+from canvas_tpu_torch import backend
 from canvas_tpu_torch.basetypes import EMPTY_BOX2I, box2i, box2i_intersect
 from canvas_tpu_torch.frames import RgbaFrameF16, VideoSource
 from canvas_tpu_torch.ir import Node, tile_window, windows_to_array
@@ -158,7 +162,9 @@ class DVReconstructionFilter(VideoSource):
             frame.current_window = EMPTY_BOX2I
             return
         frame.data, frame.current_window = chroma_ops.reconstruct_dv(
-            (image[0], image[1], image[2]), frame.full_window)
+            (image[0], image[1], image[2]), frame.full_window,
+            use_torch=backend.use_torch_for(
+                (4, frame.full_window.height, frame.full_window.width)))
 
     def emit(self, ctx):
         """The batched node: the planes staged on the device, the
@@ -249,6 +255,8 @@ class PlanarReconstructionFilter(VideoSource):
             self._size = (image[0].shape[1], image[0].shape[0])
         frame.data, frame.current_window = chroma_ops.reconstruct_planar(
             (image[0], image[1], image[2]), frame.full_window,
+            use_torch=backend.use_torch_for(
+                (4, frame.full_window.height, frame.full_window.width)),
             matrix=self.matrix)
 
     def emit(self, ctx):
@@ -399,6 +407,14 @@ class Pulldown23RemovalFilter(VideoSource):
             return
         rel = np.arange(frame.full_window.min.y, frame.full_window.max.y + 1)
         even_mask = (rel >= start_y) & (rel <= window.max.y) & (rel % 2 == 0)
+        dev = next((t.device for t in (frame.data, temp_placed)
+                    if isinstance(t, torch.Tensor)), None)
+        if dev is not None:
+            mask = backend.as_tensor(even_mask, dev)[None, :, None]
+            frame.data = torch.where(mask,
+                                     backend.as_tensor(temp_placed, dev),
+                                     backend.as_tensor(frame.data, dev))
+            return
         data = np.array(frame.data, copy=True)
         data[:, even_mask, :] = np.asarray(temp_placed)[:, even_mask, :]
         frame.data = data
@@ -585,7 +601,11 @@ def device_plane_stack(ctx, source, quality, cache, hint_ids=(),
         fkey = ('dvframe', id(source), int(quality), f)
         planes = cache.get(fkey)
         if planes is None:
-            image = source.get_frame(f, quality)
+            # host staging: a coded source that pulls video (a subsample
+            # filter) pulls it on the host, as the planner's frame
+            # staging does
+            with backend.force_backend('numpy'):
+                image = source.get_frame(f, quality)
             if image is None:
                 return None
             planes = (np.asarray(image[0]), np.asarray(image[1]),

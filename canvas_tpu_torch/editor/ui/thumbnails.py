@@ -12,6 +12,7 @@ import threading
 
 import numpy as np
 
+from canvas_tpu_torch import backend
 from canvas_tpu_torch.basetypes import box2i
 from canvas_tpu_torch.pullqueue import VideoPullQueue
 from canvas_tpu_torch.signal import Signal
@@ -96,14 +97,17 @@ class ThumbnailPainter:
         tw, th = self._size
         factor_x = tw / self._window.width
         factor_y = th / self._window.height
-        data, _win = scale_ops.scale_bilinear(
-            np.asarray(frame.data, np.float32), frame.full_window,
-            frame.current_window if not frame.current_window.empty()
-            else frame.full_window,
-            box2i(0, 0, tw - 1, th - 1),
-            (0.0, 0.0),
-            (float(self._window.min.x), float(self._window.min.y)),
-            (factor_x, factor_y))
+        # the host's NumPy scale, whatever the dispatch thread's mode
+        with backend.force_backend('numpy'):
+            data, _win = scale_ops.scale_bilinear(
+                frame.to_numpy().astype(np.float32, copy=False),
+                frame.full_window,
+                frame.current_window if not frame.current_window.empty()
+                else frame.full_window,
+                box2i(0, 0, tw - 1, th - 1),
+                (0.0, 0.0),
+                (float(self._window.min.x), float(self._window.min.y)),
+                (factor_x, factor_y))
         u8 = color_ops.apply_gamma45_u8(np.asarray(data, np.float16))
         bgra = np.stack([u8[2], u8[1], u8[0], u8[3]], axis=-1)
         with self._lock:

@@ -1,10 +1,13 @@
 """Video frames and the pull-protocol source base class: the port's copy
-of ``canvas_tpu/frames.py`` with its NumPy pull.
+of ``canvas_tpu/frames.py``.
 
 * ``rgba_frame_f16`` / ``rgba_frame_f32`` (framework.h:155-213) are
   :class:`RgbaFrameF16` / :class:`RgbaFrameF32`: channel-planar
-  ``(4, H, W)`` NumPy arrays sized to ``full_window``, zero outside
-  ``current_window``.
+  ``(4, H, W)`` arrays sized to ``full_window``, zero outside
+  ``current_window``. ``data`` is a NumPy array or, where the eager pull
+  took the torch arm (``canvas_tpu_torch.backend``), a tensor on that
+  arm's device; ``to_numpy``, ``pixel``, indexing and
+  ``to_argb_string`` read a host copy fetched once per data object.
 * ``video_get_frame_f16/f32`` dispatch (src/cprocess/main.c:33-172) is
   :class:`VideoSource`: subclasses implement ``_render_f16`` and/or
   ``_render_f32``; the base class converts between whichever is native.
@@ -13,8 +16,11 @@ Frames are also sources (like the reference's RgbaFrameF16.c): pulling from
 a frame re-windows its stored image, regardless of frame index.
 """
 
+import contextlib
+
 import numpy as np
 
+from canvas_tpu_torch import backend
 from canvas_tpu_torch.basetypes import (EMPTY_BOX2I, box2i, box2i_intersect,
                                         rgba)
 from canvas_tpu_torch.ops import window as window_ops
@@ -30,14 +36,14 @@ class VideoSource:
     The frame passed in has its ``full_window`` set and ``data`` zeroed.
     """
 
-    def get_frame_f16(self, frame_index, data_window):
+    def get_frame_f16(self, frame_index, data_window, **kwargs):
         frame = RgbaFrameF16(data_window)
-        self.render_f16(int(frame_index), frame)
+        self.render_f16(int(frame_index), frame, **kwargs)
         return frame
 
-    def get_frame_f32(self, frame_index, data_window):
+    def get_frame_f32(self, frame_index, data_window, **kwargs):
         frame = RgbaFrameF32(data_window)
-        self.render_f32(int(frame_index), frame)
+        self.render_f32(int(frame_index), frame, **kwargs)
         return frame
 
     # -- internal dispatch (cprocess/main.c video_get_frame_f16/f32) -------
@@ -45,27 +51,47 @@ class VideoSource:
     def _has_native(self, name):
         return getattr(type(self), name) is not getattr(VideoSource, name)
 
-    def render_f16(self, frame_index, frame):
-        if self._has_native('_render_f16'):
-            self._render_f16(frame_index, frame)
-        elif self._has_native('_render_f32'):
-            temp = RgbaFrameF32(frame.full_window)
-            self._render_f32(frame_index, temp)
-            frame.data = window_ops.convert(temp.data, np.float16)
-            frame.current_window = temp.current_window
-        else:
-            frame.current_window = EMPTY_BOX2I
+    def render_f16(self, frame_index, frame, **kwargs):
+        with self._forced_backend(kwargs):
+            if self._has_native('_render_f16'):
+                self._render_f16(frame_index, frame)
+            elif self._has_native('_render_f32'):
+                temp = RgbaFrameF32(frame.full_window)
+                self._render_f32(frame_index, temp)
+                frame.data = window_ops.convert(temp.data, np.float16)
+                frame.current_window = temp.current_window
+            else:
+                frame.current_window = EMPTY_BOX2I
 
-    def render_f32(self, frame_index, frame):
-        if self._has_native('_render_f32'):
-            self._render_f32(frame_index, frame)
-        elif self._has_native('_render_f16'):
-            temp = RgbaFrameF16(frame.full_window)
-            self._render_f16(frame_index, temp)
-            frame.data = window_ops.convert(temp.data, np.float32)
-            frame.current_window = temp.current_window
+    def render_f32(self, frame_index, frame, **kwargs):
+        with self._forced_backend(kwargs):
+            if self._has_native('_render_f32'):
+                self._render_f32(frame_index, frame)
+            elif self._has_native('_render_f16'):
+                temp = RgbaFrameF16(frame.full_window)
+                self._render_f16(frame_index, temp)
+                frame.data = window_ops.convert(temp.data, np.float32)
+                frame.current_window = temp.current_window
+            else:
+                frame.current_window = EMPTY_BOX2I
+
+    @staticmethod
+    def _forced_backend(kwargs):
+        """The reference's tests pass ``force_gl=`` to take the device
+        path; ``force_tpu=`` is the JAX package's spelling. Either one
+        pins the torch arm on this thread's eager device, which is
+        resolved here: without a card (and no ``device='cpu'`` set by
+        ``force_backend``) the pull raises."""
+        force = kwargs.pop('force_tpu', None)
+        if force is None:
+            force = kwargs.pop('force_gl', None)
         else:
-            frame.current_window = EMPTY_BOX2I
+            kwargs.pop('force_gl', None)
+        if kwargs:
+            raise TypeError('unexpected arguments: %r' % sorted(kwargs))
+        if force:
+            return backend.force_backend('torch', backend.eager_device())
+        return contextlib.nullcontext()
 
     def _render_f16(self, frame_index, frame):
         raise NotImplementedError
@@ -125,12 +151,25 @@ class _RgbaFrame(VideoSource):
             return None
         r = y - self.full_window.min.y
         c = x - self.full_window.min.x
-        vals = np.asarray(self.data)[:, r, c].astype(np.float64)
+        vals = self._host_data()[:, r, c].astype(np.float64)
         return rgba(vals[0], vals[1], vals[2], vals[3])
 
     def to_numpy(self):
         """Host (4, H, W) array covering full_window."""
-        return np.asarray(self.data)
+        return self._host_data()
+
+    def _host_data(self):
+        """Host copy of ``data``: the array itself when it is NumPy, else
+        fetched once per data object (``backend.asnumpy``) and kept until
+        ``data`` is replaced, so reading pixels one by one costs one
+        copy."""
+        d = self.data
+        if isinstance(d, np.ndarray):
+            return d
+        cache = getattr(self, '_host_cache', None)
+        if cache is None or cache[0] is not d:
+            cache = self._host_cache = (d, backend.asnumpy(d))
+        return cache[1]
 
     # -- sequence protocol: raster-order pixel access
     #    (RgbaFrameF32.c:67-92) ------------------------------------------
@@ -142,14 +181,14 @@ class _RgbaFrame(VideoSource):
         if i < 0 or i >= len(self):
             raise IndexError('Index was out of range.')
         r, c = divmod(i, self.width)
-        vals = np.asarray(self.data)[:, r, c].astype(np.float64)
+        vals = self._host_data()[:, r, c].astype(np.float64)
         return rgba(vals[0], vals[1], vals[2], vals[3])
 
     def to_argb_string(self):
         """8-bit BGRA bytes via the 0.45 gamma ramp (RgbaFrameF16.c:122):
         u8 = clamp(x ** 0.45 * 255)."""
         from canvas_tpu_torch.ops import color as color_ops
-        ramped = color_ops.apply_gamma45_u8(np.asarray(self.data))
+        ramped = color_ops.apply_gamma45_u8(self._host_data())
         r, g, b, a = ramped[0], ramped[1], ramped[2], ramped[3]
         # ARGB32 little-endian byte order: B, G, R, A
         return np.stack([b, g, r, a], axis=-1).tobytes()

@@ -46,7 +46,7 @@ from canvas_tpu_torch.coded import (CodecPacketSource, CodedImage,
                                     CodedImageSource)
 from canvas_tpu_torch.ops import color as color_ops
 
-__all__ = ['AVContainer','AVStreamInfo', 'AVDemuxer',
+__all__ = ['available', 'AVContainer', 'AVStreamInfo', 'AVDemuxer',
            'CodecPacket', 'AVVideoDecoder', 'AVAudioDecoder', 'AVMuxer',
            'write_video']
 
@@ -244,6 +244,16 @@ def _load():
         lib.cav_version.restype = ctypes.c_char_p
         _lib = lib
         return lib
+
+
+def available():
+    """True if the port's native library builds and loads here (False,
+    never an exception, where FFmpeg's development files are missing)."""
+    try:
+        _load()
+        return True
+    except Exception:
+        return False
 
 
 def _as_frame_rate(value):
@@ -877,7 +887,9 @@ def write_video(filename, video_source, audio_source, start_frame, end_frame,
     batch's render (``iter_batches(post=...)``), so only u8 is fetched.
     *progress_callback(frames_done)* is called per batch; returning False
     aborts the export (the file is finalized with what was written).
-    *mesh* is not ported yet and must be None.
+    *mesh* is not ported yet and must be None. With ``use_batch=False``
+    the frames are eager pulls under the calling thread's backend mode,
+    their torch arms on *device*.
 
     *transport* picks what crosses the host link per frame:
 
@@ -907,6 +919,8 @@ def write_video(filename, video_source, audio_source, start_frame, end_frame,
     if mesh is not None:
         raise render._not_ported('write_video(mesh=...)', 'queue 1 item 8')
     device = backend.resolve_device(device)
+    # the producer thread pulls under the caller's mode, not its own
+    mode = backend.get_backend()
     if frame_rate is None:
         frame_rate = Fraction(30000, 1001)
     # normalize up front: the audio sample math below needs
@@ -953,7 +967,8 @@ def write_video(filename, video_source, audio_source, start_frame, end_frame,
             conversion fused into the render: (B, H, W, 4) RGBA, or for
             transport='yuv420' packed planar 4:2:0
             (B, H*W + 2*ceil(H/2)*ceil(W/2)). The NumPy path pulls
-            f16 frames one at a time and ramps them on the host."""
+            f16 frames one at a time (under the caller's backend mode)
+            and ramps them on the host."""
             if use_batch:
                 planner = render.RenderPlanner(video_source, window,
                                                device=device)
@@ -977,10 +992,11 @@ def write_video(filename, video_source, audio_source, start_frame, end_frame,
             else:
                 for b0 in range(0, n_frames, batch):
                     b1 = min(b0 + batch, n_frames)
-                    with profiling.Timer('export.render'):
+                    with profiling.Timer('export.render'), \
+                            backend.force_backend(mode, device):
                         frames = stack_frames(
-                            [np.asarray(video_source.get_frame_f16(
-                                start_frame + i, window).data)
+                            [video_source.get_frame_f16(
+                                start_frame + i, window).to_numpy()
                              for i in range(b0, b1)])
                         u8 = np.moveaxis(
                             color_ops.apply_gamma45_u8(frames), 1, -1)
@@ -1355,7 +1371,8 @@ class AVAudioEncoder(_EncoderBase):
             return False
         hi = min(self._next_to_send + self._chunk - 1, self.end_sample)
         frame = self.source.get_frame(self._next_to_send, hi, self.channels)
-        data = np.ascontiguousarray(np.asarray(frame.data, np.float32))
+        data = np.ascontiguousarray(backend.asnumpy(frame.data),
+                                    np.float32)
         # cav_encoder_send_audio returns the number of samples consumed;
         # when the codec's output queue backs up (EAGAIN) the tail is
         # unconsumed — drain packets and resend it rather than dropping

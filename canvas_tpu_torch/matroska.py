@@ -721,6 +721,8 @@ def write_audio_pcm_float(filename, source, min_sample, max_sample,
     (matroska.py:873-932)."""
     import numpy as np
 
+    from canvas_tpu_torch import backend
+
     with open(filename, 'wb') as fd:
         writer = MatroskaWriter(fd)
         ns = 1_000_000_000
@@ -743,7 +745,8 @@ def write_audio_pcm_float(filename, source, min_sample, max_sample,
                 lo = max(frame.current_min_sample, cursor)
                 top = min(frame.current_max_sample, hi)
                 if top >= lo:
-                    arr = np.asarray(frame.data, np.float32)
+                    arr = backend.asnumpy(frame.data).astype(
+                        np.float32, copy=False)
                     data[lo - cursor:top - cursor + 1] = arr[
                         lo - frame.full_min_sample:
                         top - frame.full_min_sample + 1]

@@ -1,11 +1,16 @@
-"""Chroma reconstruction and subsampling on the host: the NumPy side of
-``canvas_tpu/ops/chroma.py`` (video_reconstruct.c, video_subsample.c).
+"""Chroma reconstruction and subsampling: ``canvas_tpu/ops/chroma.py``
+(video_reconstruct.c, video_subsample.c) with a NumPy arm and a torch
+arm for each op.
 
 The planner takes the chroma upsample matrices and the YCbCr -> RGB
 matrices from here for the batched ``dv_recon_rows`` and
-``planar_recon_rows`` ops; the pull path reconstructs a frame with NumPy
-(``reconstruct_dv``, ``reconstruct_planar``), and the subsample filters
-go the other way (``subsample_dv``, ``subsample_mpeg2``).
+``planar_recon_rows`` ops; the pull path reconstructs a frame
+(``reconstruct_dv``, ``reconstruct_planar``: the torch arm when
+``use_torch`` or ``backend.use_torch_for`` says so), and the subsample
+filters go the other way (``subsample_dv``: the torch arm for a tensor
+frame outside ``'numpy'`` mode, one packed u8 fetch; ``subsample_mpeg2``:
+for a tensor or by ``use_torch_for``). Every torch contraction runs at
+full f32 (TF32 off), in the JAX arm's op order.
 
 DV geometry (video_reconstruct.c:50-137, video_subsample.c:95-187):
 720x480, 4:1:1 chroma co-sited with the left pixel, Rec.709 matrix and
@@ -18,7 +23,9 @@ near/far tap pattern, Rec.709 matrix and transfer.
 """
 
 import numpy as np
+import torch
 
+from canvas_tpu_torch import backend
 from canvas_tpu_torch.basetypes import EMPTY_BOX2I, box2i, box2i_intersect
 from canvas_tpu_torch.ops import color as color_ops
 from canvas_tpu_torch.ops import scale as scale_ops
@@ -139,20 +146,74 @@ def reconstruct_dv_full(y_plane, cb_plane, cr_plane):
     return color_ops.transfer_rec709_to_linear_scene(rgba16)
 
 
-def reconstruct_dv(planes, full_window):
+def _recon_torch(y8, cb8, cr8, up, M):
+    """Planar YCbCr u8 stacks (B, H, W) to linear RGBA (B, 4, H, W) f32
+    on their device (``canvas_tpu/render.py:1175-1206, 1247-1267`` and
+    the JAX arms ``_jax_reconstruct_dv``/``_jax_reconstruct_planar``):
+    studio-range expand, the chroma planes brought to the luma size by
+    *up*, the 3x3 YCbCr->RGB matrix *M*, alpha 1, the truncating f16
+    grid, rec709->linear as a gather from the f16 table. Every
+    contraction runs at full f32."""
+    y = (y8.float() - 16.0) / 219.0
+    cb = up((cb8.float() - 128.0) / 224.0)
+    cr = up((cr8.float() - 128.0) / 224.0)
+    rgb = torch.einsum('ij,bjhw->bihw', M, torch.stack([y, cb, cr], dim=1))
+    alpha = torch.ones_like(y)[:, None]
+    rgba16 = color_ops.quantize_f16_trunc(torch.cat([rgb, alpha], dim=1))
+    return color_ops.device_transfer('rec709_to_linear_scene', rgba16)
+
+
+def dv_recon_torch(y8, cb8, cr8, U, M):
+    """DV 4:1:1 reconstruction of (B, ...) plane stacks: the chroma
+    upsample is one matmul with U (720, 180). The planner's
+    ``dv_recon_rows`` and the pull path's torch arm."""
+    return _recon_torch(y8, cb8, cr8,
+                        lambda c: torch.einsum('bhs,xs->bhx', c, U), M)
+
+
+def planar_recon_torch(y8, cb8, cr8, Uh, Uv, M):
+    """Generic planar reconstruction of (B, ...) plane stacks: the chroma
+    planes upsampled on both axes, as two contractions with the dense
+    matrices Uh (W, cw) and Uv (H, ch). The planner's
+    ``planar_recon_rows`` and the pull path's torch arm."""
+    def up(c):
+        c = torch.einsum('bhs,xs->bhx', c, Uh)
+        return torch.einsum('bsw,hs->bhw', c, Uv)
+
+    return _recon_torch(y8, cb8, cr8, up, M)
+
+
+def _planes_on(planes, device):
+    """A frame's three u8 planes as (1, h, w) tensors on *device*."""
+    backend.ensure_initialized()
+    return [backend.as_tensor(p, device)[None] for p in planes]
+
+
+def reconstruct_dv(planes, full_window, use_torch=None):
     """DV 4:1:1 planar -> windowed linear RGBA f16 frame data.
 
     planes: (y, cb, cr) u8 arrays of shapes (480,720), (480,180),
     (480,180). Returns (data (4,H,W) f16, current_window) for the given
-    target *full_window* (video_reconstruct.c:50-137).
+    target *full_window* (video_reconstruct.c:50-137). *use_torch*
+    (None: ``backend.use_torch_for`` of the frame) picks the torch arm
+    on ``backend.eager_device()``.
     """
     ox, oy = DV_PIC_OFFSET
     image_box = box2i(ox, oy, DV_FULL_WIDTH + ox - 1, DV_FULL_HEIGHT + oy - 1)
     current = box2i_intersect(image_box, full_window)
+    shape = (4, full_window.height, full_window.width)
     if current.empty():
-        return (np.zeros((4, full_window.height, full_window.width),
-                         np.float16), EMPTY_BOX2I)
-    full = reconstruct_dv_full(planes[0], planes[1], planes[2])
+        return np.zeros(shape, np.float16), EMPTY_BOX2I
+    if use_torch is None:
+        use_torch = backend.use_torch_for(shape)
+    if use_torch:
+        dev = backend.eager_device()
+        full = dv_recon_torch(*_planes_on(planes, dev),
+                              backend.constant(_dv_up_matrix(), dev),
+                              backend.constant(YCBCR_TO_RGB_REC709, dev))
+        full = full[0].to(torch.float16)
+    else:
+        full = reconstruct_dv_full(planes[0], planes[1], planes[2])
     return window_ops.place(full, image_box, full_window, current), current
 
 
@@ -249,20 +310,35 @@ def reconstruct_planar_full(y_plane, cb_plane, cr_plane, matrix='rec709'):
     return color_ops.transfer_rec709_to_linear_scene(rgba16)
 
 
-def reconstruct_planar(planes, full_window, matrix='rec709'):
+def reconstruct_planar(planes, full_window, use_torch=None,
+                       matrix='rec709'):
     """Planar YCbCr -> windowed linear RGBA f16 frame data.
 
     planes: (y, cb, cr) u8 arrays; image coordinates start at (0, 0).
-    *matrix* selects 'rec709' or 'rec601'. Returns
-    (data (4, H, W) f16, current_window)."""
+    *matrix* selects 'rec709' or 'rec601'; *use_torch* as in
+    :func:`reconstruct_dv`. Returns (data (4, H, W) f16,
+    current_window)."""
     yh, yw = planes[0].shape
     image_box = box2i(0, 0, yw - 1, yh - 1)
     current = box2i_intersect(image_box, full_window)
+    shape = (4, full_window.height, full_window.width)
     if current.empty():
-        return (np.zeros((4, full_window.height, full_window.width),
-                         np.float16), EMPTY_BOX2I)
-    full = reconstruct_planar_full(planes[0], planes[1], planes[2],
-                                   matrix=matrix)
+        return np.zeros(shape, np.float16), EMPTY_BOX2I
+    if use_torch is None:
+        use_torch = backend.use_torch_for(shape)
+    if use_torch:
+        dev = backend.eager_device()
+        ch, cw = planes[1].shape
+        full = planar_recon_torch(
+            *_planes_on(planes, dev),
+            backend.constant(_up_matrix_generic(yw, cw), dev),
+            backend.constant(_up_matrix_generic(
+                yh, ch, siting=_vertical_siting(yh, ch)), dev),
+            backend.constant(ycbcr_matrix(matrix), dev))
+        full = full[0].to(torch.float16)
+    else:
+        full = reconstruct_planar_full(planes[0], planes[1], planes[2],
+                                       matrix=matrix)
     return window_ops.place(full, image_box, full_window, current), current
 
 
@@ -285,8 +361,13 @@ def subsample_dv(data, full_window, current_window):
     if window.empty():
         return y8, cb8, cr8
 
+    if isinstance(data, torch.Tensor) and backend.get_backend() != 'numpy':
+        return _subsample_dv_torch(
+            window_ops.place(data, full_window, image_box, window), window)
+
     # Re-window to image coordinates and compress the transfer curve.
-    img = window_ops.place(np.asarray(data), full_window, image_box, window)
+    img = window_ops.place(backend.asnumpy(data), full_window, image_box,
+                           window)
     img709 = color_ops.transfer_linear_to_rec709(
         np.asarray(img, dtype=np.float16)).astype(np.float32)
 
@@ -318,6 +399,49 @@ def subsample_dv(data, full_window, current_window):
     return y8, cb8, cr8
 
 
+def _subsample_dv_torch(img, window):
+    """The JAX arm's device subsample (``_jax_subsample_dv``) on the
+    device of *img* (the frame placed in image coordinates): the f16
+    gather of the rec709 curve, the YCbCr matrix, the 4:1 chroma
+    decimation, C-cast truncation, the window as row and column masks,
+    and the three u8 planes packed into one buffer for a single fetch."""
+    backend.ensure_initialized()
+    ox, oy = DV_PIC_OFFSET
+    dev = img.device
+    row_mask = torch.zeros(DV_FULL_HEIGHT, device=dev)
+    row_mask[window.min.y - oy:window.max.y - oy + 1] = 1.0
+    col_mask = torch.zeros(DV_FULL_WIDTH, device=dev)
+    col_mask[window.min.x - ox:window.max.x - ox + 1] = 1.0
+    tx_mask = torch.zeros(DV_FULL_WIDTH // 4, device=dev)
+    tx_mask[(window.min.x - ox) // 4:(window.max.x - ox) // 4 + 1] = 1.0
+    M = backend.constant(RGB_TO_YCBCR_REC709, dev)
+    D = backend.constant(_dv_down_matrix(), dev)
+
+    img709 = color_ops.apply_half_lut(
+        img, color_ops.get_lut('linear_to_rec709')).float()
+    ycc = torch.einsum('ij,jhw->ihw', M, img709[:3])
+    y = ycc[0] * 219.0 + 16.0
+
+    def trunc(v):
+        return torch.trunc(torch.clamp(torch.nan_to_num(v, nan=0.0),
+                                       0.0, 255.0)).to(torch.uint8)
+
+    y8 = torch.where(row_mask[:, None] * col_mask[None, :] > 0, trunc(y), 0)
+    cbcr = ycc[1:3] * col_mask[None, None, :]
+    cb = torch.einsum('tx,hx->ht', D, cbcr[0])
+    cr = torch.einsum('tx,hx->ht', D, cbcr[1])
+    cm = row_mask[:, None] * tx_mask[None, :] > 0
+    cb8 = torch.where(cm, trunc(cb * 224.0 + 128.0), 0)
+    cr8 = torch.where(cm, trunc(cr * 224.0 + 128.0), 0)
+    packed = backend.to_host(torch.cat(
+        [y8.reshape(-1), cb8.reshape(-1), cr8.reshape(-1)])).numpy()
+    n_y = DV_FULL_HEIGHT * DV_FULL_WIDTH
+    n_c = DV_FULL_HEIGHT * (DV_FULL_WIDTH // 4)
+    return (packed[:n_y].reshape(DV_FULL_HEIGHT, DV_FULL_WIDTH),
+            packed[n_y:n_y + n_c].reshape(DV_FULL_HEIGHT, DV_FULL_WIDTH // 4),
+            packed[n_y + n_c:].reshape(DV_FULL_HEIGHT, DV_FULL_WIDTH // 4))
+
+
 # --- MPEG-2 4:2:0 subsampling ------------------------------------------------
 
 def subsample_mpeg2(data, full_window, current_window=None):
@@ -333,8 +457,14 @@ def subsample_mpeg2(data, full_window, current_window=None):
 
     data: (4, H, W) with H, W even, in linear light; operates on the full
     window like the GL path (which renders the frame's full texture).
-    Returns (y, cb, cr) planes: (H, W), (H/2, W/2), (H/2, W/2).
+    Returns (y, cb, cr) planes: (H, W), (H/2, W/2), (H/2, W/2). A tensor
+    frame, or a large one under ``backend.use_torch_for``, takes the
+    torch arm; the planes come back as NumPy either way.
     """
+    dev = backend.torch_device_for(data.shape, data)
+    if dev is not None:
+        return _subsample_mpeg2_torch(backend.as_tensor(data, dev))
+
     arr = np.asarray(data)
     H, W = arr.shape[1], arr.shape[2]
 
@@ -369,3 +499,34 @@ def subsample_mpeg2(data, full_window, current_window=None):
     sub = sub * np.float32(224.0 / 255.0) + np.float32(128.0 / 255.0)
     sub8 = np.clip(np.rint(sub * 255.0), 0, 255).astype(np.uint8)
     return y8, sub8[0], sub8[1]
+
+
+def _subsample_mpeg2_torch(arr):
+    """The JAX arm of :func:`subsample_mpeg2` (``_jax_subsample_mpeg2``)
+    on the device of *arr*; u8 planes fetched to the host."""
+    backend.ensure_initialized()
+    dev = arr.device
+    H, W = arr.shape[1], arr.shape[2]
+    rgb709 = color_ops.torch_curve('linear_to_rec709', arr[:3].float())
+    ycc = torch.einsum('ij,jhw->ihw',
+                       backend.constant(RGB_TO_YCBCR_REC709, dev), rgb709)
+    y = ycc[0] * (219.0 / 255.0) + (16.0 / 255.0)
+    y8 = torch.clamp(torch.round(y * 255.0), 0, 255).to(torch.uint8)
+
+    cbcr = ycc[1:3]
+    cx = torch.arange(W // 2, device=dev) * 2
+    left = torch.clamp(cx - 1, 0, W - 1)
+    right = torch.clamp(cx + 1, 0, W - 1)
+
+    def hpass(rows):
+        return (rows[..., left] + 2.0 * rows[..., cx] + rows[..., right]) / 4.0
+
+    cy = torch.arange(H // 2, device=dev)
+    even = (cy % 2) == 0
+    near = torch.clamp(torch.where(even, 2 * cy, 2 * cy + 1), 0, H - 1)
+    far = torch.clamp(torch.where(even, 2 * cy + 2, 2 * cy - 1), 0, H - 1)
+    subv = (3.0 * hpass(cbcr[:, near, :]) + hpass(cbcr[:, far, :])) / 4.0
+    subv = subv * (224.0 / 255.0) + (128.0 / 255.0)
+    sub8 = torch.clamp(torch.round(subv * 255.0), 0, 255).to(torch.uint8)
+    return (backend.to_host(y8).numpy(), backend.to_host(sub8[0]).numpy(),
+            backend.to_host(sub8[1]).numpy())

@@ -41,10 +41,11 @@ Transfer curves (gammatab.c:38-250):
 
 import functools
 import math
-import threading
 
 import numpy as np
 import torch
+
+from canvas_tpu_torch import backend
 
 __all__ = [
     'rec709_to_linear_scene', 'rec709_to_linear_display',
@@ -263,9 +264,18 @@ def build_half_lut(fn, out_dtype=np.float16):
         return out.astype(out_dtype)
 
 
+def _f16_bits(x):
+    """int32 f16 bit patterns (0..65535) of a tensor rounded to f16."""
+    return x.to(torch.float16).view(torch.int16).to(torch.int32) & 0xFFFF
+
+
 def apply_half_lut(arr, table):
     """Gather table[bits(x)] over an f16 array (half_lookup,
-    half.c:98-107); result dtype = table dtype."""
+    half.c:98-107); result dtype = table dtype. A tensor gathers on its
+    device from the table uploaded there once (the JAX arm's
+    ``_device_tables``)."""
+    if isinstance(arr, torch.Tensor):
+        return backend.constant(table, arr.device)[_f16_bits(arr)]
     arr = np.asarray(arr, dtype=np.float16)
     return table[arr.view(np.uint16)]
 
@@ -314,10 +324,42 @@ def _transfer(arr, name, fn):
     f16 input -> f16 LUT gather (bit-exact vs the C tables).
     f32 input -> direct formula (float32 math).
     """
+    if isinstance(arr, torch.Tensor):
+        if arr.dtype == torch.float16:
+            return apply_half_lut(arr, _luts.get(name, fn))
+        return torch_curve(name, arr.float())
     dtype = np.dtype(getattr(arr, 'dtype', np.float32))
     if dtype == np.float16:
         return apply_half_lut(arr, _luts.get(name, fn))
     return fn(np.asarray(arr, dtype=np.float32))
+
+
+def _pow_f32(x, p):
+    """f32 ``x ** p`` rounded correctly: the power taken in f64 with the
+    exponent rounded to f32 (as XLA's weak-typed constant is), then
+    rounded to f32. ``torch.pow`` in f32 is up to 5 ulps from libm's
+    ``powf`` at p = 1/0.45 on the CPU; this form is within 1 ulp of it,
+    and equal on all but ~0.07% of inputs."""
+    return torch.pow(x.double(), float(np.float32(p))).float()
+
+
+def torch_curve(name, x):
+    """Transfer curve *name* on an f32 tensor by direct formula, in the
+    JAX arm's form and op order (``_jax_transfer_fns``), the power
+    through :func:`_pow_f32`."""
+    return _TORCH_CURVES[name](x)
+
+
+_TORCH_CURVES = {
+    'rec709_to_linear_scene': lambda x: torch.where(
+        x < 4.5 * 0.018, x / 4.5, _pow_f32((x + 0.099) / 1.099, 1.0 / 0.45)),
+    'rec709_to_linear_display': lambda x: torch.where(
+        x < 0.0, 0.0, _pow_f32(x, 2.5)),
+    'linear_to_rec709': lambda x: torch.where(
+        x < 0.018, x * 4.5, 1.099 * _pow_f32(x, 0.45) - 0.099),
+    'linear_to_srgb': lambda x: torch.where(
+        x <= 0.0031308, x * 12.92, 1.055 * _pow_f32(x, 1.0 / 2.4) - 0.055),
+}
 
 
 def transfer_rec709_to_linear_scene(arr):
@@ -343,6 +385,8 @@ def gamma45_ramp_u8():
 
 def apply_gamma45_u8(arr):
     """f16 (or convertible) array -> u8 via the gamma45 ramp."""
+    if isinstance(arr, torch.Tensor):
+        return apply_half_lut(arr.to(torch.float16), gamma45_ramp_u8())
     return apply_half_lut(np.asarray(arr, dtype=np.float16),
                           gamma45_ramp_u8())
 
@@ -445,8 +489,16 @@ XYZ_TO_SRGB = np.array([
 def color_matrix(data, matrix):
     """Apply a 3x3 matrix to the rgb planes of (4, H, W) data in f32;
     alpha passes through. Returns the input's dtype (f16 data is
-    converted f16->f32->matrix->f16 like color.c:134-141)."""
+    converted f16->f32->matrix->f16 like color.c:134-141). A tensor runs
+    the product as one einsum at full f32 (TF32 off)."""
     dtype = data.dtype
+    if isinstance(data, torch.Tensor):
+        backend.ensure_initialized()
+        m = np.asarray(matrix, np.float32)
+        m = (backend.constant(m, data.device) if m is matrix
+             else backend.as_tensor(m, data.device))
+        out = torch.einsum('ij,jhw->ihw', m, data[:3].float())
+        return torch.cat([out.to(dtype), data[3:]], dim=0)
     m = np.asarray(matrix, dtype=np.float32)
     rgb = np.asarray(data[:3], dtype=np.float32)
     out = np.einsum('ij,jhw->ihw', m, rgb)
@@ -495,32 +547,15 @@ def quantize_f16_trunc(x):
     return torch.where(big, torch.where(xf < 0, -math.inf, math.inf), out)
 
 
-_tables = {}
-_tables_lock = threading.Lock()
-
-
-def _table(name, device):
-    """The f16 LUT of *name* on *device*, uploaded once per device."""
-    if name not in TRANSFERS:
-        raise ValueError('unknown transfer: %r' % (name,))
-    key = (name, str(device))
-    with _tables_lock:
-        table = _tables.get(key)
-        if table is None:
-            host = torch.from_numpy(get_lut(name))
-            table = _tables[key] = host.to(device)
-    return table
-
-
 def device_transfer(name, x16):
     """Transfer curve *name* (all four channels, the reference's LUT
     quirk) as a gather from its f16 table by the f16 bits of *x16*
     (values on the f16 grid, any float dtype); f32 out, equal to the
     pull path's ``apply_half_lut``. The counterpart of
     ``render._device_transfer``."""
-    table = _table(name, x16.device)
-    bits = x16.to(torch.float16).view(torch.int16).to(torch.int32) & 0xFFFF
-    return table[bits].float()
+    if name not in TRANSFERS:
+        raise ValueError('unknown transfer: %r' % (name,))
+    return apply_half_lut(x16, get_lut(name)).float()
 
 
 # --- export conversions (iter_batches(post=...)) ----------------------------

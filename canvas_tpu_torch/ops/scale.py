@@ -1,10 +1,13 @@
-"""Separable FIR scaling on the host: the tap builders and the NumPy
-arm of ``canvas_tpu/ops/scale.py`` (video_scale.c, filter.c).
+"""Separable FIR scaling: the tap builders and the pull path's
+``scale_bilinear`` of ``canvas_tpu/ops/scale.py`` (video_scale.c,
+filter.c).
 
 A resample along an axis is ``out[t] = sum_s W[t, s] * src[s]``, where
 ``W`` holds every per-row triangle filter at once. The planner builds
-the static taps here (``scale_plan``) and the pull path applies them
-with NumPy matrix products (``scale_bilinear``).
+the static taps here (``scale_plan``) and the pull path applies them,
+with NumPy matrix products or, on its torch arm, two f32 einsums with
+TF32 off (``scale_bilinear``). ``lanczos_weights`` is
+filter_createLanczos (filter.c:79-146), kept for API parity.
 
 Filter math (filter_createTriangle, filter.c:24-77): taps sit at
 integer positions j with |j - center| < width, where width = factor when
@@ -18,11 +21,13 @@ iff any tap lands in the source window.
 """
 
 import numpy as np
+import torch
 
+from canvas_tpu_torch import backend
 from canvas_tpu_torch.basetypes import EMPTY_BOX2I, box2i, box2i_intersect
 
-__all__ = ['triangle_weights', 'axis_matrix', 'axis_taps', 'scale_plan',
-           'scale_bilinear']
+__all__ = ['triangle_weights', 'lanczos_weights', 'axis_matrix', 'axis_taps',
+           'scale_plan', 'scale_bilinear']
 
 
 def _filter_edges(offset, reach):
@@ -69,6 +74,27 @@ def triangle_weights(sub, offset):
     coeff = (np.float32(1.0)
              - np.abs(inv * ((i - np.float32(center)) - offset)))
     return _normalize_passband(coeff.astype(np.float32), sub), center
+
+
+def lanczos_weights(sub, kernel_size, offset):
+    """Lanczos FIR coefficients + center, bit-exactly as
+    filter_createLanczos (filter.c:79-146): f32 window edges, the tap
+    formula in f64 (the C promotes through double sin), truncated back
+    to f32 per tap, sequential-f32 normalization."""
+    sub = np.float32(sub)
+    offset = np.float32(offset)
+    width = np.float32(1.0) / sub if sub < np.float32(1.0) else sub
+    n, center = _filter_edges(offset, np.float32(kernel_size * width))
+    x = ((1.0 / np.float64(width))
+         * ((np.arange(n, dtype=np.int64) - center) - np.float64(offset)))
+    with np.errstate(divide='ignore', invalid='ignore'):
+        num = kernel_size * np.sin(np.pi * x) * np.sin(np.pi * x / kernel_size)
+        val = num / (np.pi * np.pi * x * x)
+    coeff = np.where(np.isfinite(val), val, 1.0).astype(np.float32)
+    coeff = np.where(x == 0.0, np.float32(1.0), coeff)
+    coeff = np.where((x <= -kernel_size) | (x >= kernel_size),
+                     np.float32(0.0), coeff)
+    return _normalize_passband(coeff, sub), center
 
 
 def axis_matrix(factor, t_lo, t_hi, s_lo, s_hi, t_point, s_point):
@@ -201,6 +227,13 @@ def _apply_np(src, Wy, Wx):
     return np.matmul(tmp, Wx.T).astype(np.float32)
 
 
+def _apply_torch(src, Wy, Wx):
+    """The JAX arm's two contractions (``_apply_jax``) at full f32."""
+    backend.ensure_initialized()
+    tmp = torch.einsum('yh,chw->cyw', Wy, src.float())
+    return torch.einsum('xw,cyw->cyx', Wx, tmp)
+
+
 def scale_bilinear(src_data, src_full_window, src_current_window,
                    target_window, target_point, source_point, factors):
     """Scale (4, H, W) *src_data* into a target_window-sized array.
@@ -215,7 +248,11 @@ def scale_bilinear(src_data, src_full_window, src_current_window,
 
     plan = scale_plan(target_window, target_point, src_current_window,
                       source_point, factors)
+    dev = backend.torch_device_for(out_shape, src_data)
     if plan is None:
+        if dev is not None:
+            return (torch.zeros(out_shape, dtype=torch.float32, device=dev),
+                    EMPTY_BOX2I)
         return np.zeros(out_shape, np.float32), EMPTY_BOX2I
 
     Wy_full, Wx_full, out_window = plan
@@ -234,5 +271,10 @@ def scale_bilinear(src_data, src_full_window, src_current_window,
     Wx = expand(Wx_full, src_current_window.min.x, src_current_window.max.x,
                 src_full_window.min.x, src_full_window.max.x)
 
-    out = _apply_np(np.asarray(src_data), Wy, Wx)
+    if dev is not None:
+        out = _apply_torch(backend.as_tensor(src_data, dev),
+                           backend.as_tensor(Wy, dev),
+                           backend.as_tensor(Wx, dev))
+    else:
+        out = _apply_np(np.asarray(src_data), Wy, Wx)
     return out, box2i_intersect(out_window, target_window)

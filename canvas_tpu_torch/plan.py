@@ -18,7 +18,7 @@ from collections import OrderedDict
 
 import numpy as np
 
-from canvas_tpu_torch import profiling
+from canvas_tpu_torch import backend, profiling
 from canvas_tpu_torch.basetypes import box2i
 from canvas_tpu_torch.ir import Node, rel_box_array, tile_window, \
     windows_to_array
@@ -358,7 +358,14 @@ class PlanContext:
 
     def _pull_staged(self, source, f, w, lay, Hn, Wn):
         """One staged pull: whole layout window when w == lay, else a
-        semantic-window pull embedded in a layout-sized canvas."""
+        semantic-window pull embedded in a layout-sized canvas. Staging
+        pulls on the host, under the ``'numpy'`` mode whatever the
+        thread's (``canvas_tpu/render.py:634``): the stack is copied to
+        the device once, in one slab."""
+        with backend.force_backend('numpy'):
+            return self._pull_host(source, f, w, lay, Hn, Wn)
+
+    def _pull_host(self, source, f, w, lay, Hn, Wn):
         if w == lay:
             frame = source.get_frame_f16(f, self.window)
             cw = frame.current_window

@@ -20,11 +20,15 @@ queue on purpose in how a pull is made:
   one failure path. It is never answered with an eager pull: the JAX
   queue's NumPy fallback would hide a broken device path and its kernels
   behind frames that look right;
-- only a source with no ``plan_cuts`` pulls eagerly, through its NumPy
+- only a source with no ``plan_cuts`` pulls eagerly, through its
   ``get_frame_f16``.
 
-The port has no thread-local backend mode yet, so the queue carries its
-``device`` where the JAX queue captures the enqueuing thread's mode.
+Like the JAX queue, an item captures the enqueuing thread's backend
+mode (``backend.get_backend()``); the worker pulls under that mode, with
+the queue's ``device`` as its eager device, and restores its own mode
+afterwards (pool threads are reused). So an eager pull enqueued in the
+default mode runs the torch arms on the queue's device, and one
+enqueued under ``force_backend('numpy')`` arrives as NumPy.
 """
 
 import queue
@@ -43,7 +47,7 @@ __all__ = ['VideoPullQueue', 'VideoPullQueueItem']
 class VideoPullQueueItem:
     """One queued pull (VideoPullQueue.c item); returned by enqueue()."""
     __slots__ = ('source', 'frame_index', 'window', 'callback', 'data',
-                 'cancelled')
+                 'cancelled', 'backend_mode')
 
     def __init__(self, source, frame_index, window, callback, data):
         self.source = source
@@ -52,6 +56,9 @@ class VideoPullQueueItem:
         self.callback = callback
         self.data = data
         self.cancelled = False
+        # the backend mode is thread-local: capture the enqueuing
+        # thread's, so the worker pulls as the caller would have
+        self.backend_mode = backend.get_backend()
 
     def cancel(self):
         """Best-effort cancel (VideoPullQueue.c:48 volatile flag)."""
@@ -117,7 +124,8 @@ class VideoPullQueue:
         if item.cancelled:
             return
         try:
-            frame = self._render(item)
+            with backend.force_backend(item.backend_mode, self.device):
+                frame = self._render(item)
         except Exception:
             # the future is never read: an escaped exception would be
             # silently swallowed and the callback never fire, leaving
@@ -162,8 +170,8 @@ class VideoPullQueue:
     def _render(self, item):
         """One frame via a B=1 planned render when the source supports
         planning (its plan runs the device kernels), through the
-        source's NumPy pull otherwise. A planner failure raises to
-        ``_work``, which delivers None."""
+        source's eager pull (under the item's mode) otherwise. A planner
+        failure raises to ``_work``, which delivers None."""
         source, window = item.source, item.window
         if not hasattr(source, 'plan_cuts'):
             return source.get_frame_f16(item.frame_index, window)

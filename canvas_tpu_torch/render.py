@@ -45,16 +45,18 @@ import torch
 
 from canvas_tpu_torch import backend, profiling
 from canvas_tpu_torch.basetypes import box2i
-from canvas_tpu_torch.ir import (_BATCH_AXIS, _frame_params, flat_params,
-                                 signature, sliced_signature,
-                                 windows_to_array)
+from canvas_tpu_torch.ir import (  # noqa: F401 (Node: the public name)
+    _BATCH_AXIS, Node, _frame_params, flat_params, signature,
+    sliced_signature, windows_to_array)
+from canvas_tpu_torch.ops import chroma as chroma_ops
 from canvas_tpu_torch.ops import color as color_ops
 from canvas_tpu_torch.ops import cuda_ops
 from canvas_tpu_torch.ops import scale as scale_ops
 from canvas_tpu_torch.plan import PlanContext, StageLRU
 
-__all__ = ['RenderPlanner', 'box2i', 'display_matrices_host', 'flat_params',
-           'params_to_torch', 'run', 'signature', 'sliced_signature']
+__all__ = ['RenderPlanner', 'render_frames', 'Node', 'box2i',
+           'display_matrices_host', 'flat_params', 'params_to_torch', 'run',
+           'signature', 'sliced_signature']
 
 #: The transports of ``RenderPlanner.render_display``.
 DISPLAY_TRANSPORTS = ('u8', 'rgb24', 'yuv420')
@@ -201,39 +203,6 @@ def _densify(idx, w, S):
     return torch.sum(terms, dim=2)
 
 
-def _recon_math(y8, cb8, cr8, up, M):
-    """Planar YCbCr u8 stacks to linear RGBA (render.py:1175-1206,
-    1247-1267): studio-range expand, the chroma planes brought to the
-    luma size by *up*, the 3x3 YCbCr->RGB matrix *M*, alpha 1, the
-    truncating f16 grid, rec709->linear. Every contraction runs at full
-    f32."""
-    y = (y8.float() - 16.0) / 219.0
-    cb = up((cb8.float() - 128.0) / 224.0)
-    cr = up((cr8.float() - 128.0) / 224.0)
-    rgb = torch.einsum('ij,bjhw->bihw', M, torch.stack([y, cb, cr], dim=1))
-    alpha = torch.ones_like(y)[:, None]
-    rgba16 = color_ops.quantize_f16_trunc(torch.cat([rgb, alpha], dim=1))
-    return color_ops.device_transfer('rec709_to_linear_scene', rgba16)
-
-
-def _dv_recon_math(y8, cb8, cr8, U, M):
-    """DV 4:1:1 reconstruction: the chroma upsample is one matmul with U
-    (720, 180)."""
-    return _recon_math(y8, cb8, cr8,
-                       lambda c: torch.einsum('bhs,xs->bhx', c, U), M)
-
-
-def _planar_recon_math(y8, cb8, cr8, Uh, Uv, M):
-    """Generic planar reconstruction: the chroma planes upsampled on both
-    axes, as two contractions with the dense matrices Uh (W, cw) and Uv
-    (H, ch)."""
-    def up(c):
-        c = torch.einsum('bhs,xs->bhx', c, Uh)
-        return torch.einsum('bsw,hs->bhw', c, Uv)
-
-    return _recon_math(y8, cb8, cr8, up, M)
-
-
 def _eval(node_sig, params_iter, device, out_dtype=torch.float32):
     """Rebuild the computation from the structure signature on *device*,
     visiting nodes in the depth-first order of ``Node.flat_params``.
@@ -302,18 +271,20 @@ def _eval(node_sig, params_iter, device, out_dtype=torch.float32):
 
     if op == 'dv_recon_rows':
         rows = params['rows']
-        return _dv_recon_math(torch.index_select(params['py'], 0, rows),
-                              torch.index_select(params['pcb'], 0, rows),
-                              torch.index_select(params['pcr'], 0, rows),
-                              params['up'], params['m'])
+        return chroma_ops.dv_recon_torch(
+            torch.index_select(params['py'], 0, rows),
+            torch.index_select(params['pcb'], 0, rows),
+            torch.index_select(params['pcr'], 0, rows),
+            params['up'], params['m'])
 
     if op == 'dv_recon':
-        return _dv_recon_math(params['y'], params['cb'], params['cr'],
-                              params['up'], params['m'])
+        return chroma_ops.dv_recon_torch(params['y'], params['cb'],
+                                         params['cr'], params['up'],
+                                         params['m'])
 
     if op == 'planar_recon_rows':
         rows = params['rows']
-        return _planar_recon_math(
+        return chroma_ops.planar_recon_torch(
             torch.index_select(params['py'], 0, rows),
             torch.index_select(params['pcb'], 0, rows),
             torch.index_select(params['pcr'], 0, rows),
@@ -1237,6 +1208,16 @@ class RenderPlanner:
         self._stage_cache = {}
         if self._display_mats is not None:
             self._display_mats.clear()
+
+
+def render_frames(source, window, start, stop, device=None, **kw):
+    """One-call batched render of frames [start, stop) (see
+    :class:`RenderPlanner`; *device* None is CUDA)."""
+    planner = RenderPlanner(source, window, device=device)
+    try:
+        return planner.render(start, stop, **kw)
+    finally:
+        planner.close()
 
 
 def _frame_slice(v, ax, pos):

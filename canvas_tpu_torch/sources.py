@@ -5,19 +5,21 @@ The reference's `fluggo.media.process` video types (src/process/):
 EmptyVideoSource, SolidColorVideoSource, VideoPassThroughFilter,
 VideoMixFilter, VideoGainOffsetFilter, VideoScaler,
 VideoColorTransferFilter, VideoSequence, VideoWorkspace. The pull path
-(``get_frame_f16``/``get_frame_f32``) computes pixels with NumPy
-(``canvas_tpu_torch.ops``); the emitters below plan frame ranges into
-the IR the batched render evaluates (``canvas_tpu_torch.render``). The
-planner's output is the JAX package's, node for node and param for
-param.
+(``get_frame_f16``/``get_frame_f32``) computes pixels through the ops of
+``canvas_tpu_torch.ops``, on NumPy or torch as the thread's backend mode
+and the frame size choose (``canvas_tpu_torch.backend``); the emitters
+below plan frame ranges into the IR the batched render evaluates
+(``canvas_tpu_torch.render``). The planner's output is the JAX
+package's, node for node and param for param.
 """
 
 import bisect
 import threading
 
 import numpy as np
+import torch
 
-from canvas_tpu_torch import framefuncs
+from canvas_tpu_torch import backend, framefuncs
 from canvas_tpu_torch.basetypes import (EMPTY_BOX2I, INFINITE_BOX2I, box2i,
                                         box2i_intersect, box2i_union, v2f)
 from canvas_tpu_torch.frames import RgbaFrameF32, VideoSource
@@ -189,9 +191,18 @@ class VideoGainOffsetFilter(VideoSource):
         gain = framefuncs.get_f32(self.gain, frame_index)
         offset = framefuncs.get_f32(self.offset, frame_index)
 
-        scale = np.asarray([gain, gain, gain, 1.0], dtype=np.float32)
-        shift = np.asarray([offset, offset, offset, 0.0], dtype=np.float32)
-        out = frame.data * scale[:, None, None] + shift[:, None, None]
+        data = frame.data
+        dev = backend.torch_device_for(data.shape, data)
+        if dev is not None:
+            # the NumPy arm's per-channel scale and shift, as f32 scalars
+            data = backend.as_tensor(data, dev)
+            g, o = float(np.float32(gain)), float(np.float32(offset))
+            out = torch.cat([data[:3] * g + o, data[3:] * 1.0 + 0.0])
+        else:
+            scale = np.asarray([gain, gain, gain, 1.0], dtype=np.float32)
+            shift = np.asarray([offset, offset, offset, 0.0],
+                               dtype=np.float32)
+            out = data * scale[:, None, None] + shift[:, None, None]
 
         # gain/offset creates nonzero values outside the current window
         # (offset != 0); reclip to preserve the zero-outside invariant.
@@ -204,7 +215,8 @@ def _mask_outside(data, full_window, current_window):
     """Zero everything outside current_window (absolute coords)."""
     sl = window_ops.window_slices(full_window,
                                   box2i_intersect(current_window, full_window))
-    out = np.zeros_like(data)
+    out = (torch.zeros_like(data) if isinstance(data, torch.Tensor)
+           else np.zeros_like(data))
     out[:, sl[0], sl[1]] = data[:, sl[0], sl[1]]
     return out
 

@@ -11,7 +11,8 @@ the roofline probe, then the headline's export conversions, then the
 editor's display path (``render_display``, the quality <= 9 tier and the
 playback engine), then coded video and the plan cache's replays, then
 the export path at 4K, then the editor's projects through its graph
-managers, then an editor session through its UI layer. Each phase
+managers, then an editor session through its UI layer, then the eager
+pull in the default backend mode. Each phase
 prints one line or more; any failure raises
 (traceback, nonzero exit, no result line):
 
@@ -171,11 +172,30 @@ prints one line or more; any failure raises
    within 1 u8 step of the CPU's on at most 0.1% of values. ``RenderJob``
    and ``EditorApp.import_file`` reach libav (no FFmpeg there): CPU
    tests only.
+15. the eager pull on the card (``VideoSource.get_frame_f16`` in the
+   default ``'auto'`` backend mode): (a) ``backend.use_torch_for`` is
+   True at 1080p with ``eager_device()`` the card, False under
+   ``force_backend('numpy')`` and at 160x90; (b) headline frames 128, 300
+   and 511 and config7 frames 0 and 70 pulled at 1080p come back as f16
+   tensors on the card, within phase 4's (headline) and phase 6's
+   (config7) gates of the NumPy arm's pull and of a B=1 planner frame,
+   with the share bit-equal; (c) ms per pull by the host clock until the
+   host copy (median of 5 after a warm pull) at 1080p and at 160x90:
+   the torch arm, the NumPy arm and a B=1 ``RenderPlanner.render``;
+   (d) ``process.time_get_frame`` over headline frames 128..255 and
+   config7 frames 0..15: the planner branch, whose kernels must launch
+   (solid_fold and region_over_sep; region_over), then
+   ``force_eager=True`` over 4 frames each with no kernel launch, the
+   nanoseconds of each; (e) a ``process.VideoPullQueue`` on the card
+   pulling a source without ``plan_cuts``: enqueued from a thread in the
+   default mode its frame arrives as a tensor on the card, enqueued under
+   ``force_backend('numpy')`` as NumPy, within 2e-3 of each other.
 
 Each path (the headline, the mixed timeline, the studies' timing runs,
 the export posts, the display path, the coded composite, the replays,
-each post's checked pass of the 4K export, the editor's passes and the
-editor session's) runs
+each post's checked pass of the 4K export, the editor's passes, the
+editor session's and phase 15's ``time_get_frame`` planner branches)
+runs
 with every launch counter set to 0 just before it and read just after;
 the kernels line
 reports each kernel's launches in those runs, its time, its plain
@@ -190,8 +210,9 @@ The line before the last is the card's nvidia-smi line; the last line is
 ``{"ok": true, "device": {...}}``. Run from the repository root with no
 arguments: ``python3 chip_smoke.py``. An import hook refuses JAX, the
 JAX package (``canvas_tpu``) and the root scripts (``bench``,
-``benchmarks``, ``scripts``): the port runs on its own, and its pull
-path on NumPy.
+``benchmarks``, ``scripts``): the port runs on its own. Phases 4-14
+hold the card against the NumPy pull path, pinned with
+``force_backend('numpy')``; phase 15 drives the default-mode pull.
 """
 
 import importlib.abc
@@ -457,8 +478,7 @@ def _transfer_clip(tag):
     src = timelines.transfer_timeline(1024)
     window = box2i(0, 0, 1279, 719)
     got = RenderPlanner(src, window).render(300, 304)
-    want = np.stack([np.asarray(src.get_frame_f16(i, window).data,
-                                np.float16) for i in range(300, 304)])
+    want = np.stack([_numpy_pull(src, i, window) for i in range(300, 304)])
     share = _bit_share(got, want)
     print('phase 4 transfer clip: frames 300..303 of '
           'timelines.transfer_timeline(1024) at 1280x720, finite=%s, %.5f '
@@ -489,10 +509,22 @@ def _bit_share(a, b):
     return float(np.mean(a.view(np.uint16) == b.view(np.uint16)))
 
 
-def _pull_stack(src, window, frames):
+def _numpy_pull(src, i, window, dtype='float16'):
+    """Frame *i* of *src* through the NumPy pull path (the eager pull's
+    NumPy arm, pinned with ``force_backend('numpy')``: in the default
+    mode a frame this size would take the torch arms on the card)."""
     import numpy as np
-    return {i: np.asarray(src.get_frame_f16(i, window).data, np.float16)
-            for i in frames}
+
+    from canvas_tpu_torch import backend
+    with backend.force_backend('numpy'):
+        data = src.get_frame_f16(i, window).data
+    if not isinstance(data, np.ndarray):
+        raise AssertionError('a NumPy pull returned %s' % type(data))
+    return data.astype(dtype)
+
+
+def _pull_stack(src, window, frames):
+    return {i: _numpy_pull(src, i, window) for i in frames}
 
 
 def _vs_pull(what, picked, want):
@@ -1889,7 +1921,7 @@ def _export_4k(tag):
         for i in (0, 63):
             if s <= i < s + n:
                 picked[i] = out[i - s].clone()
-    want0 = np.asarray(ws.get_frame_f16(0, window).data, np.float16)
+    want0 = _numpy_pull(ws, 0, window)
     err_pull = float(np.abs(picked[0].cpu().numpy().astype(np.float32)
                             - want0.astype(np.float32)).max())
     if not bool(torch.isfinite(picked[0]).all()) or err_pull > 2e-3:
@@ -2144,7 +2176,7 @@ def _editor_edit(tag, window, space_asset, video):
     for f in (299, 300):
         s, n, out = next(b for b in edited if b[0] <= f < b[0] + b[1])
         got = out[f - s].float().cpu().numpy()
-        want = np.asarray(video.get_frame_f16(f, window).data, np.float32)
+        want = _numpy_pull(video, f, window, 'float32')
         errs[f] = float(np.abs(got - want).max())
         if not np.isfinite(got).all() or errs[f] > 2e-3:
             raise AssertionError('edited frame %d differs from the pull path '
@@ -2876,6 +2908,248 @@ def _editor_session(tag, window, device=None):
     return launches
 
 
+#: Phase 15's small pull: 14,400 pixels, under the eager pull's
+#: 16,384-pixel threshold.
+SMALL_PULL = (160, 90)
+
+
+class _EagerOnly:
+    """A source without ``plan_cuts``: a pull queue pulls it eagerly,
+    through this delegate's ``get_frame_f16``."""
+
+    def __init__(self, source):
+        self.source = source
+
+    def get_frame_f16(self, frame_index, window):
+        return self.source.get_frame_f16(frame_index, window)
+
+
+def _median_ms(fn, reps=5):
+    """Median host-clock ms of *fn* over *reps* runs after one warm run."""
+    import numpy as np
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _gate(what, got, want, atol, min_share):
+    """(max diff, share bit-equal) of two f16 frames; raises beyond
+    *atol* or under *min_share* bit-equal."""
+    import numpy as np
+    err = float(np.abs(got.astype(np.float32)
+                       - want.astype(np.float32)).max())
+    share = _bit_share(got, want)
+    if not np.isfinite(got).all() or err > atol or share < min_share:
+        raise AssertionError('%s: max diff %r, %.5f bit-equal (atol %r, '
+                             '>= %r)' % (what, err, share, atol, min_share))
+    return err, share
+
+
+def _queue_pull(queue, source, frame_index, window, mode):
+    """The frame a pull queue delivers for a pull enqueued from a new
+    thread, under backend mode *mode* (None: that thread's default)."""
+    import threading
+
+    from canvas_tpu_torch import backend
+    done = threading.Event()
+    got = {}
+
+    def deliver(_i, frame, _data):
+        got['frame'] = frame
+        done.set()
+
+    def enqueue():
+        if mode is None:
+            queue.enqueue(source, frame_index, window, deliver)
+        else:
+            with backend.force_backend(mode):
+                queue.enqueue(source, frame_index, window, deliver)
+
+    t = threading.Thread(target=enqueue)
+    t.start()
+    t.join()
+    if not done.wait(120) or got['frame'] is None:
+        raise AssertionError('the pull queue delivered %r' % (got,))
+    return got['frame']
+
+
+def _eager_pull(tag, window, device=None):
+    """Phase 15: the eager pull on the card. (a) the dispatch's branches;
+    (b) default-mode pulls of the headline and config7 at full size
+    against the NumPy arm and a planner frame; (c) ms per pull at full
+    size and at 160x90, three ways; (d) ``process.time_get_frame``'s
+    planner branch (its kernels must launch) and eager branch (none may);
+    (e) a ``process.VideoPullQueue`` delivering eager pulls captured in
+    the default mode and under 'numpy'. Returns (d)'s planner-branch
+    launches. ``device='cpu'`` rehearses it on the host (launches not
+    checked, None returned)."""
+    import numpy as np
+    import torch
+
+    from canvas_tpu_torch import backend, process, timelines
+    from canvas_tpu_torch.render import RenderPlanner, box2i
+
+    card = device is None
+    started = time.perf_counter()
+    H, W = window.height, window.width
+    head = timelines.build_timeline(1024)
+    mixed = timelines.mixed_timeline(256)
+    with backend.force_backend('auto', device):
+        # (a) dispatch, each branch asserted
+        dev = backend.eager_device()
+        assert backend.get_backend() == 'auto'
+        assert backend.use_torch_for((4, H, W)) is True
+        assert dev.type == ('cuda' if card else 'cpu')
+        with backend.force_backend('numpy'):
+            assert backend.use_torch_for((4, H, W)) is False
+        assert backend.use_torch_for((4, SMALL_PULL[1], SMALL_PULL[0])) \
+            is False
+        print('phase 15a dispatch: default mode %r, use_torch_for((4, %d, '
+              '%d)) True on %s, False under force_backend(\'numpy\'), False '
+              'at %dx%d (%d pixels, threshold %d) %s'
+              % (backend.get_backend(), H, W, dev, SMALL_PULL[0],
+                 SMALL_PULL[1], SMALL_PULL[0] * SMALL_PULL[1],
+                 backend.device_pixel_threshold, tag), flush=True)
+
+        # (b) default-mode pulls on the card against the NumPy arm and
+        # the planner
+        cases = ([('headline', head, f, 2e-3, 0.0) for f in (128, 300, 511)]
+                 + [('config7', mixed, f, 1e-2, 0.99) for f in (0, 70)])
+        rows = []
+        for name, src, f, atol, min_share in cases:
+            frame = src.get_frame_f16(f, window)
+            if (not isinstance(frame.data, torch.Tensor)
+                    or frame.data.device.type != dev.type
+                    or frame.data.dtype != torch.float16):
+                raise AssertionError('%s frame %d pulled as %r'
+                                     % (name, f, type(frame.data)))
+            got = backend.to_host(frame.data).numpy()
+            planner = RenderPlanner(src, window, device=dev)
+            planned = planner.render(f, f + 1)[0]
+            planner.close()
+            rows.append((name, f)
+                        + _gate('%s %d vs the NumPy arm' % (name, f), got,
+                                _numpy_pull(src, f, window), atol, min_share)
+                        + _gate('%s %d vs the planner' % (name, f), got,
+                                planned, atol, min_share))
+        print('phase 15b eager pulls at %dx%d in the default mode (data on '
+              '%s): %s; [max diff, share bit-equal] vs the NumPy arm, then '
+              'vs a B=1 planner frame (headline atol 2e-3; config7 atol '
+              '1e-2, >= 0.99 bit-equal) %s'
+              % (W, H, dev, '; '.join(
+                  '%s %d [%.3g, %.5f] [%.3g, %.5f]' % r for r in rows), tag),
+              flush=True)
+
+        # (c) ms per pull, host clock until the host copy
+        small = box2i(0, 0, SMALL_PULL[0] - 1, SMALL_PULL[1] - 1)
+        timing = {}
+        for name, src, f in (('headline', head, 300), ('config7', mixed, 70)):
+            for size, win in (('%dx%d' % (W, H), window),
+                              ('%dx%d' % SMALL_PULL, small)):
+                def torch_pull():
+                    with backend.force_backend('torch', device):
+                        backend.to_host(src.get_frame_f16(f, win).data)
+
+                def numpy_pull():
+                    with backend.force_backend('numpy'):
+                        src.get_frame_f16(f, win)
+
+                planner = RenderPlanner(src, win, device=dev)
+                timing[name, size] = (
+                    _median_ms(torch_pull), _median_ms(numpy_pull),
+                    _median_ms(lambda: planner.render(f, f + 1)))
+                planner.close()
+        print('phase 15c ms per pull (host clock until the host copy, median '
+              'of 5 after one warm pull), [torch arm, NumPy arm, B=1 '
+              'RenderPlanner.render]: %s %s'
+              % ('; '.join('%s frame %s %s [%.3f, %.3f, %.3f]'
+                           % ((k[0], dict(headline=300, config7=70)[k[0]],
+                               k[1]) + v) for k, v in timing.items()), tag),
+              flush=True)
+        if card:
+            # one full-size torch-arm pull taken apart: the device's
+            # share of the pull's median wall time
+            parts = []
+            for name, src, f in (('headline', head, 300),
+                                 ('config7', mixed, 70)):
+                rows, dev_ms = _profile_kernels(
+                    lambda: backend.to_host(
+                        src.get_frame_f16(f, window).data))
+                wall = timing[name, '%dx%d' % (W, H)][0]
+                parts.append('%s %.3f ms in %d kernels, idle share %.3f '
+                             'of %.3f ms (top: %s)' % (
+                                 name, dev_ms, sum(r[2] for r in rows),
+                                 1.0 - dev_ms / wall, wall, '; '.join(
+                                     '%s %.3f ms x%d' % (k[:60], ms, n)
+                                     for k, ms, n in rows[:3])))
+            print('phase 15c a torch-arm pull at %dx%d taken apart '
+                  '(torch.profiler, device time): %s %s'
+                  % (W, H, ' | '.join(parts), tag), flush=True)
+
+        # (d) time_get_frame: the planner branch through the kernels, the
+        # eager branch through the torch arms alone
+        ns = {}
+        launches = {}
+        for name, src, lo, hi in (('headline', head, 128, 255),
+                                  ('config7', mixed, 0, 15)):
+            _zero_launch_counts()
+            ns[name] = process.time_get_frame(src, lo, hi, window)
+            launches[name] = _launch_counts()
+        _zero_launch_counts()
+        for name, src, lo in (('headline', head, 128), ('config7', mixed, 0)):
+            ns[name + ' eager'] = process.time_get_frame(
+                src, lo, lo + 3, window, force_eager=True)
+        eager_launches = _launch_counts()
+        print('phase 15d time_get_frame at %dx%d: headline 128..255 planner '
+              'branch %d ns, launches %s; config7 0..15 planner branch %d ns, '
+              'launches %s; force_eager over 4 frames: headline %d ns, '
+              'config7 %d ns, launches %s %s'
+              % (W, H, ns['headline'], json.dumps(launches['headline']),
+                 ns['config7'], json.dumps(launches['config7']),
+                 ns['headline eager'], ns['config7 eager'],
+                 json.dumps(eager_launches), tag), flush=True)
+        if card and (launches['headline']['solid_fold'] <= 0
+                     or launches['headline']['region_over_sep'] <= 0
+                     or launches['config7']['region_over'] <= 0
+                     or any(eager_launches.values())):
+            raise AssertionError('time_get_frame launched %r (eager %r)'
+                                 % (launches, eager_launches))
+
+    # (e) the pull queue: eager pulls under the captured mode
+    queue = process.VideoPullQueue(device=device)
+    try:
+        src = _EagerOnly(head)
+        on_card = _queue_pull(queue, src, 300, window, None)
+        on_host = _queue_pull(queue, src, 300, window, 'numpy')
+    finally:
+        queue.close()
+    if (not isinstance(on_card.data, torch.Tensor)
+            or on_card.data.device.type != dev.type):
+        raise AssertionError('the queue\'s default-mode pull arrived as %r'
+                             % type(on_card.data))
+    if not isinstance(on_host.data, np.ndarray):
+        raise AssertionError('the queue\'s numpy-mode pull arrived as %r'
+                             % type(on_host.data))
+    qerr = _gate('queue pull', backend.to_host(on_card.data).numpy(),
+                 on_host.data, 2e-3, 0.0)
+    print('phase 15e VideoPullQueue on %s, a source without plan_cuts, '
+          'headline frame 300: enqueued in the default mode -> %s data on '
+          '%s, under force_backend(\'numpy\') -> %s; max diff %.3g (%.5f '
+          'bit-equal, atol 2e-3) %s'
+          % (queue.device, type(on_card.data).__name__, on_card.data.device,
+             type(on_host.data).__name__, qerr[0], qerr[1], tag), flush=True)
+    total = {k: launches['headline'][k] + launches['config7'][k]
+             for k in launches['headline']}
+    print('phase 15 eager pull: %.1f s; launches %s %s'
+          % (time.perf_counter() - started, json.dumps(total), tag),
+          flush=True)
+    return total if card else None
+
+
 def main():
     sys.meta_path.insert(0, _Refuse())
     import numpy as np
@@ -3033,7 +3307,7 @@ def main():
         picked[1000] = out[0].cpu().numpy()
     errs = {}
     for i in (0, 130, 1000):
-        want = np.asarray(ws.get_frame_f16(i, window).data, np.float16)
+        want = _numpy_pull(ws, i, window)
         errs[i] = float(np.abs(picked[i].astype(np.float32)
                                - want.astype(np.float32)).max())
         if not np.isfinite(picked[i]).all() or errs[i] > 2e-3:
@@ -3137,10 +3411,14 @@ def main():
     torch.cuda.empty_cache()
     session_launches = _editor_session(tag, window)
 
+    # 15. the eager pull on the card
+    torch.cuda.empty_cache()
+    eager_launches = _eager_pull(tag, window)
+
     total = {k: (launches[k] + mixed_launches[k] + post_launches[k]
                  + display_launches[k] + replay_launches[k]
                  + export_launches[k] + editor_launches[k]
-                 + session_launches[k])
+                 + session_launches[k] + eager_launches[k])
              for k in mixed_launches}
     fold_bound, fold_by = _bound(fold_bytes, fold_ops)
     reg_bound, reg_by = _bound(reg_bytes, reg_ops)

@@ -32,6 +32,7 @@ from canvas_tpu import render as ref_render
 from canvas_tpu import sources as ref_sources
 from canvas_tpu.basetypes import box2i as ref_box2i
 from canvas_tpu.ops import chroma as ref_chroma
+from canvas_tpu_torch import backend as port_backend
 from canvas_tpu_torch import coded as port_coded
 from canvas_tpu_torch import framefuncs as port_framefuncs
 from canvas_tpu_torch import ir
@@ -97,10 +98,12 @@ def _frames_close(got, want):
 
 
 def _pull(source, window, start, stop):
-    """The NumPy pull path's f16 frames (zeros where the frame is empty)."""
+    """The NumPy pull path's f16 frames (zeros where the frame is empty),
+    pinned to the eager pull's NumPy arm."""
     out = []
     for i in range(start, stop):
-        frame = source.get_frame_f16(i, window)
+        with port_backend.force_backend('numpy'):
+            frame = source.get_frame_f16(i, window)
         out.append(np.asarray(frame.data, np.float16)
                    if not frame.current_window.empty()
                    else np.zeros((4, window.height, window.width),
@@ -177,7 +180,9 @@ def test_subsample_filters_match_jax(kind, numpy_backend):
 
     got, want = graph(PORT), graph(REF)
     for f in (0, 3):
-        g, w = got.get_frame(f), want.get_frame(f)
+        with port_backend.force_backend('numpy'):
+            g = got.get_frame(f)
+        w = want.get_frame(f)
         assert isinstance(g, port_coded.CodedImage) and len(g) == len(w) == 3
         for i in range(3):
             np.testing.assert_array_equal(np.asarray(g[i]), np.asarray(w[i]))

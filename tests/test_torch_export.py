@@ -41,6 +41,7 @@ from canvas_tpu import render as ref_render
 from canvas_tpu import sources as ref_sources
 from canvas_tpu.basetypes import box2i as ref_box2i
 from canvas_tpu_torch import audio, coded, framefuncs, ir, libav, sources
+from canvas_tpu_torch import backend as port_backend
 from canvas_tpu_torch import render as port
 from canvas_tpu_torch import timelines, x264
 from canvas_tpu_torch.basetypes import box2i
@@ -170,8 +171,10 @@ def test_unbatched_path_matches_batched(tmp_path, monkeypatch):
     monkeypatch.setenv('CANVAS_AV_THREADS', '1')
     pulled = _capture(libav, monkeypatch)
     ref_pulled = _capture(ref_libav, monkeypatch)
-    libav.write_video(str(tmp_path / 'b.avi'), timelines.build_timeline(64),
-                      None, 20, 27, device='cpu', use_batch=False, **kw)
+    with port_backend.force_backend('numpy'):
+        libav.write_video(str(tmp_path / 'b.avi'),
+                          timelines.build_timeline(64), None, 20, 27,
+                          device='cpu', use_batch=False, **kw)
     ref_libav.write_video(str(tmp_path / 'c.avi'), bench.build_timeline(64),
                           None, 20, 27, use_batch=False, **kw)
     _same_frames(pulled, batched)
@@ -293,7 +296,8 @@ def test_planar_encoder_matches_jax(through):
         return mod.AVVideoEncoder(src, 0, 5, **kw)
 
     got, want = make(PORT, libav), make(REF, ref_libav)
-    packets = _drain(got)
+    with port_backend.force_backend('numpy'):
+        packets = _drain(got)
     assert len(packets) == 6
     assert packets == _drain(want)
     assert got.progress == want.progress

@@ -22,7 +22,9 @@ mixed-content frame (DV clips through
 scalers: f32 matmuls summed in cuBLAS's order) is held to the slice's
 tolerance, atol=1e-2 with at least 99% of values bit-equal, and so are
 the pulldown and planar clips; a replay from the plan cache is
-bit-equal to the first pass on the same card.
+bit-equal to the first pass on the same card. A default-mode eager
+pull at 1080p (the torch arms on the card) is held to the same gates
+against the NumPy arm's pull.
 """
 
 import numpy as np
@@ -861,3 +863,50 @@ def test_qt_widget_on_card_with_fake_binding(cuda):
         qt_mod._qt = old
         fake_qt.QPainter.instances.clear()
     assert np.array_equal(frames[None], frames['cpu'])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('name, frame', [('headline', 300), ('config7', 70)])
+def test_eager_pull_on_card_matches_numpy_pull(cuda, name, frame):
+    """A 1080p ``get_frame_f16`` in the default backend mode runs the
+    torch arms on the card: its data is a CUDA tensor within the
+    rendered-frame gate of the NumPy arm's pull (headline atol 2e-3;
+    config7 atol 1e-2 with at least 99% of values bit-equal)."""
+    from canvas_tpu_torch import backend, timelines
+    from canvas_tpu_torch.render import box2i
+    src = (timelines.build_timeline(1024) if name == 'headline'
+           else timelines.mixed_timeline(256))
+    window = box2i(0, 0, 1919, 1079)
+    assert backend.get_backend() == 'auto'
+    got = src.get_frame_f16(frame, window)
+    assert isinstance(got.data, torch.Tensor) and got.data.is_cuda
+    with backend.force_backend('numpy'):
+        want = src.get_frame_f16(frame, window)
+    assert isinstance(want.data, np.ndarray)
+    assert got.current_window == want.current_window
+    g = got.to_numpy()
+    atol, share = (2e-3, 0.0) if name == 'headline' else (1e-2, 0.99)
+    assert float(np.abs(g.astype(np.float32)
+                        - want.data.astype(np.float32)).max()) <= atol
+    assert float(np.mean(g.view(np.uint16)
+                         == want.data.view(np.uint16))) >= share
+
+
+@pytest.mark.gpu
+def test_time_get_frame_planner_branch_launches_kernels(cuda):
+    """``process.time_get_frame`` over headline frames at 1080p in the
+    default mode takes its planner branch on the card: ``solid_fold``
+    and ``region_over_sep`` launch; ``force_eager=True`` launches
+    neither."""
+    from canvas_tpu_torch import process, timelines
+    from canvas_tpu_torch.render import box2i
+    src = timelines.build_timeline(1024)
+    window = box2i(0, 0, 1919, 1079)
+    before = (co.solid_fold.launches, co.region_over_sep.launches)
+    ns = process.time_get_frame(src, 128, 159, window)
+    after = (co.solid_fold.launches, co.region_over_sep.launches)
+    assert isinstance(ns, int) and ns > 0
+    assert after[0] > before[0] and after[1] > before[1]
+    ns = process.time_get_frame(src, 128, 129, window, force_eager=True)
+    assert isinstance(ns, int) and ns > 0
+    assert (co.solid_fold.launches, co.region_over_sep.launches) == after

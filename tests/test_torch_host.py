@@ -12,10 +12,10 @@ package's, on the CPU.
   ``np.array_equal`` with the same dtype, staged stacks (device tensors
   in the port) equal by content, and the same per-node window metadata.
 - Pull parity: each copied source class gives get_frame_f32 and
-  get_frame_f16 bit-equal to the JAX package's NumPy pull
-  (``force_backend('numpy')``), as do the frame functions, the box
-  algebra on seeded inputs and the public module's frame-time helpers
-  (``canvas_tpu_torch.process``).
+  get_frame_f16 bit-equal to the JAX package's NumPy pull, each package
+  pinned to its NumPy arm (``force_backend('numpy')``), as do the frame
+  functions, the box algebra on seeded inputs and the public module's
+  frame-time helpers (``canvas_tpu_torch.process``).
 - A static scan: no module of the port, and not chip_smoke.py, imports
   the JAX package, the root scripts or JAX.
 """
@@ -35,6 +35,7 @@ from canvas_tpu import framefuncs as ref_framefuncs
 from canvas_tpu import frames as ref_frames
 from canvas_tpu import render as ref_render
 from canvas_tpu import sources as ref_sources
+from canvas_tpu_torch import backend as port_backend
 from canvas_tpu_torch import basetypes as port_basetypes
 from canvas_tpu_torch import coded as port_coded
 from canvas_tpu_torch import framefuncs as port_framefuncs
@@ -214,7 +215,8 @@ def test_pull_matches_jax(kind, numpy_backend):
         for f in (0, 1, 4, 7):
             for getter in ('get_frame_f32', 'get_frame_f16'):
                 want = getattr(ref, getter)(f, rwin)
-                have = getattr(got, getter)(f, pwin)
+                with port_backend.force_backend('numpy'):
+                    have = getattr(got, getter)(f, pwin)
                 assert tuple(have.current_window.min) == tuple(
                     want.current_window.min)
                 assert tuple(have.current_window.max) == tuple(
@@ -231,7 +233,9 @@ def test_timeline_pull_matches_jax(built, name, numpy_backend):
     ref_ws, port_ws = built[name]
     for f in (0, 5):
         want = ref_ws.get_frame_f16(f, ref_basetypes.box2i(0, 0, 319, 179))
-        have = port_ws.get_frame_f16(f, port_basetypes.box2i(0, 0, 319, 179))
+        with port_backend.force_backend('numpy'):
+            have = port_ws.get_frame_f16(f, port_basetypes.box2i(0, 0, 319,
+                                                                 179))
         np.testing.assert_array_equal(have.data.view(np.uint16),
                                       np.asarray(want.data).view(np.uint16))
 

@@ -39,6 +39,7 @@ from canvas_tpu import frames as ref_frames
 from canvas_tpu import render as ref_render
 from canvas_tpu import sources as ref_sources
 from canvas_tpu.basetypes import box2i as ref_box2i
+from canvas_tpu_torch import backend as port_backend
 from canvas_tpu_torch import coded as port_coded
 from canvas_tpu_torch import framefuncs as port_framefuncs
 from canvas_tpu_torch import frames as port_frames
@@ -285,7 +286,8 @@ def test_host_staged_graph_matches_jax_and_pull():
         _staged_graph(REF)[0], ref_box2i(0, 0, 255, 127), 2, 9))
     np.testing.assert_array_equal(got, want)
     for i in (2, 8):
-        pull = np.asarray(ws.get_frame_f16(i, window).data, np.float16)
+        with port_backend.force_backend('numpy'):
+            pull = np.asarray(ws.get_frame_f16(i, window).data, np.float16)
         np.testing.assert_array_equal(got[i - 2], pull)
 
 
@@ -343,8 +345,9 @@ def test_mixed_timeline_1080p_matches_jax(ref_mixed, mixed_1080p):
 
 @pytest.mark.parametrize('frame', [0, 3])
 def test_mixed_timeline_1080p_matches_pull(mixed, mixed_1080p, frame):
-    pull = np.asarray(mixed.get_frame_f16(frame, box2i(*W1080)).data,
-                      np.float16)
+    with port_backend.force_backend('numpy'):
+        pull = np.asarray(mixed.get_frame_f16(frame, box2i(*W1080)).data,
+                          np.float16)
     _f16_close(mixed_1080p[frame], pull, 1e-2, 0.99)
 
 
@@ -400,5 +403,6 @@ def test_small_dv_graph_matches_jax_and_pull():
         _small_dv_graph(REF)[0], ref_box2i(0, 0, 1279, 719), 2, 5))
     _f16_close(got, want, 1e-2, 0.99)
     for i in (2, 4):
-        pull = np.asarray(ws.get_frame_f16(i, window).data, np.float16)
+        with port_backend.force_backend('numpy'):
+            pull = np.asarray(ws.get_frame_f16(i, window).data, np.float16)
         _f16_close(got[i - 2], pull, 1e-2, 0.99)

@@ -24,8 +24,11 @@ editor's UI layer (``canvas_tpu_torch.editor.ui``, its entry point
 ``canvas_tpu_torch.editor.__main__``), pulls a crossfade
 (``transitions``) through a ``pullqueue.VideoPullQueue``, plays a tone
 through an ``audioout.AudioPlayer``, and opens the headline project in
-an ``EditorApp`` whose thumbnails and painted timeline it takes; and
-nothing it runs even tries
+an ``EditorApp`` whose thumbnails and painted timeline it takes; pulls
+through the torch arms on the CPU and times both branches of
+``process.time_get_frame`` there, and reaches the rest of ``process``'s
+names (the pull queue, ``NS_PER_SEC``, the shims); and nothing it runs
+even tries
 such an import (a refused attempt could be swallowed by an
 optional-import probe, so attempts are recorded)."""
 
@@ -36,7 +39,9 @@ import textwrap
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-SCRIPT = textwrap.dedent('''
+#: The import blocker every script here starts with: it refuses JAX, the
+#: JAX package and the root scripts, and records each attempt.
+BLOCKER = textwrap.dedent('''
     import importlib.abc
     import sys
     import time
@@ -54,11 +59,14 @@ SCRIPT = textwrap.dedent('''
             return None
 
     sys.meta_path.insert(0, NoJax())
+''')
+
+SCRIPT = BLOCKER + textwrap.dedent('''
     import numpy as np
     import canvas_tpu_torch
     import canvas_tpu_torch.ops.cuda_ops
     from canvas_tpu_torch.render import RenderPlanner, box2i
-    from canvas_tpu_torch import process, timelines
+    from canvas_tpu_torch import backend, process, timelines
 
     ws = timelines.build_timeline(64)
     planner = RenderPlanner(ws, box2i(0, 0, 319, 179), device='cpu')
@@ -87,14 +95,15 @@ SCRIPT = textwrap.dedent('''
                            box2i(1800, 1000, 1919, 1079), device='cpu')
     out = planar.render(0, 2)
     assert out.shape == (2, 4, 80, 120) and np.isfinite(out).all()
-    coded = process.MPEG2SubsampleFilter(process.SolidColorVideoSource(
-        (0.5, 0.25, 0.125, 1.0))).get_frame(0)
-    back = process.PlanarReconstructionFilter(
-        type('One', (process.CodedImageSource,),
-             {'get_frame': lambda self, i, quality=0: coded})())
-    px = back.get_frame_f32(0, box2i(0, 0, 719, 479)).data[:, 100, 100]
-    assert np.abs(px - (0.5, 0.25, 0.125, 1.0)).max() < 0.02, px
-    assert len(process.DVSubsampleFilter(back).get_frame(0)) == 3
+    with backend.force_backend('numpy'):
+        coded = process.MPEG2SubsampleFilter(process.SolidColorVideoSource(
+            (0.5, 0.25, 0.125, 1.0))).get_frame(0)
+        back = process.PlanarReconstructionFilter(
+            type('One', (process.CodedImageSource,),
+                 {'get_frame': lambda self, i, quality=0: coded})())
+        px = back.get_frame_f32(0, box2i(0, 0, 719, 479)).data[:, 100, 100]
+        assert np.abs(px - (0.5, 0.25, 0.125, 1.0)).max() < 0.02, px
+        assert len(process.DVSubsampleFilter(back).get_frame(0)) == 3
 
     class Custom(process.VideoSource):
         def _render_f16(self, frame_index, frame):
@@ -201,10 +210,11 @@ SCRIPT = textwrap.dedent('''
     stack.push(model.InsertItemCommand(space, clip, 0))
     stack.push(model.AdjustClipLengthCommand(clip, -4))
     edited = timelines.editor_video(assets['s'])
-    assert edited.get_frame_f16(9, box2i(0, 0, 319, 179)) \
-        .current_window.empty()
-    assert not edited.get_frame_f16(5, box2i(0, 0, 319, 179)) \
-        .current_window.empty()
+    with backend.force_backend('numpy'):
+        assert edited.get_frame_f16(9, box2i(0, 0, 319, 179)) \
+            .current_window.empty()
+        assert not edited.get_frame_f16(5, box2i(0, 0, 319, 179)) \
+            .current_window.empty()
     project = yamlio.load(yamlio.dump(model.Project(assets=assets)))
     project.fixup()
     assert len(project.assets['s'].space) == 1
@@ -259,6 +269,30 @@ SCRIPT = textwrap.dedent('''
         editor.space[0]: painter.thumbnail(0)})
     assert buf.shape == (60, 160, 4)
     app.close()
+
+    # the eager pull and the rest of process: time_get_frame's two
+    # branches with the torch arms on the CPU, and the shims
+    with backend.force_backend('torch', 'cpu'):
+        head = timelines.build_timeline(64)
+        win = box2i(0, 0, 319, 179)
+        frame = head.get_frame_f16(3, win)
+        assert type(frame.data).__name__ == 'Tensor', type(frame.data)
+        assert process.time_get_frame(head, 0, 3, win) > 0
+        assert process.time_get_frame(head, 0, 1, win, force_eager=True) > 0
+    assert process.VideoPullQueue is canvas_tpu_torch.pullqueue.VideoPullQueue
+    assert process.NS_PER_SEC == canvas_tpu_torch.NS_PER_SEC == 10 ** 9
+    assert isinstance(process.check_context_supported(), bool)
+    assert process.enable_glib_logging() is None
+    try:
+        process.Offscreen()
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError('Offscreen() did not raise')
+    from canvas_tpu_torch import profiling, render as port_render
+    assert port_render.Node is canvas_tpu_torch.ir.Node
+    assert profiling.timed is profiling.Timer
+    assert canvas_tpu_torch.libav.available() in (True, False)
 
     loaded = sorted(m for m in sys.modules if m.split('.')[0] in REFUSED)
     assert not loaded, loaded

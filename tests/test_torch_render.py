@@ -31,6 +31,7 @@ import bench
 from canvas_tpu import render as ref_render
 from canvas_tpu import sources as ref_sources
 from canvas_tpu.basetypes import box2i as ref_box2i
+from canvas_tpu_torch import backend as port_backend
 from canvas_tpu_torch import render as port
 from canvas_tpu_torch import timelines
 from canvas_tpu_torch.basetypes import box2i
@@ -127,7 +128,9 @@ def test_render_matches_pull_path(timeline, frame):
     window = box2i(*W960)
     got = port.RenderPlanner(timeline, window, device='cpu').render(
         frame, frame + 1)
-    want = np.asarray(timeline.get_frame_f16(frame, window).data, np.float16)
+    with port_backend.force_backend('numpy'):
+        want = np.asarray(timeline.get_frame_f16(frame, window).data,
+                          np.float16)
     assert got.shape == (1,) + want.shape and got.dtype == np.float16
     np.testing.assert_allclose(got[0].astype(np.float32),
                                want.astype(np.float32), rtol=0, atol=2e-3)

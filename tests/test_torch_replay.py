@@ -22,6 +22,7 @@ from canvas_tpu import framefuncs as ref_framefuncs
 from canvas_tpu import render as ref_render
 from canvas_tpu import sources as ref_sources
 from canvas_tpu.basetypes import box2i as ref_box2i
+from canvas_tpu_torch import backend as port_backend
 from canvas_tpu_torch import coded as port_coded
 from canvas_tpu_torch import framefuncs as port_framefuncs
 from canvas_tpu_torch import plan as port_plan
@@ -184,7 +185,8 @@ def test_range_invalidation_keeps_untouched_plans():
     got = {s: o for s, _n, o in _stream(planner, 0, 64, 8)}
     assert planner._plan_cache[((0, 32), 8, None, 10)][0] is kept
     for i in (0, 40):
-        want = np.asarray(ws.get_frame_f16(i, window).data, np.float16)
+        with port_backend.force_backend('numpy'):
+            want = np.asarray(ws.get_frame_f16(i, window).data, np.float16)
         np.testing.assert_array_equal(got[(i // 8) * 8][i % 8], want,
                                       err_msg='frame %d' % i)
     # an edit elsewhere keeps both; without a range everything goes
