@@ -39,8 +39,11 @@ Device side:
   display transports;
 - ``staging``: pipelined host-to-device staging on pinned memory;
 - ``render``: the torch evaluator of the planner's IR and a
-  ``RenderPlanner`` that streams batches through it and pulls single
+  ``RenderPlanner`` that streams batches through it (over a device mesh
+  too: ``iter_batches(mesh=)``, ``render_sharded``) and pulls single
   display frames (``render_display``);
+- ``mesh``: device meshes (a device may stand in one more than once),
+  replicated staged stacks and frames sharded over a mesh;
 - ``playback``: the clock-driven ``VideoPlaybackEngine``;
 - ``libav``: media IO over the port's own build of
   ``native/canvas_av.cpp`` (demux, decode, mux, packet encoders), and

@@ -5,7 +5,8 @@ counterpart of ``canvas_tpu/backend.py``).
 Device resolution is explicit: the default device is CUDA, and a
 missing card raises instead of falling back. Only a caller that asks
 for ``device='cpu'`` (the tests) gets the plain PyTorch versions of the
-kernels.
+kernels. ``to_device`` replicates onto a ``mesh.Mesh`` and ``to_host``
+gathers a ``mesh.ShardedFrames``.
 
 **The eager pull** (``VideoSource.get_frame_f16/f32``) picks an arm for
 each pixel op from a mode held per thread, as the JAX package does:
@@ -35,6 +36,8 @@ import threading
 
 import numpy as np
 import torch
+
+from canvas_tpu_torch.mesh import Mesh, Replicated, ShardedFrames
 
 __all__ = ['get_backend', 'set_backend', 'force_backend', 'use_torch_for',
            'eager_device', 'torch_device_for', 'device_pixel_threshold',
@@ -203,7 +206,15 @@ _stats_lock = threading.Lock()
 def to_device(host_array, device):
     """Copy a numpy array (0-d included) to *device* as a tensor that
     owns its memory. On CUDA the copy goes from pinned memory with
-    ``non_blocking=True`` and is counted in ``transfer_stats``."""
+    ``non_blocking=True`` and is counted in ``transfer_stats``.
+
+    *device* may be a ``mesh.Mesh`` (the mesh arm of the JAX package's
+    ``stage_to_device``, backend.py:282-296): the array is copied once
+    to each distinct device of the mesh, each copy counted, and comes
+    back as a ``mesh.Replicated``, one tensor per device."""
+    if isinstance(device, Mesh):
+        return Replicated({d: to_device(host_array, d)
+                           for d in device.distinct_devices()})
     t = torch.from_numpy(np.array(host_array, order='C', copy=True))
     if device.type != 'cuda':
         return t
@@ -219,7 +230,10 @@ def to_host(t):
     (PyTorch's caching host allocator), one copy at the link's rate,
     where ``.cpu()`` into pageable memory moves the bytes through a
     staging buffer. The copy waits for the device; a CPU tensor is
-    returned as it is."""
+    returned as it is. A ``mesh.ShardedFrames`` comes back whole, each
+    shard copied into its block of one host tensor."""
+    if isinstance(t, ShardedFrames):
+        return t.to_host()
     if t.device.type != 'cuda':
         return t
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)

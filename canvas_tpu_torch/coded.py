@@ -38,6 +38,7 @@ from canvas_tpu_torch.ir import Node, tile_window, windows_to_array
 from canvas_tpu_torch.ops import chroma as chroma_ops
 from canvas_tpu_torch.ops import window as window_ops
 from canvas_tpu_torch.sources import _emit_empty
+from canvas_tpu_torch.staging import device_nbytes
 
 __all__ = ['CodecPacketSource', 'CodedImage', 'CodedImageSource',
            'DVReconstructionFilter', 'DVSubsampleFilter',
@@ -632,7 +633,7 @@ def device_plane_stack(ctx, source, quality, cache, hint_ids=(),
     # frames it lacks
     entry = cache[key] = {'stacks': stacks, 'rows': row_of,
                           'host': stager.host, 'n_real': len(frames)}
-    persist.put(pkey, source, entry, sum(s.nbytes for s in stager.host),
+    persist.put(pkey, source, entry, device_nbytes(stacks),
                 serving=ctx.root_range, gen=ctx.stage_gen)
     return stacks, row_of
 

@@ -6,9 +6,10 @@ A segment plans into one tree of ``Node`` objects. Its *signature* (op
 names, static geometry, param shapes and dtypes) describes the
 computation; its *flat params* (one dict per node, depth first) carry
 the values. Params are NumPy arrays, or torch tensors for the stacks the
-planner already staged on the device; both take the same place in a
-signature (a tensor's dtype is given NumPy's dtype number), so the
-signatures are those of ``canvas_tpu.render`` for NumPy params.
+planner already staged on the device (``mesh.Replicated`` stacks when it
+staged them onto a mesh); all take the same place in a signature (a
+tensor's dtype is given NumPy's dtype number), so the signatures are
+those of ``canvas_tpu.render`` for NumPy params.
 
 Window metadata is array-form: a (B, 4) int64 ``[x0, y0, x1, y1]`` per
 frame, an empty box encoded as max < min.
@@ -16,6 +17,8 @@ frame, an empty box encoded as max < min.
 
 import numpy as np
 import torch
+
+from canvas_tpu_torch.mesh import Replicated
 
 __all__ = ['Node', 'signature', 'sliced_signature', 'flat_params',
            'windows_to_array', 'tile_window', 'rel_box_array']
@@ -101,7 +104,7 @@ def _dtype_num(v):
     """NumPy dtype number of a param: torch tensors map their dtype to
     NumPy's; anything else as ``canvas_tpu``'s ``Node.signature`` reads
     it."""
-    if isinstance(v, torch.Tensor):
+    if isinstance(v, (torch.Tensor, Replicated)):
         return torch.empty((), dtype=v.dtype).numpy().dtype.num
     return np.dtype(getattr(v, 'dtype', None) or np.asarray(v).dtype).num
 
@@ -117,7 +120,8 @@ def sliced_signature(node, N, B):
     fp = _frame_params(node.op) if N is not None else ()
     shapes = []
     for k, v in node.params.items():
-        shp = tuple(v.shape) if isinstance(v, torch.Tensor) else np.shape(v)
+        shp = (tuple(v.shape) if isinstance(v, (torch.Tensor, Replicated))
+               else np.shape(v))
         if k in fp:
             if len(shp) <= ax or shp[ax] != N:
                 raise ValueError(
@@ -141,10 +145,12 @@ def signature(node):
 
 def flat_params(node, out=None):
     """Each node's params, depth first, the order the evaluator visits
-    them in. Torch tensors (stacks already on the device) pass through
-    untouched; anything else becomes a NumPy array."""
+    them in. Torch tensors and ``Replicated`` stacks (already on the
+    device) pass through untouched; anything else becomes a NumPy
+    array."""
     out = [] if out is None else out
-    out.append({k: (v if isinstance(v, torch.Tensor) else np.asarray(v))
+    out.append({k: (v if isinstance(v, (torch.Tensor, Replicated))
+                    else np.asarray(v))
                 for k, v in node.params.items()})
     for c in node.children:
         flat_params(c, out)

@@ -44,6 +44,7 @@ from canvas_tpu_torch.audio import AudioFrame, AudioSource
 from canvas_tpu_torch.basetypes import box2i
 from canvas_tpu_torch.coded import (CodecPacketSource, CodedImage,
                                     CodedImageSource)
+from canvas_tpu_torch.mesh import Mesh
 from canvas_tpu_torch.ops import color as color_ops
 
 __all__ = ['available', 'AVContainer', 'AVStreamInfo', 'AVDemuxer',
@@ -887,9 +888,12 @@ def write_video(filename, video_source, audio_source, start_frame, end_frame,
     batch's render (``iter_batches(post=...)``), so only u8 is fetched.
     *progress_callback(frames_done)* is called per batch; returning False
     aborts the export (the file is finalized with what was written).
-    *mesh* is not ported yet and must be None. With ``use_batch=False``
-    the frames are eager pulls under the calling thread's backend mode,
-    their torch arms on *device*.
+    *mesh* (a ``mesh.Mesh`` with a 'frames' axis) splits each render
+    batch frame-parallel over its devices (``iter_batches(mesh=)``; the
+    encode stays a host gather, each batch's shards fetched into one
+    pinned array); *device* then defaults to the mesh's first device.
+    With ``use_batch=False`` the frames are eager pulls under the calling
+    thread's backend mode, their torch arms on *device*.
 
     *transport* picks what crosses the host link per frame:
 
@@ -917,7 +921,11 @@ def write_video(filename, video_source, audio_source, start_frame, end_frame,
     from canvas_tpu_torch import render
 
     if mesh is not None:
-        raise render._not_ported('write_video(mesh=...)', 'queue 1 item 8')
+        if not isinstance(mesh, Mesh):
+            raise TypeError('mesh must be a canvas_tpu_torch.mesh.Mesh, '
+                            'not %r' % (mesh,))
+        if device is None:
+            device = mesh.devices.flat[0]
     device = backend.resolve_device(device)
     # the producer thread pulls under the caller's mode, not its own
     mode = backend.get_backend()
@@ -975,7 +983,7 @@ def write_video(filename, video_source, audio_source, start_frame, end_frame,
                 post = 'yuv420' if transport == 'yuv420' else 'rgba_u8'
                 batches = planner.iter_batches(
                     start_frame, start_frame + n_frames, batch=batch,
-                    device_out=True, post=post)
+                    device_out=True, mesh=mesh, post=post)
                 while True:
                     with profiling.Timer('export.render'):
                         got = next(batches, None)
@@ -983,7 +991,8 @@ def write_video(filename, video_source, audio_source, start_frame, end_frame,
                             return
                         s, n, data = got
                         # the numpy view keeps the pinned host copy
-                        # alive until the encoder has read it
+                        # alive until the encoder has read it (a
+                        # sharded batch: each shard into its block)
                         flat = backend.to_host(data).numpy()
                     if transport == 'rgba_u8':
                         flat = flat.reshape(flat.shape[0], flat.shape[1],

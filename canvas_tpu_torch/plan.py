@@ -5,8 +5,9 @@ of ``canvas_tpu.render.PlanContext`` and ``StageLRU``
 Sources plan themselves into ``Node`` trees (``canvas_tpu_torch.ir``)
 through ``PlanContext``: ``plan`` calls the source's ``emit`` and
 host-stages the source (``stage``) when that returns None. Staging puts
-data on the planner's device through ``staging.SlabStager`` (pinned
-host stacks, one preallocated device stack per segment); the caches,
+data on the planner's device, or on every distinct device of the plan's
+mesh, through ``staging.SlabStager`` (pinned host stacks, one
+preallocated device stack per segment and device); the caches,
 keys and grow seeding are the JAX package's. The persistent stage cache
 (``StageLRU``) is the planner's ``persistent_cache``:
 ``stage_cache_mb = 0`` disables it.
@@ -22,7 +23,7 @@ from canvas_tpu_torch import backend, profiling
 from canvas_tpu_torch.basetypes import box2i
 from canvas_tpu_torch.ir import Node, rel_box_array, tile_window, \
     windows_to_array
-from canvas_tpu_torch.staging import SlabStager
+from canvas_tpu_torch.staging import SlabStager, device_nbytes
 
 __all__ = ['PlanContext', 'StageLRU']
 
@@ -154,18 +155,15 @@ class PlanContext:
     are read on, None off CUDA).
     """
 
-    _MESH_UNSET = object()
-
     def __init__(self, planner, frames, window, root_range=None,
-                 stage_gen=None, sem_windows=None, mesh=_MESH_UNSET):
+                 stage_gen=None, sem_windows=None, mesh=None):
         self.planner = planner
         self.frames = frames
         self.window = window
-        # The mesh the staged stacks target, snapshot at creation (a part
-        # of every staging key; None until multi-device is ported, and
-        # SlabStager refuses any other).
-        if mesh is PlanContext._MESH_UNSET:
-            mesh = getattr(planner, '_plan_mesh', None)
+        # The mesh the staged stacks target (``iter_batches(mesh=)``
+        # passes it; derived contexts keep it): a part of every staging
+        # key, so a stack replicated over a mesh never serves an
+        # unsharded plan, nor the other way round.
         self.mesh = mesh
         # Per-frame SEMANTIC pull windows, a (B, 4) [x0, y0, x1, y1]
         # array (or None = every frame pulls at ``window``): the window
@@ -260,10 +258,12 @@ class PlanContext:
         return node
 
     def stager(self, row_specs, n_real):
-        """A ``SlabStager`` onto the planner's device (see staging.py)."""
+        """A ``SlabStager`` onto the planner's device, or onto every
+        distinct device of the context's mesh (see staging.py)."""
+        consumer = (self.planner.render_stream if self.mesh is None
+                    else getattr(self.planner, 'render_streams', None))
         return SlabStager(row_specs, n_real, self.planner.device,
-                          consumer=self.planner.render_stream,
-                          mesh=self.mesh)
+                          consumer=consumer, mesh=self.mesh)
 
     def stage(self, source):
         """Host-pull fallback (canvas_tpu/render.py:551-669): pull every
@@ -307,7 +307,8 @@ class PlanContext:
                 else:
                     entry = cache[key] = self._stage_frames(
                         source, frames, key, entry)
-                    persist.put(pkey, source, entry, entry['host'].nbytes,
+                    persist.put(pkey, source, entry,
+                                device_nbytes((entry['stack'],)),
                                 serving=self.root_range, gen=self.stage_gen)
             B = len(self.frames)
             rows = np.asarray([entry['rows'][fw] for fw in needed],

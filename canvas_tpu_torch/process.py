@@ -13,7 +13,9 @@ without one; ``backend.force_backend('numpy')`` keeps a pull on the
 host, ``force_backend('torch', device='cpu')`` runs the torch arms on
 the host's cores. Batched rendering on the card is
 ``canvas_tpu_torch.render.RenderPlanner`` (``render_display`` for one
-display frame); clock-driven playback is
+display frame), and across a mesh of devices
+``canvas_tpu_torch.render.render_sharded`` (not re-exported here, as the
+JAX package's ``process`` does not); clock-driven playback is
 ``canvas_tpu_torch.playback.VideoPlaybackEngine`` on the presentation
 clocks exported here; background pulls are the ``VideoPullQueue``
 exported here; export and decode are ``canvas_tpu_torch.libav``

@@ -31,7 +31,21 @@ batches, their params on the device once dispatched) in a plan cache, so
 a replayed range plans nothing and copies nothing; ``max_inflight``
 bounds how far the host runs ahead of the device, and a pre-flight
 estimate refuses a batch that cannot fit the card's memory.
+
+Multi-device (render.py:1750-2042, 2392-2460): ``iter_batches(mesh=,
+axis=)`` splits each batch's frames over one axis of a ``mesh.Mesh``
+and renders each shard on its own device, and ``render_sharded`` is the
+frame-parallel collector over it, with an optional row reshard over a
+second mesh axis. The JAX package compiles one sharded program per
+signature (``_get_sharded_program``) and commits the replicated params
+to the mesh (``_commit_replicated_params``); the port runs eagerly and
+has no program to build, so only their placement carries over: a param
+an op declares per frame splits, every other is replicated
+(``_param_sharding``), and each shard's params go to its device in one
+packed copy (``params_to_shards``).
 """
+
+import contextlib
 
 import functools
 import logging
@@ -48,15 +62,18 @@ from canvas_tpu_torch.basetypes import box2i
 from canvas_tpu_torch.ir import (  # noqa: F401 (Node: the public name)
     _BATCH_AXIS, Node, _frame_params, flat_params, signature,
     sliced_signature, windows_to_array)
+from canvas_tpu_torch.mesh import (Mesh, Replicated, ShardedFrames,
+                                   Sharding, local_mesh)
 from canvas_tpu_torch.ops import chroma as chroma_ops
 from canvas_tpu_torch.ops import color as color_ops
 from canvas_tpu_torch.ops import cuda_ops
 from canvas_tpu_torch.ops import scale as scale_ops
 from canvas_tpu_torch.plan import PlanContext, StageLRU
 
-__all__ = ['RenderPlanner', 'render_frames', 'Node', 'box2i',
-           'display_matrices_host', 'flat_params', 'params_to_torch', 'run',
-           'signature', 'sliced_signature']
+__all__ = ['RenderPlanner', 'render_frames', 'render_sharded', 'Node',
+           'box2i', 'display_matrices_host', 'flat_params',
+           'params_to_shards', 'params_to_torch', 'run', 'signature',
+           'sliced_signature']
 
 #: The transports of ``RenderPlanner.render_display``.
 DISPLAY_TRANSPORTS = ('u8', 'rgb24', 'yuv420')
@@ -133,6 +150,56 @@ def params_to_torch(plist, device):
     for q, k, a, shape, off in leaves:
         dtype = torch.from_numpy(np.empty(0, a.dtype)).dtype
         q[k] = buffer[off:off + a.nbytes].view(dtype).reshape(shape)
+    return out
+
+
+def _param_sharding(op, key):
+    """The ONE rule for how a param shards over a mesh
+    (``canvas_tpu.render._param_sharding``, render.py:1353-1380): a param
+    its op declares per frame (``_frame_params``) splits along the op's
+    batch axis (``_BATCH_AXIS``); every other param is replicated. Returns
+    that axis, or None for a replicated param. Batch cutting, shard
+    splitting and the display pull's frame slice all ask this, never a
+    shape that happens to match."""
+    if key in _frame_params(op):
+        return _BATCH_AXIS.get(op, 0)
+    return None
+
+
+def _on(device):
+    """``torch.cuda.device(device)`` on a card (launches, the current
+    stream, the allocator and events then agree on it), nothing on the
+    CPU."""
+    if device.type == 'cuda':
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def params_to_shards(plist, ops, devices):
+    """One batch's flat param list (*ops* its nodes' ops, depth first)
+    split over ``len(devices)`` frame shards: shard j takes frames
+    [j*b, (j+1)*b) of every param ``_param_sharding`` splits, and every
+    replicated param whole (a ``mesh.Replicated`` stack as its copy on
+    the shard's device). Each shard's list goes to its device in ONE
+    packed copy (``params_to_torch``, on that device's current stream).
+    Returns one tensor param list per shard."""
+    n = len(devices)
+    out = []
+    for j, device in enumerate(devices):
+        shard = []
+        for p, op in zip(plist, ops):
+            q = {}
+            for k, v in p.items():
+                if isinstance(v, Replicated):
+                    v = v.on(device)
+                ax = _param_sharding(op, k)
+                if ax is not None:
+                    b = v.shape[ax] // n
+                    v = v[(slice(None),) * ax + (slice(j * b, (j + 1) * b),)]
+                q[k] = v
+            shard.append(q)
+        with _on(device):
+            out.append(params_to_torch(shard, device))
     return out
 
 
@@ -578,7 +645,7 @@ def _hbm_estimate_bytes(batch, window, post, max_inflight, working_bpp=16):
 
 
 def _check_hbm_footprint(batch, window, post, max_inflight, device,
-                         working_bpp=16):
+                         working_bpp=16, shares=None):
     """Estimate the device memory of a batched render and refuse a
     clearly-over-budget one BEFORE any launch (render.py:1550-1598): an
     out-of-memory error would otherwise end a stream part-way, after the
@@ -596,29 +663,52 @@ def _check_hbm_footprint(batch, window, post, max_inflight, device,
     memory to the next batch in stream order, so the depth stands for
     the batches a caller holds at once (an exporter converts one while
     the next renders), not for queued work. Raises above the budget
-    (``_hbm_budget_bytes``), logs a warning above 80% of it."""
-    budget = _hbm_budget_bytes(device)
-    if not budget:        # None: the CPU; 0: switched off
-        return
-    est, depth = _hbm_estimate_bytes(batch, window, post, max_inflight,
-                                     working_bpp)
-    if est > budget:
-        raise ValueError(
-            '%d frames at %dx%d estimate ~%.1f GiB on the device '
-            '(%d retained output buffers%s%s) against a ~%.1f GiB HBM '
-            'budget; the render would run out of memory part-way. Reduce '
-            'batch, bound max_inflight, or override with CANVAS_HBM_MB '
-            '(0 disables this check).'
-            % (batch, window.width, window.height, est / (1 << 30), depth,
-               ' + f32 working set' if working_bpp else '',
-               ' + the %s post\'s working set' % post if post else '',
-               budget / (1 << 30)))
-    if est > 0.8 * budget:
-        _log.warning(
-            'batch %d at %dx%d estimates ~%.1f GiB on the device against '
-            'a ~%.1f GiB HBM budget: marginal; consider a smaller batch '
-            'or max_inflight', batch, window.width, window.height,
-            est / (1 << 30), budget / (1 << 30))
+    (``_hbm_budget_bytes``), logs a warning above 80% of it.
+
+    Over a mesh, *shares* maps each distinct device to the number of the
+    batch's frame shards it renders (``_device_shares``), and each device
+    is held to its own budget with its share of the estimate. The JAX
+    guard divides by the shard count (render.py:1576-1578), which is
+    right only when every shard has a device of its own: a device named
+    twice holds two shards' worth. None means *device* renders it all."""
+    if shares is None:
+        shares = {device: 1}
+    n = sum(shares.values())
+    est_all, depth = _hbm_estimate_bytes(batch, window, post, max_inflight,
+                                         working_bpp)
+    for dev, count in shares.items():
+        budget = _hbm_budget_bytes(dev)
+        if not budget:        # None: the CPU; 0: switched off
+            continue
+        est = int(est_all * count / n)
+        share = ('' if n == 1 else ', %d of %d frame shards on %s'
+                 % (count, n, dev))
+        if est > budget:
+            raise ValueError(
+                '%d frames at %dx%d estimate ~%.1f GiB on the device '
+                '(%d retained output buffers%s%s%s) against a ~%.1f GiB HBM '
+                'budget; the render would run out of memory part-way. '
+                'Reduce batch, bound max_inflight, or override with '
+                'CANVAS_HBM_MB (0 disables this check).'
+                % (batch, window.width, window.height, est / (1 << 30),
+                   depth, ' + f32 working set' if working_bpp else '',
+                   ' + the %s post\'s working set' % post if post else '',
+                   share, budget / (1 << 30)))
+        if est > 0.8 * budget:
+            _log.warning(
+                'batch %d at %dx%d estimates ~%.1f GiB on the device%s '
+                'against a ~%.1f GiB HBM budget: marginal; consider a '
+                'smaller batch or max_inflight', batch, window.width,
+                window.height, est / (1 << 30), share, budget / (1 << 30))
+
+
+def _device_shares(mesh, axis):
+    """{device: the frame shards it renders} of a split over *axis* of
+    *mesh* (each shard on ``mesh.axis_devices(axis)``)."""
+    shares = OrderedDict()
+    for d in mesh.axis_devices(axis):
+        shares[d] = shares.get(d, 0) + 1
+    return shares
 
 
 def _pinned_bytes(plists):
@@ -630,25 +720,28 @@ def _pinned_bytes(plists):
     for plist in plists:
         for p in plist:
             for v in p.values():
-                if isinstance(v, torch.Tensor):
-                    st = v.untyped_storage()
-                    seen[st.data_ptr()] = st.nbytes()
-                elif isinstance(v, np.ndarray):
+                for t in (v.copies.values() if isinstance(v, Replicated)
+                          else (v,) if isinstance(v, torch.Tensor) else ()):
+                    st = t.untyped_storage()
+                    seen[(t.device, st.data_ptr())] = st.nbytes()
+                if isinstance(v, np.ndarray):
                     seen[id(v)] = v.nbytes
     return sum(seen.values())
 
 
 class _Prepared:
-    """One prepared segment: the sliced signature and its batches
-    ``(pos, n_valid)``, each with its flat params: on the host as
-    planned, on the device from the batch's first dispatch on
-    (``device_params``), so a cached plan replays with no copy."""
+    """One prepared segment: the sliced signature (a shard's, over a
+    mesh) and its batches ``(pos, n_valid)``, each with its flat params:
+    on the host as planned, on the device from the batch's first
+    dispatch on (``device_params``, or over a mesh ``shard_params``), so
+    a cached plan replays with no copy."""
 
-    __slots__ = ('seg_start', 'sig', 'spans', 'plists', 'uploaded')
+    __slots__ = ('seg_start', 'sig', 'ops', 'spans', 'plists', 'uploaded')
 
-    def __init__(self, seg_start, sig, batches):
+    def __init__(self, seg_start, sig, batches, ops=None):
         self.seg_start = seg_start
         self.sig = sig
+        self.ops = ops
         self.spans = [(pos, take) for pos, take, _pl in batches]
         self.plists = [pl for _pos, _take, pl in batches]
         self.uploaded = [False] * len(batches)
@@ -659,6 +752,16 @@ class _Prepared:
         kept."""
         if not self.uploaded[i]:
             self.plists[i] = params_to_torch(self.plists[i], device)
+            self.uploaded[i] = True
+        return self.plists[i]
+
+    def shard_params(self, i, devices):
+        """Batch *i*'s params split over one shard per entry of
+        *devices*, each shard's on its device: uploaded the first time
+        (``params_to_shards``), and kept."""
+        if not self.uploaded[i]:
+            self.plists[i] = params_to_shards(self.plists[i], self.ops,
+                                              devices)
             self.uploaded[i] = True
         return self.plists[i]
 
@@ -682,9 +785,9 @@ class RenderPlanner:
     #: (None off CUDA). See ``staging.py``.
     render_stream = None
 
-    #: The mesh the staged stacks target: None until multi-device is
-    #: ported (ROADMAP.md queue 1 item 8).
-    _plan_mesh = None
+    #: Over a mesh, the stream of each of its CUDA devices that the
+    #: shards read staged stacks on (None off CUDA or without a mesh).
+    render_streams = None
 
     #: Device-byte budget for the persistent staging cache
     #: (CANVAS_STAGE_CACHE_MB env overrides; 0 disables).
@@ -748,18 +851,23 @@ class RenderPlanner:
             cache = self._persistent_cache = StageLRU(mb * (1 << 20))
         return cache
 
-    def _note_render_stream(self):
+    def _note_render_stream(self, mesh=None):
         if self.device.type == 'cuda':
             self.render_stream = torch.cuda.current_stream(self.device)
+        self.render_streams = None
+        if mesh is not None and mesh.devices.flat[0].type == 'cuda':
+            self.render_streams = {d: torch.cuda.current_stream(d)
+                                   for d in mesh.distinct_devices()}
 
-    def _plan_context(self, seg):
-        """A fresh ``PlanContext`` for segment [s0, s1); the per-segment
-        staging state starts empty."""
+    def _plan_context(self, seg, mesh=None):
+        """A fresh ``PlanContext`` for segment [s0, s1), staging onto
+        *mesh* when given; the per-segment staging state starts
+        empty."""
         s0, s1 = seg
         self._stage_cache = {}
         self._frame_hints = {}
         frames = np.arange(s0, s1, dtype=np.int64)
-        return PlanContext(self, frames, self.window)
+        return PlanContext(self, frames, self.window, mesh=mesh)
 
     def _plan(self, seg):
         """Plan segment [s0, s1) on the host with the port's
@@ -784,10 +892,11 @@ class RenderPlanner:
                 for k in sorted(n.params):
                     v = n.params[k]
                     shape = tuple(np.shape(v) if not isinstance(
-                        v, torch.Tensor) else v.shape)
+                        v, (torch.Tensor, Replicated)) else v.shape)
                     ps.append('%s%s%s' % (
                         k, shape if shape else '',
-                        '@dev' if isinstance(v, torch.Tensor) else ''))
+                        '@dev' if isinstance(v, (torch.Tensor, Replicated))
+                        else ''))
                 parts.append(' '.join(ps))
             if n.windows is not None and area:
                 w = windows_to_array(n.windows)
@@ -839,23 +948,33 @@ class RenderPlanner:
         [(pos, n_valid, params)], the params still on the host."""
         return self._cut(seg, self._plan(seg), batch)
 
-    def _cut(self, seg, node, batch):
+    def _cut(self, seg, node, batch, shards=1):
         """The planned *node* of *seg* as (seg_start, sliced signature,
         [(pos, n_valid, params)]). Tail batches repeat the last frame; a
-        segment shorter than *batch* renders at its own length."""
+        segment shorter than *batch* renders at its own length, rounded
+        up to *shards* by repeating its last frame (render.py:1852-1880).
+        Over *shards* frame shards the signature is one shard's: a
+        batch's frames over the shard count."""
         seg_start, seg_stop = seg
         N = seg_stop - seg_start
-        B_eff = batch if N >= batch else N
-        sig = sliced_signature(node, N, B_eff)
+        B_eff = batch if N >= batch else N + ((-N) % shards)
+        sig = sliced_signature(node, N, B_eff // shards)
         params = flat_params(node)
         ops = node.flat_ops([])
         batches = []
         pos = 0
         while pos < N:
             take = min(batch, N - pos)
-            if N < batch:
+            if N < batch and B_eff == N:
                 def cut(v, ax):
                     return v
+            elif N < batch:
+                idx_seg = np.concatenate([np.arange(N),
+                                          np.full(B_eff - N, N - 1,
+                                                  np.int64)])
+
+                def cut(v, ax, idx=idx_seg):
+                    return np.take(v, idx, axis=ax)
             elif take == batch:
                 def cut(v, ax, pos=pos):
                     return v[(slice(None),) * ax + (slice(pos, pos + batch),)]
@@ -866,37 +985,42 @@ class RenderPlanner:
                 def cut(v, ax, idx=idx):
                     return np.take(v, idx, axis=ax)
             batches.append((pos, take, [
-                {k: (cut(v, _BATCH_AXIS.get(op, 0))
-                     if k in _frame_params(op) else v)
+                {k: (v if _param_sharding(op, k) is None
+                     else cut(v, _param_sharding(op, k)))
                  for k, v in p.items()}
                 for p, op in zip(params, ops)]))
             pos += take
         return seg_start, sig, batches
 
-    def _prepared(self, seg, batch, post, cache_plans):
+    def _prepared(self, seg, batch, post, cache_plans, mesh=None,
+                  axis='frames'):
         """The ``_Prepared`` form of one segment (render.py:1821-1980):
-        planned and cut into batches. Runs on the prepare thread, one
-        segment ahead, so host planning and staging overlap the device's
-        work on the segment before.
+        planned (staging onto *mesh* when given) and cut into batches.
+        Runs on the prepare thread, one segment ahead, so host planning
+        and staging overlap the device's work on the segment before.
 
-        Prepared segments are kept per (segment, batch, post, quality)
-        when *cache_plans*: a replayed range dispatches the cut batches
-        again as they are, their params on the device since their first
-        dispatch. The cache is an LRU bounded by ``plan_cache_segments``
-        and by the device bytes its entries pin (staged stacks and
-        uploaded params, each storage once) against the staging cache's
-        budget."""
+        Prepared segments are kept per (segment, batch, post, quality,
+        and over a mesh the mesh and axis) when *cache_plans*: a replayed
+        range dispatches the cut batches again as they are, their params
+        on the device since their first dispatch. The cache is an LRU
+        bounded by ``plan_cache_segments`` and by the device bytes its
+        entries pin (staged stacks and uploaded params, each storage
+        once) against the staging cache's budget."""
         key = (seg, batch, post, self.quality)
+        if mesh is not None:
+            key += (mesh, axis)
         if cache_plans:
             with self._plan_cache_lock:
                 got = self._plan_cache.get(key)
                 if got is not None:
                     self._plan_cache.move_to_end(key)
                     return got[0]
-        ctx = self._plan_context(seg)
+        ctx = self._plan_context(seg, mesh)
         with profiling.Timer('render.plan'):
             node = ctx.plan(self.source)
-        result = _Prepared(*self._cut(seg, node, batch))
+        shards = mesh.shape[axis] if mesh is not None else 1
+        result = _Prepared(*self._cut(seg, node, batch, shards),
+                           ops=node.flat_ops([]))
         if cache_plans:
             pinned = _pinned_bytes(result.plists)
             budget = self.persistent_cache.budget
@@ -921,7 +1045,8 @@ class RenderPlanner:
         return result
 
     def iter_batches(self, start, stop, batch=16, device_out=True,
-                     mesh=None, post=None, max_inflight=None):
+                     mesh=None, axis='frames', post=None,
+                     max_inflight=None):
         """Yield ``(frame_start, n_valid, out)`` for [start, stop) in
         fixed-size batches: ``out`` a (B, 4, H, W) f16 tensor on the
         device (a numpy array with ``device_out=False``). The tail batch
@@ -933,64 +1058,99 @@ class RenderPlanner:
         interleaved u8 through the gamma45 ramp, 'yuv420' gives
         (B, H*W + 2*ceil(H/2)*ceil(W/2)) packed studio-range 4:2:0 u8.
 
+        With *mesh* (a ``mesh.Mesh``), each batch's frames split over its
+        *axis* (render.py:1784-1804): *batch* must divide by
+        ``mesh.shape[axis]``, shard i renders frames [i*b, (i+1)*b) of
+        the batch on ``mesh.axis_devices(axis)[i]`` (inside
+        ``torch.cuda.device`` of that card), with its frame params and the
+        replicated ones uploaded there in one packed copy, and ``out`` is
+        a ``mesh.ShardedFrames`` (one host array with
+        ``device_out=False``). Staged stacks are replicated onto every
+        distinct device of the mesh. A segment shorter than the batch
+        renders at its length rounded up to the shard count, repeating
+        its last frame.
+
         ``max_inflight`` bounds how many batches may be launched and not
-        yet finished on the device (render.py:1982-2033): a CUDA event is
-        recorded after each batch's last launch, and before launching
-        past depth k the host waits for the oldest, so it still runs k
-        batches ahead. None or a non-positive value is unbounded. With
-        ``device_out=False`` each batch's fetch already paces the host,
-        and off CUDA every op is synchronous: nothing is recorded.
+        yet finished on the device (render.py:1982-2033): after each
+        batch's last launch a CUDA event is recorded on the current
+        stream of each device the batch ran on, and before launching
+        past depth k the host waits for the oldest batch's events, so it
+        still runs k batches ahead. None or a non-positive value is
+        unbounded. With ``device_out=False`` each batch's fetch already
+        paces the host, and off CUDA every op is synchronous: nothing is
+        recorded.
 
         Each structure segment is prepared once, one segment ahead, on a
         worker thread (planning and staging); each batch's params go to
-        the device in one packed copy, and launches happen, on the
-        calling thread. Prepared segments are kept for the next call
-        with the params they uploaded (``plan_cache_segments``).
-        One live iterator per planner: the prepare thread shares the
-        planner's staging state. ``mesh`` is not ported yet (ROADMAP.md
-        queue 1 item 8) and must be None."""
+        the device in one packed copy (one a shard), and launches happen,
+        on the calling thread. Prepared segments are kept for the next
+        call with the params they uploaded (``plan_cache_segments``),
+        keyed by the mesh and axis too. One live iterator per planner:
+        the prepare thread shares the planner's staging state."""
+        devices = shares = None
         if mesh is not None:
-            raise _not_ported('iter_batches(mesh=...)', 'queue 1 item 8')
+            if not isinstance(mesh, Mesh):
+                raise TypeError('mesh must be a canvas_tpu_torch.mesh.Mesh, '
+                                'not %r' % (mesh,))
+            if axis not in mesh.shape:
+                raise ValueError('mesh %r has no axis %r' % (mesh, axis))
+            if batch % mesh.shape[axis] != 0:
+                raise ValueError('batch %d not divisible by %d shards'
+                                 % (batch, mesh.shape[axis]))
+            devices = mesh.axis_devices(axis)
+            shares = _device_shares(mesh, axis)
         if post is not None and post not in color_ops.POSTS:
             raise ValueError('post must be one of %s, not %r'
                              % (sorted(color_ops.POSTS), post))
         if max_inflight is not None and max_inflight <= 0:
             max_inflight = None
         _check_hbm_footprint(batch, self.window, post, max_inflight,
-                             self.device)
+                             self.device, shares=shares)
         # Plans pin staged device stacks: no staging budget, no plan
         # cache either (a cold staging measurement sets stage_cache_mb =
         # 0 and relies on it disabling BOTH).
         cache_plans = (self.plan_cache_segments > 0
                        and self.persistent_cache.budget > 0)
+        ran_on = (list(dict.fromkeys(devices)) if devices is not None
+                  else [self.device])
         pending = (deque() if max_inflight and device_out
-                   and self.device.type == 'cuda' else None)
+                   and ran_on[0].type == 'cuda' else None)
         segs = self.segments(start, stop, min_span=batch)
         self._drain_plan_pool()
         self._watch_frames_updated()
-        self._note_render_stream()
+        self._note_render_stream(mesh)
         pool = self._plan_pool = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix='canvas-torch-plan')
         try:
             fut = (pool.submit(self._prepared, segs[0], batch, post,
-                               cache_plans) if segs else None)
+                               cache_plans, mesh, axis) if segs else None)
             for i in range(len(segs)):
                 prepared = fut.result()
                 if i + 1 < len(segs):
                     fut = pool.submit(self._prepared, segs[i + 1], batch,
-                                      post, cache_plans)
+                                      post, cache_plans, mesh, axis)
                 for k, (pos, take) in enumerate(prepared.spans):
                     if pending is not None and len(pending) >= max_inflight:
-                        # the oldest pending batch: the stream runs in
+                        # the oldest pending batch: each stream runs in
                         # order, so everything older has finished too
-                        pending.popleft().synchronize()
-                    out = run(prepared.sig,
-                              prepared.device_params(k, self.device),
-                              self.device, post)
+                        for done in pending.popleft():
+                            done.synchronize()
+                    if devices is None:
+                        with _on(self.device):
+                            out = run(prepared.sig,
+                                      prepared.device_params(k, self.device),
+                                      self.device, post)
+                    else:
+                        out = self._run_shards(
+                            prepared.sig, prepared.shard_params(k, devices),
+                            devices, mesh, axis, post)
                     if pending is not None:
-                        done = torch.cuda.Event()
-                        done.record()
-                        pending.append(done)
+                        events = []
+                        for d in ran_on:
+                            done = torch.cuda.Event()
+                            done.record(torch.cuda.current_stream(d))
+                            events.append(done)
+                        pending.append(events)
                     if take < out.shape[0]:
                         out = out[:take]
                     if not device_out:
@@ -1000,6 +1160,21 @@ class RenderPlanner:
             pool.shutdown(wait=False)
             if getattr(self, '_plan_pool', None) is pool:
                 self._plan_pool = None
+
+    @staticmethod
+    def _run_shards(sig, shard_params, devices, mesh, axis, post):
+        """Render one batch's shards, each on its device, as one
+        ``ShardedFrames`` whose shard i holds frames [i*b, (i+1)*b)."""
+        outs = []
+        for device, params in zip(devices, shard_params):
+            with _on(device):
+                outs.append(run(sig, params, device, post))
+        b = outs[0].shape[0]
+        shape = (b * len(outs),) + tuple(outs[0].shape[1:])
+        spec = (axis,) + (None,) * (len(shape) - 1)
+        return ShardedFrames(
+            [(o, (slice(i * b, (i + 1) * b),)) for i, o in enumerate(outs)],
+            shape, outs[0].dtype, Sharding(mesh, spec))
 
     def render(self, start, stop, device_out=False, with_windows=False):
         """Render frames [start, stop) as (B, 4, H, W) f16: a numpy
@@ -1076,8 +1251,8 @@ class RenderPlanner:
         if display_size is not None:
             display_size = (int(display_size[0]), int(display_size[1]))
         pos = frame_index - seg['lo']
-        params = [{k: (_frame_slice(v, _BATCH_AXIS.get(op, 0), pos)
-                       if k in _frame_params(op) else v)
+        params = [{k: (v if _param_sharding(op, k) is None
+                       else _frame_slice(v, _param_sharding(op, k), pos))
                    for k, v in p.items()}
                   for p, op in zip(seg['params'], seg['ops'])]
         flat = backend.to_host(display_run(
@@ -1218,6 +1393,76 @@ def render_frames(source, window, start, stop, device=None, **kw):
         return planner.render(start, stop, **kw)
     finally:
         planner.close()
+
+
+def render_sharded(source, window, start, stop, mesh=None, axis='frames',
+                   device_out=False, spatial_axis=None, batch=None):
+    """Frame-parallel batched render of [start, stop) across a device
+    mesh (render.py:2392-2460): a collector over
+    ``RenderPlanner.iter_batches(mesh=, axis=)``, so every segment renders
+    sharded, a frame count that does not divide the shards pads with its
+    last frame and is cut back, and ``device_out`` holds across segment
+    cuts.
+
+    *mesh* (a ``mesh.Mesh``) defaults to ``mesh.local_mesh(axis)``, every
+    visible card. A mesh of one entry along *axis* streams unsharded (no
+    sharded dispatch for no parallelism) unless *spatial_axis* asks for
+    the mesh. *batch* defaults to the planner's pipeline chunk; either is
+    rounded down to a multiple of the shard count. The whole range's
+    output is held until it is assembled, so the memory guard checks it
+    cumulatively (two buffers a frame, no working set), each device with
+    its share of the frame shards.
+
+    Returns a (F, 4, H, W) f16 NumPy array, or with ``device_out`` the
+    frames on the devices: unsharded, one tensor; sharded, a
+    ``ShardedFrames`` of one contiguous frame block per entry along
+    *axis* (``NamedSharding(mesh, P(axis))``). *spatial_axis*, a second
+    axis of the mesh, also splits the rows: block (i, j), frame block i
+    and row block j, ends on the device at index i of *axis* and j of
+    *spatial_axis* (peer copies between cards; the JAX package's XLA
+    all-to-all); a frame count that does not divide the frames axis
+    pads with its last frame and is sliced back."""
+    if mesh is None:
+        mesh = local_mesh(axis)
+    elif not isinstance(mesh, Mesh):
+        raise TypeError('mesh must be a canvas_tpu_torch.mesh.Mesh, not %r'
+                        % (mesh,))
+    if axis not in mesh.shape or (spatial_axis is not None
+                                  and spatial_axis not in mesh.shape):
+        raise ValueError('mesh %r lacks axis %r or %r'
+                         % (mesh, axis, spatial_axis))
+    n = mesh.shape[axis]
+    use_mesh = mesh if (n > 1 or spatial_axis is not None) else None
+    planner = RenderPlanner(source, window, device=mesh.devices.flat[0])
+    try:
+        _check_hbm_footprint(
+            stop - start, planner.window, None, 2, planner.device,
+            working_bpp=0,
+            shares=(_device_shares(mesh, axis) if use_mesh is not None
+                    else None))
+        if batch is None:
+            batch = n * max(1, planner.pipeline_chunk // n)
+        else:
+            batch = n * max(1, batch // n)
+            planner.pipeline_chunk = max(planner.pipeline_chunk, batch)
+        outs = [out for (_s, _n, out) in planner.iter_batches(
+            start, stop, batch=batch, device_out=True, mesh=use_mesh,
+            axis=axis)]
+    finally:
+        planner.close()
+    if use_mesh is None or not outs:
+        if outs:
+            out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+        else:
+            out = torch.zeros((0, 4, planner.window.height,
+                               planner.window.width), dtype=torch.float16,
+                              device=planner.device)
+        return out if device_out else backend.to_host(out).numpy()
+    whole = ShardedFrames.concatenate(outs)
+    if spatial_axis is None and not device_out:
+        return whole.numpy()
+    out = whole.reshard(mesh, axis, spatial_axis)
+    return out if device_out else out.numpy()
 
 
 def _frame_slice(v, ax, pos):

@@ -28,43 +28,72 @@ changed with the device:
 
 On ``device='cpu'`` the same code runs with plain (unpinned) tensors and
 synchronous copies.
+
+Onto a mesh (``mesh.Mesh``, render.py:339-441's mesh path, which the JAX
+package ships in one shot) each slab goes to every distinct device of
+the mesh, on that device's own copy stream, from the same pinned host
+rows; ``finish`` waits for every stream and returns each stack as a
+``mesh.Replicated``, one tensor per device, from which each shard's
+upload takes the copy on its own device.
 """
+
+import contextlib
 
 import numpy as np
 import torch
 
 from canvas_tpu_torch import backend
+from canvas_tpu_torch.mesh import Mesh, Replicated
 
-__all__ = ['SlabStager', 'SLAB_BYTES']
+__all__ = ['SlabStager', 'SLAB_BYTES', 'device_nbytes']
 
 #: Least bytes per shipped slab (a slab is a multiple of 8 rows).
 SLAB_BYTES = int(16e6)
 
 
+def device_nbytes(stacks):
+    """Device bytes of staged *stacks* (tensors, or ``Replicated`` stacks
+    counted once per copy): what a stage-cache entry holding them pins."""
+    return sum(s.nbytes if isinstance(s, Replicated)
+               else s.numel() * s.element_size() for s in stacks)
+
+
+def _on(device):
+    """``torch.cuda.device(device)`` for a card, nothing for the CPU."""
+    if device.type == 'cuda':
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
 class SlabStager:
-    """Stage *n_real* rows of one or more stacks to *device*.
+    """Stage *n_real* rows of one or more stacks to *device*, or with
+    *mesh* to every distinct device of the mesh.
 
     ``row_specs`` is one ``(row_shape, numpy_dtype)`` per stack. The
     caller fills ``host[k][n]`` for n = 0, 1, ... in order, calls
     ``note_row(n)`` after each row, then ``finish()``, which pads, ships
-    the rest and returns the device stacks (one tensor per stack, rows
-    ``n_total = n_real`` rounded up to 8). ``consumer`` is the CUDA
-    stream that will read the stacks (default: the current stream of
-    the thread that calls ``finish``). ``mesh`` is not ported and must
-    be None."""
+    the rest and returns the device stacks (one tensor per stack, or one
+    ``mesh.Replicated`` per stack with *mesh*; rows ``n_total = n_real``
+    rounded up to 8). ``consumer`` is the CUDA stream that will read the
+    stacks, or with *mesh* a dict of one stream per device (default: the
+    current stream of each device for the thread that calls
+    ``finish``)."""
 
     def __init__(self, row_specs, n_real, device, consumer=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                'staging onto a mesh is not ported to canvas_tpu_torch yet '
-                '(ROADMAP.md queue 1 item 8)')
         if n_real < 1:
             raise ValueError('SlabStager needs at least one row')
-        self.device = device
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError('mesh must be a canvas_tpu_torch.mesh.Mesh, not '
+                            '%r' % (mesh,))
+        self.mesh = mesh
+        self.devices = (mesh.distinct_devices() if mesh is not None
+                        else [device])
+        self.device = self.devices[0]
         self.n_real = int(n_real)
         self.n_total = self.n_real + ((-self.n_real) % 8)
-        cuda = device.type == 'cuda'
-        self.stream = torch.cuda.Stream(device) if cuda else None
+        cuda = self.device.type == 'cuda'
+        self.streams = ({d: torch.cuda.Stream(d) for d in self.devices}
+                        if cuda else None)
         self.consumer = consumer
         self._host_t = [
             torch.empty((self.n_total,) + tuple(shape),
@@ -72,12 +101,15 @@ class SlabStager:
                         pin_memory=cuda)
             for shape, dt in row_specs]
         self.host = tuple(t.numpy() for t in self._host_t)
-        if cuda:
-            with torch.cuda.stream(self.stream):
-                self.stacks = tuple(torch.empty_like(t, device=device)
-                                    for t in self._host_t)
-        else:
-            self.stacks = tuple(torch.empty_like(t) for t in self._host_t)
+        self._stacks = {}
+        for d in self.devices:
+            if cuda:
+                with _on(d), torch.cuda.stream(self.streams[d]):
+                    self._stacks[d] = tuple(
+                        torch.empty_like(t, device=d) for t in self._host_t)
+            else:
+                self._stacks[d] = tuple(torch.empty_like(t)
+                                        for t in self._host_t)
         row_bytes = sum(t[0].numel() * t.element_size()
                         for t in self._host_t)
         self.slab = 8 * max(1, -(-SLAB_BYTES // max(row_bytes * 8, 1)))
@@ -86,16 +118,18 @@ class SlabStager:
 
     def _ship(self, hi):
         lo, self._shipped = self._shipped, hi
-        if self.stream is None:
-            for h, d in zip(self._host_t, self.stacks):
-                d[lo:hi].copy_(h[lo:hi])
+        if self.streams is None:
+            for d in self.devices:
+                for h, t in zip(self._host_t, self._stacks[d]):
+                    t[lo:hi].copy_(h[lo:hi])
             return
         nbytes = 0
-        with torch.cuda.stream(self.stream):
-            for h, d in zip(self._host_t, self.stacks):
-                d[lo:hi].copy_(h[lo:hi], non_blocking=True)
-                nbytes += h[lo:hi].numel() * h.element_size()
-        backend.count_h2d(nbytes, len(self.stacks))
+        for d in self.devices:
+            with _on(d), torch.cuda.stream(self.streams[d]):
+                for h, t in zip(self._host_t, self._stacks[d]):
+                    t[lo:hi].copy_(h[lo:hi], non_blocking=True)
+                    nbytes += h[lo:hi].numel() * h.element_size()
+        backend.count_h2d(nbytes, len(self._host_t) * len(self.devices))
 
     def note_row(self, n):
         """Call after host row *n* is filled (0-based, in order)."""
@@ -109,10 +143,19 @@ class SlabStager:
             s[self.n_real:] = s[self.n_real - 1]
         if self._shipped < self.n_total:
             self._ship(self.n_total)
-        if self.stream is not None:
-            self.stream.synchronize()
-            consumer = (self.consumer if self.consumer is not None
-                        else torch.cuda.current_stream(self.device))
-            for d in self.stacks:
-                d.record_stream(consumer)
-        return self.stacks
+        if self.streams is not None:
+            for d in self.devices:
+                self.streams[d].synchronize()
+                if self.mesh is None:
+                    consumer = self.consumer
+                else:
+                    consumer = (self.consumer or {}).get(d)
+                if consumer is None:
+                    consumer = torch.cuda.current_stream(d)
+                for t in self._stacks[d]:
+                    t.record_stream(consumer)
+        if self.mesh is None:
+            return self._stacks[self.device]
+        return tuple(Replicated({d: self._stacks[d][k]
+                                 for d in self.devices})
+                     for k in range(len(self._host_t)))

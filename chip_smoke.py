@@ -189,12 +189,39 @@ prints one line or more; any failure raises
    nanoseconds of each; (e) a ``process.VideoPullQueue`` on the card
    pulling a source without ``plan_cuts``: enqueued from a thread in the
    default mode its frame arrives as a tensor on the card, enqueued under
-   ``force_backend('numpy')`` as NumPy, within 2e-3 of each other.
+   ``force_backend('numpy')`` as NumPy, within 2e-3 of each other;
+16. multi-device rendering (``canvas_tpu_torch.mesh``,
+   ``iter_batches(mesh=)``, ``render_sharded``) over logical shards: a
+   mesh may name the one card more than once, each entry one shard.
+   (a) ``render_sharded(build_timeline(1024), 1080p, 0, 256,
+   device_out=True, batch=128)`` over the default mesh
+   (``mesh.local_mesh()``, every visible card; with one it streams
+   unsharded), bit-equal to an unsharded planner's stream, and the
+   mesh's device count; (b) over ``Mesh([card] * 2, ('frames',))``: the
+   headline's frames 128..511 at batch 128, each shard bit-equal to the
+   unsharded stream; config7's frames 0..127 at batch 16 with its DV
+   planes staged onto the mesh (replicated stacks), within phase 6's
+   gate of the unsharded render (its bit-equal share printed: the
+   scalers' and chroma einsums run at 8 frames a shard); over a 2x2
+   frames x space mesh, ``render_sharded`` of 5 frames with
+   ``spatial_axis='space'`` bit-equal to the unsharded frames, and
+   ``iter_batches(0, 5, batch=8, mesh, post='yuv420')`` u8-equal to the
+   unsharded post; (c) config5's protocol (benchmarks.py:483-546) on the
+   2-shard mesh: sharded and plain fps over frames 0..255 at batch 128,
+   cold, and their ratio, the median of three interleaved pairs; host
+   enqueue and device busy ms per batch, sharded beside unsharded, and
+   the sharded pass's device idle share; the memory guard's per-device
+   estimate beside the sharded stream's measured peak (the estimate
+   must not be below it), and render_sharded's cumulative estimate
+   beside its peak. Rehearse it on the CPU with ``_multi_device(tag,
+   box2i(0, 0, 319, 179), {'enqueue_ms': 0.0, 'batches': 1},
+   device='cpu')``.
 
 Each path (the headline, the mixed timeline, the studies' timing runs,
 the export posts, the display path, the coded composite, the replays,
 each post's checked pass of the 4K export, the editor's passes, the
-editor session's and phase 15's ``time_get_frame`` planner branches)
+editor session's and phase 15's ``time_get_frame`` planner branches,
+phase 16's sharded renders)
 runs
 with every launch counter set to 0 just before it and read just after;
 the kernels line
@@ -726,7 +753,8 @@ def _mixed_timing(tag, ws, window):
 
     # per pixel: the layer read (16 B), P and A read and written (32 B)
     return ((err, ms, plain_ms) + _bound(px_all * 48, px_all * OVER_OPS)
-            + (dict(fps=fps, busy_ms=busy_ms, batches=len(work), idle=idle),))
+            + (dict(fps=fps, busy_ms=busy_ms, batches=len(work), idle=idle,
+                    enqueue_ms=enqueue_ms),))
 
 
 def _studies(tag):
@@ -1644,9 +1672,9 @@ def _replay(tag, name, metrics, ws, window, start, stop, batch, elsewhere,
     planned, pulls = [], []
     plan_context = planner._plan_context
 
-    def counting_context(seg):
+    def counting_context(seg, mesh=None):
         planned.append(seg)
-        return plan_context(seg)
+        return plan_context(seg, mesh)
 
     planner._plan_context = counting_context
     get_frame = counted.get_frame if counted is not None else None
@@ -2140,9 +2168,9 @@ def _editor_edit(tag, window, space_asset, video):
     planned = []
     plan_context = planner._plan_context
 
-    def counting_context(seg):
+    def counting_context(seg, mesh=None):
         planned.append(seg)
-        return plan_context(seg)
+        return plan_context(seg, mesh)
 
     planner._plan_context = counting_context
     _zero_launch_counts()
@@ -3150,6 +3178,386 @@ def _eager_pull(tag, window, device=None):
     return total if card else None
 
 
+def _sharded_equal(what, got, want):
+    """Raise unless every shard of *got* (a ``ShardedFrames``) equals its
+    frames of the unsharded tensor *want*, bit for bit, on the card."""
+    import torch
+    if tuple(got.shape) != tuple(want.shape):
+        raise AssertionError('%s: sharded %r against unsharded %r'
+                             % (what, got.shape, tuple(want.shape)))
+    for t, b in got.shards:
+        ref = want[tuple(slice(lo, hi) for lo, hi in b)]
+        if not torch.equal(t, ref):
+            raise AssertionError('%s: the shard of block %r differs from '
+                                 'the unsharded frames' % (what, b))
+
+
+def _device_gate(what, got, want, atol, min_share):
+    """(max diff, share bit-equal) of two f16 tensors on the card; raises
+    beyond *atol* or under *min_share* bit-equal (phase 6's gate)."""
+    import torch
+    err = float((got.float() - want.float()).abs().max())
+    share = float((got.view(torch.int16) == want.view(torch.int16))
+                  .float().mean())
+    if not bool(torch.isfinite(got).all()) or err > atol \
+            or share < min_share:
+        raise AssertionError('%s: max diff %r, %.6f bit-equal (atol %r, '
+                             '>= %r)' % (what, err, share, atol, min_share))
+    return err, share
+
+
+def _unsharded(ws, window, start, stop, batch, post=None, device=None):
+    """The unsharded frames [start, stop) of *ws* as one tensor on the
+    card (a fresh planner, plan cache off)."""
+    import torch
+
+    from canvas_tpu_torch.render import RenderPlanner
+    planner = RenderPlanner(ws, window, device=device)
+    planner.plan_cache_segments = 0
+    outs = [out.clone() for _s, _n, out in planner.iter_batches(
+        start, stop, batch=batch, post=post)]
+    planner.close()
+    return torch.cat(outs, dim=0)
+
+
+def _shard_work(ws, window, start, stop, batch, mesh):
+    """The batches of [start, stop) prepared twice, unsharded
+    ([(sig, params on the card)]) and over *mesh*'s frames axis
+    ([(shard sig, params of each shard)]), for replays with the
+    planning and copies done beforehand."""
+    from canvas_tpu_torch.render import RenderPlanner, params_to_torch
+    devices = mesh.axis_devices('frames')
+    planner = RenderPlanner(ws, window, device=devices[0])
+    plain, sharded = [], []
+    for seg in planner.segments(start, stop, min_span=batch):
+        _s0, sig, batches = planner._prepare(seg, batch)
+        for (_pos, _take, plist) in batches:
+            plain.append((sig, params_to_torch(plist, devices[0])))
+        prep = planner._prepared(seg, batch, None, False, mesh, 'frames')
+        for k in range(len(prep.spans)):
+            sharded.append((prep.sig, prep.shard_params(k, devices)))
+    _sync(devices[0])
+    planner.close()
+    return plain, sharded
+
+
+def _sync(device):
+    import torch
+    if device.type == 'cuda':
+        torch.cuda.synchronize(device)
+
+
+def _empty_cache():
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def _multi_device(tag, window, config7, device=None):
+    """Phase 16: multi-device rendering on logical shards of the one card.
+    (a) render_sharded over the default mesh; (b) the headline, config7
+    and the frames x space reshard over logical meshes, with the
+    sharded yuv420 post; (c) config5's protocol on the 2-shard mesh,
+    enqueue and device time beside the unsharded path's, the memory
+    guard's per-device estimate beside the peak. Returns the sharded
+    path's launches.
+
+    ``device='cpu'`` rehearses the phase on the CPU (a mesh of ``cpu``
+    entries, the kernels' plain versions; no device time, memory or
+    launches): ``_multi_device(tag, box2i(0, 0, 319, 179),
+    {'enqueue_ms': 0.0, 'batches': 1}, device='cpu')``."""
+    import torch
+
+    from canvas_tpu_torch import timelines
+    from canvas_tpu_torch.backend import cuda_ms
+    from canvas_tpu_torch.mesh import (Mesh, Replicated, ShardedFrames,
+                                       local_mesh)
+    from canvas_tpu_torch.render import (RenderPlanner, _hbm_estimate_bytes,
+                                         render_sharded, run)
+
+    t_phase = time.perf_counter()
+    card = (torch.device(device) if device is not None
+            else torch.device('cuda', torch.cuda.current_device()))
+    on_card = card.type == 'cuda'
+    ws = timelines.build_timeline(1024)
+    launches = {k: 0 for k in _launch_counts()}
+
+    def planner_of(src):
+        return RenderPlanner(src, window, device=card)
+
+    def counted(fn):
+        _zero_launch_counts()
+        out = fn()
+        _sync(card)
+        for k, v in _launch_counts().items():
+            launches[k] += v
+        return out
+
+    # (a) the default mesh: every visible card; with one it streams
+    # unsharded, as the JAX package's does
+    default = local_mesh() if on_card else Mesh([card], ('frames',))
+    got = counted(lambda: render_sharded(
+        ws, window, 0, 256, mesh=None if on_card else default,
+        device_out=True, batch=128))
+    want = _unsharded(ws, window, 0, 256, 128, device=card)
+    if isinstance(got, ShardedFrames):
+        _sharded_equal('render_sharded default mesh', got, want)
+    elif default.size != 1 or not torch.equal(got, want):
+        raise AssertionError('render_sharded over the default mesh of %d '
+                             'device(s) gave %r, not the unsharded stream'
+                             % (default.size, type(got)))
+    print('phase 16a default mesh: local_mesh() holds %d device(s) %s; '
+          'render_sharded(build_timeline(1024), 1080p, 0, 256, device_out='
+          'True, batch=128) -> %s %s, bit-equal to the unsharded stream %s'
+          % (default.size, [str(d) for d in default.devices.flat],
+             type(got).__name__, tuple(got.shape), tag), flush=True)
+    del got, want
+    _empty_cache()
+
+    # (b) logical shards: two entries of the one card
+    mesh = Mesh([card, card], ('frames',))
+    shards = []
+
+    def headline_sharded():
+        planner = planner_of(ws)
+        planner.plan_cache_segments = 0
+        for s, n, out in planner.iter_batches(128, 512, batch=128,
+                                              mesh=mesh):
+            if not isinstance(out, ShardedFrames) or len(out.shards) != 2:
+                raise AssertionError('batch at %d: %r' % (s, out))
+            shards.append((s, n, out))
+        planner.close()
+
+    before = dict(launches)
+    counted(headline_sharded)
+    head_launches = {k: launches[k] - before[k] for k in launches}
+    want = _unsharded(ws, window, 128, 512, 128, device=card)
+    for s, n, out in shards:
+        _sharded_equal('headline sharded batch at %d' % s, out,
+                       want[s - 128:s - 128 + n])
+    print('phase 16b headline sharded: frames 128..511 via iter_batches('
+          'batch=128, mesh=Mesh([%s, %s], (\'frames\',))), %d batches of 2 '
+          'shards of 64 frames, each shard bit-equal to the unsharded '
+          'stream; launches %s %s'
+          % (card, card, len(shards), json.dumps(head_launches), tag),
+          flush=True)
+    del shards[:], want
+    _empty_cache()
+
+    mixed = timelines.mixed_timeline(256)
+    mixed_out = []
+    staged = []
+
+    def mixed_sharded():
+        planner = planner_of(mixed)
+        planner.plan_cache_segments = 0
+        for s, n, out in planner.iter_batches(0, 128, batch=16, mesh=mesh):
+            mixed_out.append(out)
+        staged.extend(e['value'] for k, e in
+                      planner.persistent_cache._entries.items()
+                      if k[0] == 'dvplanes')
+        planner.close()
+
+    before = dict(launches)
+    counted(mixed_sharded)
+    mix_launches = {k: launches[k] - before[k] for k in launches}
+    if not staged or not all(isinstance(s, Replicated) and
+                             list(s.copies) == [card]
+                             for e in staged for s in e['stacks']):
+        raise AssertionError('config7 DV planes were not staged onto the '
+                             'mesh: %r' % (staged[:1],))
+    if on_card and min(mix_launches[k] for k in _RENDER_KERNELS) <= 0:
+        raise AssertionError('sharded config7 launches %r' % mix_launches)
+    want = _unsharded(mixed, window, 0, 128, 16, device=card)
+    got = torch.cat([t for out in mixed_out for t, _b in out.shards])
+    err, share = _device_gate('config7 sharded', got, want, 1e-2, 0.99)
+    print('phase 16b config7 sharded: frames 0..127 of mixed_timeline(256) '
+          'via iter_batches(batch=16, mesh) (2 shards of 8), DV planes '
+          'staged onto the mesh (%d replicated stacks on %s); against the '
+          'unsharded render max diff %.4g, %.6f bit-equal (phase 6 gate: '
+          'atol 1e-2, >= 0.99); launches %s %s'
+          % (sum(len(e['stacks']) for e in staged), card, err, share,
+             json.dumps(mix_launches), tag), flush=True)
+    del mixed_out[:], staged[:], got, want
+    _empty_cache()
+
+    grid = Mesh([[card, card], [card, card]], ('frames', 'space'))
+    got = counted(lambda: render_sharded(ws, window, 0, 5, mesh=grid,
+                                         spatial_axis='space',
+                                         device_out=True))
+    want = _unsharded(ws, window, 0, 5, 8, device=card)
+    _sharded_equal('frames x space reshard', got, want)
+    blocks = [b[0] + b[2] for _t, b in got.shards]
+
+    def sharded_post():
+        planner = planner_of(ws)
+        parts = [t for _s, _n, out in planner.iter_batches(
+            0, 5, batch=8, mesh=mesh, post='yuv420') for t, _b in out.shards]
+        planner.close()
+        return torch.cat(parts)
+
+    post = counted(sharded_post)
+    want_u8 = _unsharded(ws, window, 0, 5, 8, post='yuv420', device=card)
+    if not torch.equal(post, want_u8):
+        raise AssertionError('the sharded yuv420 post differs from the '
+                             'unsharded post')
+    print('phase 16b frames x space: render_sharded(0, 5, mesh=2x2 of %s, '
+          'spatial_axis=\'space\') blocks [f0, f1, r0, r1] %s bit-equal to '
+          'the unsharded frames; iter_batches(0, 5, batch=8, mesh, '
+          'post=\'yuv420\') %s u8 equal to the unsharded post %s'
+          % (card, blocks, tuple(post.shape), tag), flush=True)
+    del got, want, post, want_u8
+    _empty_cache()
+
+    # (c) times: config5's protocol on the logical 2-shard mesh
+    plain_planner = planner_of(timelines.build_timeline(1024))
+    plain_planner.plan_cache_segments = 0
+    plain_planner.pipeline_chunk = max(plain_planner.pipeline_chunk, 128)
+
+    def run_sharded():
+        _sync(card)
+        t0 = time.perf_counter()
+        out = render_sharded(ws, window, 0, 256, mesh=mesh,
+                             device_out=True, batch=128)
+        _sync(card)
+        del out
+        return 256 / (time.perf_counter() - t0)
+
+    def run_plain():
+        _sync(card)
+        t0 = time.perf_counter()
+        for _out in plain_planner.iter_batches(0, 256, batch=128):
+            pass
+        _sync(card)
+        return 256 / (time.perf_counter() - t0)
+
+    counted(run_sharded)
+    run_plain()
+    pairs = []
+    for _rep in range(3):
+        pairs.append((counted(run_sharded), run_plain()))
+    ratios = sorted(s / p for s, p in pairs)
+    sharded_fps = sorted(s for s, _p in pairs)[1]
+    plain_fps = sorted(p for _s, p in pairs)[1]
+    print('phase 16c config5 on logical shards: config5_sharded_fps %.1f, '
+          'plain %.1f, sharded/plain %.3f (median of 3 interleaved cold '
+          'pairs over frames 0..255, batch 128, mesh of 2 entries of %s; '
+          'pairs %s) %s'
+          % (sharded_fps, plain_fps, ratios[1], card,
+             ', '.join('(%.1f, %.1f)' % sp for sp in pairs), tag), flush=True)
+
+    def mixed_pass(planner, m):
+        _sync(card)
+        t0 = time.perf_counter()
+        for _out in planner.iter_batches(0, 128, batch=16, mesh=m):
+            pass
+        _sync(card)
+        return 128 / (time.perf_counter() - t0)
+
+    cold = [planner_of(mixed), planner_of(mixed)]
+    for planner in cold:
+        planner.stage_cache_mb = 0      # cold: no stage cache, no plans
+    counted(lambda: mixed_pass(cold[0], mesh))
+    mixed_pass(cold[1], None)
+    mpairs = []
+    for _rep in range(3):
+        mpairs.append((counted(lambda: mixed_pass(cold[0], mesh)),
+                       mixed_pass(cold[1], None)))
+    mratios = sorted(a / b for a, b in mpairs)
+    print('phase 16c config7 on logical shards: sharded %.1f fps, plain '
+          '%.1f, sharded/plain %.3f (median of 3 interleaved cold pairs '
+          'over frames 0..127, batch 16; pairs %s; phase 7: %.1f) %s'
+          % (sorted(a for a, _b in mpairs)[1], sorted(b for _a, b in
+                                                     mpairs)[1],
+             mratios[1], ', '.join('(%.1f, %.1f)' % ab for ab in mpairs),
+             config7.get('fps', 0.0), tag), flush=True)
+    for planner in cold:
+        planner.close()
+
+    plain, sharded = _shard_work(ws, window, 0, 512, 128, mesh)
+    devices = mesh.axis_devices('frames')
+
+    def replay_plain():
+        for sig, params in plain:
+            run(sig, params, card)
+
+    def replay_sharded():
+        for sig, params in sharded:
+            RenderPlanner._run_shards(sig, params, devices, mesh, 'frames',
+                                      None)
+
+    enq = {'plain': [], 'sharded': []}
+    for name, fn in (('plain', replay_plain),
+                     ('sharded', replay_sharded)) * 2:
+        _sync(card)
+        t0 = time.perf_counter()
+        fn()
+        enq[name].append((time.perf_counter() - t0) * 1e3 / len(plain))
+        _sync(card)
+    if on_card:
+        busy_plain = cuda_ms(replay_plain, 3) / len(plain)
+        busy_sharded = cuda_ms(replay_sharded, 3) / len(sharded)
+        idle = 1.0 - busy_sharded * 2 / (256 / sharded_fps * 1e3)
+        device_times = ('device busy per batch unsharded %.3f ms, sharded '
+                        '%.3f ms; the sharded config5 pass\'s device idle '
+                        'share %.3f' % (busy_plain, busy_sharded, idle))
+    else:
+        device_times = 'device time not measured (CPU rehearsal)'
+    print('phase 16c enqueue per 128-frame batch (host clock, no sync, '
+          'frames 0..511, two turns each): unsharded %s ms, sharded %s ms '
+          '(%s ms a shard); %s; phase 7\'s config7 enqueue %.3f ms a '
+          '16-frame batch unsharded %s'
+          % (', '.join('%.3f' % v for v in enq['plain']),
+             ', '.join('%.3f' % v for v in enq['sharded']),
+             ', '.join('%.3f' % (v / 2) for v in enq['sharded']),
+             device_times, config7['enqueue_ms'] / config7['batches'], tag),
+          flush=True)
+    del plain, sharded
+    print('phase 16 launches on the sharded path (16a-16c): %s %s'
+          % (json.dumps(launches), tag), flush=True)
+    if not on_card:
+        print('phase 16c guard: not measured (CPU rehearsal); phase 16 '
+              '%.1f s %s' % (time.perf_counter() - t_phase, tag), flush=True)
+        return launches
+
+    # the memory guard's per-device estimate beside the measured peak
+    planner = planner_of(ws)
+    planner.plan_cache_segments = 0
+    est = _hbm_estimate_bytes(128, window, None, None)[0]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for _out in planner.iter_batches(128, 512, batch=128, mesh=mesh):
+        pass
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    planner.close()
+    cum_est = _hbm_estimate_bytes(256, window, None, 2, working_bpp=0)[0]
+    torch.cuda.empty_cache()
+    base2 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = render_sharded(ws, window, 0, 256, mesh=mesh, device_out=True,
+                         batch=128)
+    torch.cuda.synchronize()
+    cum_peak = torch.cuda.max_memory_allocated() - base2
+    del out
+    torch.cuda.empty_cache()
+    print('phase 16c guard: iter_batches(batch=128, mesh of 2 entries of '
+          '%s): the per-device estimate %.3f GB (both shards on the one '
+          'card) beside a measured peak of %.3f GB: estimate / peak %.3f; '
+          'render_sharded(0, 256)\'s cumulative estimate %.3f GB beside its '
+          'peak %.3f GB (%.3f); phase 16 %.1f s %s'
+          % (card, est / 1e9, peak / 1e9, est / peak, cum_est / 1e9,
+             cum_peak / 1e9, cum_est / cum_peak,
+             time.perf_counter() - t_phase, tag), flush=True)
+    if est < peak:
+        raise AssertionError('the memory guard estimates %d bytes below the '
+                             'sharded stream\'s measured peak of %d'
+                             % (est, peak))
+    return launches
+
+
 def main():
     sys.meta_path.insert(0, _Refuse())
     import numpy as np
@@ -3415,10 +3823,15 @@ def main():
     torch.cuda.empty_cache()
     eager_launches = _eager_pull(tag, window)
 
+    # 16. multi-device rendering on logical shards of the card
+    torch.cuda.empty_cache()
+    sharded_launches = _multi_device(tag, window, config7)
+
     total = {k: (launches[k] + mixed_launches[k] + post_launches[k]
                  + display_launches[k] + replay_launches[k]
                  + export_launches[k] + editor_launches[k]
-                 + session_launches[k] + eager_launches[k])
+                 + session_launches[k] + eager_launches[k]
+                 + sharded_launches[k])
              for k in mixed_launches}
     fold_bound, fold_by = _bound(fold_bytes, fold_ops)
     reg_bound, reg_by = _bound(reg_bytes, reg_ops)

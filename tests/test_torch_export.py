@@ -213,13 +213,14 @@ def test_write_video_refuses_as_jax(tmp_path, case):
 
 def test_write_video_needs_the_card_or_cpu(tmp_path, monkeypatch):
     """``device=None`` means the card: without one it raises before any
-    file is made; ``mesh=`` is not ported."""
+    file is made; a ``mesh=`` that is not a ``mesh.Mesh`` is refused as
+    early (write_video over a mesh: test_torch_sharded.py)."""
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     path = tmp_path / 'x.avi'
     with pytest.raises(RuntimeError, match='CUDA'):
         libav.write_video(str(path), timelines.build_timeline(8), None, 0, 2,
                           frame_size=SIZE)
-    with pytest.raises(NotImplementedError, match='queue 1 item 8'):
+    with pytest.raises(TypeError, match='Mesh'):
         libav.write_video(str(path), timelines.build_timeline(8), None, 0, 2,
                           frame_size=SIZE, mesh=object(), device='cpu')
     with pytest.raises(RuntimeError, match='CUDA'):

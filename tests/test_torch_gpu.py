@@ -22,7 +22,9 @@ mixed-content frame (DV clips through
 scalers: f32 matmuls summed in cuBLAS's order) is held to the slice's
 tolerance, atol=1e-2 with at least 99% of values bit-equal, and so are
 the pulldown and planar clips; a replay from the plan cache is
-bit-equal to the first pass on the same card. A default-mode eager
+bit-equal to the first pass on the same card, and a headline batch
+rendered over a logical mesh of the one card (two shards) to the
+unsharded batch. A default-mode eager
 pull at 1080p (the torch arms on the card) is held to the same gates
 against the NumPy arm's pull.
 """
@@ -910,3 +912,43 @@ def test_time_get_frame_planner_branch_launches_kernels(cuda):
     ns = process.time_get_frame(src, 128, 129, window, force_eager=True)
     assert isinstance(ns, int) and ns > 0
     assert (co.solid_fold.launches, co.region_over_sep.launches) == after
+
+
+@pytest.mark.gpu
+def test_sharded_headline_on_card_matches_unsharded(cuda):
+    """The headline at 640x360 over a logical mesh of two entries of the
+    one card (``Mesh([cuda:0] * 2)``: each entry one shard), batch 16:
+    every batch a ``ShardedFrames`` of two shards on the card, bit-equal
+    to the unsharded batches, with the unsharded path's launches doubled
+    (each shard folds and composites its 8 frames); then the frames x
+    space reshard of 5 frames through ``render_sharded`` equal to the
+    unsharded render."""
+    from canvas_tpu_torch import timelines
+    from canvas_tpu_torch.mesh import Mesh, ShardedFrames
+    from canvas_tpu_torch.render import RenderPlanner, box2i, render_sharded
+    window = box2i(0, 0, 639, 359)
+    src = timelines.build_timeline(64)
+    card = torch.device('cuda', torch.cuda.current_device())
+    mesh = Mesh([card] * 2, ('frames',))
+    outs, counts = [], []
+    for m in (None, mesh):
+        planner = RenderPlanner(src, window)
+        planner.plan_cache_segments = 0
+        before = (co.solid_fold.launches, co.region_over_sep.launches)
+        outs.append([(s, n, out) for s, n, out in
+                     planner.iter_batches(8, 40, batch=16, mesh=m)])
+        torch.cuda.synchronize()
+        counts.append(tuple(after - b for after, b in zip(
+            (co.solid_fold.launches, co.region_over_sep.launches), before)))
+    for (s, n, want), (s2, n2, got) in zip(*outs):
+        assert (s, n) == (s2, n2)
+        assert isinstance(got, ShardedFrames) and got.devices() == [card] * 2
+        assert torch.equal(torch.from_numpy(got.numpy()), want.cpu()), s
+    assert counts[1] == tuple(2 * c for c in counts[0]) and counts[0][0] > 0
+    grid = Mesh([[card] * 2] * 2, ('frames', 'space'))
+    got = render_sharded(src, window, 0, 5, mesh=grid, spatial_axis='space',
+                         device_out=True)
+    assert len(got.shards) == 4 and all(
+        t.device == card for t, _b in got.shards)
+    want = RenderPlanner(src, window).render(0, 5)
+    assert np.array_equal(got.numpy().view(np.uint16), want.view(np.uint16))

@@ -202,7 +202,9 @@ def test_stager_stacks_equal_host(monkeypatch, pipelined):
 
 
 def test_stager_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match='queue 1 item 8'):
+    """A mesh must be a ``mesh.Mesh``: anything else is refused before a
+    byte is staged (staging onto a real mesh: test_torch_sharded.py)."""
+    with pytest.raises(TypeError, match='Mesh'):
         staging.SlabStager([((2,), np.uint8)], 1, CPU, mesh=object())
 
 

@@ -2,7 +2,9 @@
 import system refuses every ``jax``/``jaxlib`` module, the JAX package
 (``canvas_tpu``) and the repository's root scripts and studies
 (``bench``, ``benchmarks``, ``scripts``), it imports, plans and renders
-on the CPU the headline timeline, the mixed-content timeline (DV clips
+on the CPU the headline timeline (also sharded over a mesh of ``cpu``
+entries, ``canvas_tpu_torch.mesh``, and resharded by rows through
+``render_sharded``), the mixed-content timeline (DV clips
 staged by the port, through animated scalers), the pulldown and planar
 clips (replayed from the plan cache, paced), a coded round trip through
 the subsample filters and a graph whose source
@@ -75,6 +77,21 @@ SCRIPT = BLOCKER + textwrap.dedent('''
     assert np.isfinite(out).all() and out[:, 3].max() > 0
     for _s, _n, batch in planner.iter_batches(2, 4, batch=2):
         assert tuple(batch.shape) == (2, 4, 180, 320)
+
+    from canvas_tpu_torch import mesh as port_mesh
+    from canvas_tpu_torch.render import render_sharded
+    cpu2 = port_mesh.Mesh(['cpu', 'cpu'], ('frames',))
+    parts = [o for _s, _n, o in planner.iter_batches(0, 4, batch=4,
+                                                     mesh=cpu2)]
+    assert all(isinstance(o, port_mesh.ShardedFrames) for o in parts)
+    assert (np.concatenate([np.asarray(o) for o in parts])
+            == planner.render(0, 4)).all()
+    grid = port_mesh.Mesh([['cpu'] * 2] * 2, ('frames', 'space'))
+    out = render_sharded(ws, box2i(0, 0, 319, 179), 0, 3, mesh=grid,
+                         spatial_axis='space', device_out=True)
+    assert 'space' in str(out.sharding) and len(out.shards) == 4
+    assert (np.asarray(out) == out.numpy()).all()
+    assert (out.numpy() == planner.render(0, 3)).all()
 
     mixed = RenderPlanner(timelines.mixed_timeline(16),
                           box2i(0, 0, 1919, 1079), device='cpu')

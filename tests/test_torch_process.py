@@ -264,10 +264,9 @@ def test_backend_mode_from_environment():
 # --- the surface ------------------------------------------------------------
 
 #: Names of the JAX package's ``__all__`` lists that have no counterpart
-#: in the port: JAX itself and its probes, and ``render_sharded``, which
-#: waits for multi-device work (ROADMAP queue 1 item 8).
+#: in the port: JAX itself and its probes.
 JAX_ONLY = frozenset(('jax', 'jnp', 'use_jax_for', 'is_jax_array',
-                      'jax_available', 'probe_device', 'render_sharded'))
+                      'jax_available', 'probe_device'))
 
 
 def _declares_all(path):

@@ -375,13 +375,14 @@ def test_quality_9_raises(timeline, ref_timeline):
 
 @pytest.mark.parametrize('kw', [{'mesh': object()}, {'max_inflight': 2}])
 def test_iter_batches_unported_options_raise(timeline, kw):
-    """``mesh`` still raises; ``max_inflight`` no longer does: it paces
+    """A ``mesh`` that is not a ``mesh.Mesh`` raises (a real mesh:
+    test_torch_sharded.py); ``max_inflight`` no longer does: it paces
     the stream and leaves the frames as they were (more in
     test_torch_replay.py)."""
     planner = port.RenderPlanner(timeline, box2i(0, 0, 255, 127),
                                  device='cpu')
     if 'mesh' in kw:
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
+        with pytest.raises(TypeError, match='Mesh'):
             next(planner.iter_batches(0, 4, batch=4, **kw))
     else:
         _s, _n, want = next(planner.iter_batches(0, 4, batch=4))

@@ -544,6 +544,8 @@ def test_hbm_budget_is_the_cards_total(monkeypatch):
 
 
 def test_mesh_still_raises():
+    """Only a ``mesh.Mesh`` shards; anything else raises before a plan
+    (sharding itself: test_torch_sharded.py)."""
     planner = _guard_planner()
-    with pytest.raises(NotImplementedError, match='queue 1 item 8'):
+    with pytest.raises(TypeError, match='Mesh'):
         next(planner.iter_batches(0, 4, batch=4, mesh=object()))
