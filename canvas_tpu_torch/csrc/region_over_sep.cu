@@ -6,7 +6,11 @@
 //
 // Replaces the Pallas TPU kernel canvas_tpu/ops/pallas_ops.py
 // `region_over_sep` (lines 375-454; its aliased in/out accumulators,
-// `input_output_aliases`, become an in-place update here).
+// `input_output_aliases`, become an in-place update here). Its
+// scalar-prefetched offsets stay device data: the kernel reads (dy0, dx0)
+// from two int32 values in device memory, so one captured launch (a CUDA
+// graph of the render program) serves every position of an animated
+// scaler, as one compiled TPU program does.
 //
 // What bounds it on an H100: device-memory bytes. Each region pixel
 // reads and writes P (3 channels) and A: 32 B/px with f32 accumulators,
@@ -32,9 +36,13 @@
 //   wholly inside or outside the frame.
 // - Otherwise the scalar instantiation runs: one column and 4 rows per
 //   thread over 8x128 tiles, the same arithmetic.
-// Rows past H and columns past W are skipped: that is the edge clipping
-// the TPU kernel does on store; blocks wholly outside are not launched.
-// Each pixel is read and written by one thread only. AccT is the
+// The grid covers the region's whole tiles, since the host does not
+// know the offsets: each block reads them itself, and rows past H and
+// columns past W are skipped (that is the edge clipping the TPU kernel
+// does on store; a block wholly outside returns at once). The offsets
+// are checked on the host before upload (block-aligned, inside the
+// frame's (64, 128) envelope). Each pixel is read and written by one
+// thread only. AccT is the
 // accumulators' stored type (float, or __nv_bfloat16 for the
 // quality <= 9 tier, pallas_ops.py:421-424): the math is f32 either way.
 //
@@ -68,13 +76,16 @@ __global__ void __launch_bounds__(kThreads)
     region_over_sep_kernel(const float* __restrict__ color,
                            const float* __restrict__ ry,
                            const float* __restrict__ rx, AccT* __restrict__ P,
-                           AccT* __restrict__ A, int h, int w, int H, int W,
-                           int dy0, int dx0) {
+                           AccT* __restrict__ A, const int* __restrict__ dy0p,
+                           const int* __restrict__ dx0p, int h, int w, int H,
+                           int W) {
   constexpr int kC = Geometry<AccT, kVec>::kC;
   constexpr int kTX = Geometry<AccT, kVec>::kTX;
   constexpr int kTY = Geometry<AccT, kVec>::kTY;
   constexpr int kTileH = Geometry<AccT, kVec>::kTileH;
   const int b = blockIdx.z;
+  const int dy0 = *dy0p;
+  const int dx0 = *dx0p;
   const int x = (int)blockIdx.x * kTileW + ((int)threadIdx.x % kTX) * kC;
   const int gx = dx0 + x;
   if (gx >= W) return;
@@ -125,18 +136,15 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename AccT, bool kVec>
 void launch(cudaStream_t s, const float* color, const float* ry,
-            const float* rx, void* P, void* A, int B, int h, int w, int H,
-            int W, int dy0, int dx0) {
-  // Only the tiles that meet the frame.
+            const float* rx, void* P, void* A, const int* dy0,
+            const int* dx0, int B, int h, int w, int H, int W) {
+  // Every tile of the region (h % 64 == 0, w % 128 == 0: whole tiles).
   constexpr int kTileH = Geometry<AccT, kVec>::kTileH;
-  const int cols_in = w < W - dx0 ? w : W - dx0;
-  const int rows_in = h < H - dy0 ? h : H - dy0;
-  if (cols_in <= 0 || rows_in <= 0 || B <= 0) return;
-  const dim3 grid((cols_in + kTileW - 1) / kTileW,
-                  (rows_in + kTileH - 1) / kTileH, B);
+  if (h <= 0 || w <= 0 || H <= 0 || W <= 0 || B <= 0) return;
+  const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, B);
   region_over_sep_kernel<AccT, kVec><<<grid, kThreads, 0, s>>>(
-      color, ry, rx, static_cast<AccT*>(P), static_cast<AccT*>(A), h, w, H, W,
-      dy0, dx0);
+      color, ry, rx, static_cast<AccT*>(P), static_cast<AccT*>(A), dy0, dx0,
+      h, w, H, W);
 }
 
 }  // namespace
@@ -145,25 +153,28 @@ extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 = launched). bf16 = 1:
 // P and A are bf16, else f32. vec = 1 launches the 16-byte form:
-// W % 8 == 0 and rx, P and A at multiples of 16 bytes.
+// W % 8 == 0 and rx, P and A at multiples of 16 bytes. dy0 and dx0 point
+// to one int32 each in device memory.
 int canvas_region_over_sep(const void* color, const void* ry, const void* rx,
-                           void* P, void* A, int B, int h, int w, int H,
-                           int W, int dy0, int dx0, int bf16, int vec,
-                           int device, void* stream) {
+                           void* P, void* A, const void* dy0, const void* dx0,
+                           int B, int h, int w, int H, int W, int bf16,
+                           int vec, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* c = static_cast<const float*>(color);
   const float* y = static_cast<const float*>(ry);
   const float* x = static_cast<const float*>(rx);
+  const int* oy = static_cast<const int*>(dy0);
+  const int* ox = static_cast<const int*>(dx0);
   if (bf16 && vec)
-    launch<__nv_bfloat16, true>(s, c, y, x, P, A, B, h, w, H, W, dy0, dx0);
+    launch<__nv_bfloat16, true>(s, c, y, x, P, A, oy, ox, B, h, w, H, W);
   else if (bf16)
-    launch<__nv_bfloat16, false>(s, c, y, x, P, A, B, h, w, H, W, dy0, dx0);
+    launch<__nv_bfloat16, false>(s, c, y, x, P, A, oy, ox, B, h, w, H, W);
   else if (vec)
-    launch<float, true>(s, c, y, x, P, A, B, h, w, H, W, dy0, dx0);
+    launch<float, true>(s, c, y, x, P, A, oy, ox, B, h, w, H, W);
   else
-    launch<float, false>(s, c, y, x, P, A, B, h, w, H, W, dy0, dx0);
+    launch<float, false>(s, c, y, x, P, A, oy, ox, B, h, w, H, W);
   return (int)cudaGetLastError();
 }
 

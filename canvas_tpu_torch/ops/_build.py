@@ -41,11 +41,12 @@ _SIGNATURES = {
     # color, box, gain, offset, baseP, baseA, out0, outA,
     # L, B, H, W, mode, base_bf16, vec, device, stream
     'canvas_solid_fold': (_P,) * 8 + (_I,) * 8 + (_P,),
-    # color, ry, rx, P, A, B, h, w, H, W, dy0, dx0, bf16, vec,
-    # device, stream
-    'canvas_region_over_sep': (_P,) * 5 + (_I,) * 10 + (_P,),
-    # layer, P, A, B, h, w, H, W, dy0, dx0, bf16, blocks_x, device, stream
-    'canvas_region_over': (_P,) * 3 + (_I,) * 10 + (_P,),
+    # color, ry, rx, P, A, dy0, dx0 (device int32s), B, h, w, H, W, bf16,
+    # vec, device, stream
+    'canvas_region_over_sep': (_P,) * 7 + (_I,) * 8 + (_P,),
+    # layer, P, A, dy0, dx0 (device int32s), B, h, w, H, W, bf16,
+    # blocks_x, device, stream
+    'canvas_region_over': (_P,) * 5 + (_I,) * 8 + (_P,),
     # color, box, gain, offset, out, L, B, H, W, variant, device, stream
     'canvas_fold_interior': (_P,) * 5 + (_I,) * 6 + (_P,),
     # x, col, box, out, L, B, H, W, mult, device, stream

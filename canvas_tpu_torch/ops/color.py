@@ -568,10 +568,11 @@ def _gamma45_floor(x16):
 
 def _interleave(u8, order):
     """(B, 4, H, W) u8 -> (B, H, W*len(order)) rows of the channels in
-    *order*."""
-    u8 = u8[:, list(order)]
-    B, C, H, W = u8.shape
-    return u8.permute(0, 2, 3, 1).reshape(B, H, W * C)
+    *order*. The channels are picked one by one: indexing by a list would
+    copy the list to the device, which a CUDA graph capture refuses."""
+    B, _C, H, W = u8.shape
+    return torch.stack([u8[:, c] for c in order], dim=3).reshape(
+        B, H, W * len(order))
 
 
 def u8_interleaved(x16, order):

@@ -19,6 +19,20 @@ attributes, one per form (``solid_fold.launches`` and
 ``solid_fold.launches_bf16``, likewise for ``region_over_sep`` and
 ``region_over``), so a run can show that its path went through each.
 
+The region offsets ``(dy0, dx0)`` of ``region_over`` and
+``region_over_sep`` are device data, as the TPU kernels' scalar-prefetched
+offsets are: each wrapper takes them as int32 tensors of one value on the
+accumulators' device, which the kernel reads itself (the render program
+captured as a CUDA graph then serves every position of an animated
+region), or as host ints, which it checks and puts on the device. The
+alignment and envelope check (``check_offsets``) runs on the host before
+the offsets are uploaded, never as a read from the device.
+
+A launch made while ``recording()`` is open on the calling thread (the
+capture of a render program, which launches nothing) is not counted but
+recorded; the program adds the recorded launches to the counters at
+every replay.
+
 ``solid_fold`` and ``region_over_sep`` each have two instantiations of
 one template: one that moves 16 bytes a thread, for rows of a multiple
 of 8 values in planes that start at a multiple of 16 bytes, and a
@@ -33,7 +47,10 @@ even, as the kernels' ``__float2bfloat16_rn``), so on the card every
 form of every kernel is bit-identical to its plain version.
 """
 
+import contextlib
 import operator
+import threading
+from collections import Counter
 
 import torch
 import torch.nn.functional as F
@@ -42,7 +59,8 @@ from canvas_tpu_torch.ops import _build
 
 __all__ = ['solid_fold', 'solid_stack', 'region_over', 'region_over_sep',
            'solid_fold_plain', 'region_over_plain', 'region_over_sep_plain',
-           'fold_tile_pixel_layers']
+           'fold_tile_pixel_layers', 'check_offsets', 'recording',
+           'add_launches']
 
 # The damage-region block grid (planner quantization, sources.py).
 _QR, _QC = 64, 128
@@ -84,18 +102,44 @@ def _acc_dtype(name, t):
     return t.dtype
 
 
+_recorder = threading.local()
+
+
+@contextlib.contextmanager
+def recording():
+    """Record, and do not count, the launches the calling thread makes
+    inside the block: a stream capture launches nothing. Yields a
+    ``Counter`` of ``(wrapper, counter name)`` pairs, which
+    ``add_launches`` adds to the counters at each replay."""
+    outer = getattr(_recorder, 'counts', None)
+    counts = _recorder.counts = Counter()
+    try:
+        yield counts
+    finally:
+        _recorder.counts = outer
+
+
+def add_launches(counts):
+    """Add a ``recording()``'s launches to the counters (one replay of
+    what was recorded)."""
+    for (fn, name), n in counts.items():
+        setattr(fn, name, getattr(fn, name) + n)
+
+
 def _count(fn, bf16, vector=None):
     """Add one launch to *fn*'s counter of the f32 or the bf16 form and,
     where the kernel has a 16-byte and a scalar instantiation, to the
-    counter of the one launched (*vector* True or False)."""
-    if bf16:
-        fn.launches_bf16 += 1
-    else:
-        fn.launches += 1
-    if vector:
-        fn.launches_vector += 1
-    elif vector is not None:
-        fn.launches_scalar += 1
+    counter of the one launched (*vector* True or False); inside
+    ``recording()`` record it instead."""
+    names = ['launches_bf16' if bf16 else 'launches']
+    if vector is not None:
+        names.append('launches_vector' if vector else 'launches_scalar')
+    counts = getattr(_recorder, 'counts', None)
+    for name in names:
+        if counts is not None:
+            counts[(fn, name)] += 1
+        else:
+            setattr(fn, name, getattr(fn, name) + 1)
 
 
 def _vector_ok(W, *pointers):
@@ -302,10 +346,12 @@ def _check_region(name, h, w):
             'grid' % (name, h, w))
 
 
-def _check_offsets(name, dy0, dx0, h, w, H, W):
+def check_offsets(name, dy0, dx0, h, w, H, W):
     """Host-int offsets, block-aligned, with the region inside the
     frame's (64, 128)-aligned envelope (the planner's invariant,
-    sources.py region quantization). Returns them as ints."""
+    sources.py region quantization). Returns them as ints. The planner
+    runs this on its host params before they go to the device; the
+    kernels read the offsets from there unchecked."""
     dy0 = operator.index(dy0)
     dx0 = operator.index(dx0)
     Hp, Wp = -(-H // _QR) * _QR, -(-W // _QC) * _QC
@@ -318,16 +364,44 @@ def _check_offsets(name, dy0, dx0, h, w, H, W):
     return dy0, dx0
 
 
+def _host_offsets(name, dy0, dx0, h, w, H, W):
+    """The offsets as checked host ints, for the plain versions: a tensor
+    offset is read (the plain versions are references; on a card that
+    read waits for the device)."""
+    if isinstance(dy0, torch.Tensor):
+        dy0 = int(dy0.reshape(-1)[0])
+    if isinstance(dx0, torch.Tensor):
+        dx0 = int(dx0.reshape(-1)[0])
+    return check_offsets(name, dy0, dx0, h, w, H, W)
+
+
+def _device_offsets(name, dy0, dx0, device):
+    """The offsets of a kernel: int32 tensors of one value on *device*,
+    checked with ``check_offsets`` on the host before their upload and
+    never read here."""
+    for what, v in (('dy0', dy0), ('dx0', dx0)):
+        if (not isinstance(v, torch.Tensor) or v.device != device
+                or v.dtype != torch.int32 or v.numel() != 1):
+            raise ValueError(
+                '%s: %s must be one int32 value on %s (checked with '
+                'check_offsets before its upload), got %s'
+                % (name, what, device,
+                   '%s %s on %s' % (v.dtype, tuple(v.shape), v.device)
+                   if isinstance(v, torch.Tensor) else repr(v)))
+    return dy0, dx0
+
+
 def region_over_plain(P, A, layer, dy0, dx0):
     """Composite a materialised region *layer* (B, 4, h, w) over (P, A)
     at (dy0, dx0), IN PLACE; returns (P, A). The plain form of
     ``pallas_ops.region_over``'s fallback (pallas_ops.py:298-326): pad
     the accumulators to the (64, 128) envelope, slice the region, blend
-    in f32, write it back, crop."""
+    in f32, write it back, crop. The offsets are host ints or int32
+    tensors of one value, as the kernel takes them."""
     B, _c, h, w = layer.shape
     _check_region('region_over', h, w)
     H, W = P.shape[2], P.shape[3]
-    dy0, dx0 = _check_offsets('region_over', dy0, dx0, h, w, H, W)
+    dy0, dx0 = _host_offsets('region_over', dy0, dx0, h, w, H, W)
     Hp, Wp = -(-H // _QR) * _QR, -(-W // _QC) * _QC
     padded = Hp != H or Wp != W
     Pp = F.pad(P, (0, Wp - W, 0, Hp - H)) if padded else P
@@ -350,12 +424,14 @@ def region_over(P, A, layer, dy0, dx0):
     """Composite a materialised region *layer* (B, 4, h, w) over the
     premultiplied accumulators (P, A) at block-aligned offsets.
 
-    h % 64 == 0 and w % 128 == 0; dy0/dx0 host ints, block-aligned, the
-    region inside the frame's (64, 128) envelope (it may overhang the
-    bottom and right edges; those pixels are clipped). P (B, 3, H, W) /
-    A (B, 1, H, W) are updated IN PLACE, where the TPU kernel aliased
-    them to its outputs; returns (P, A). The layer, P and A are all f32,
-    or all bf16 (the quality <= 9 form; the blend math stays f32).
+    h % 64 == 0 and w % 128 == 0; dy0/dx0 int32 tensors of one value on
+    P's device (checked with ``check_offsets`` on the host before their
+    upload; the plain version on a CPU tensor takes host ints too),
+    block-aligned, the region inside the frame's (64, 128) envelope (it may overhang the bottom and right
+    edges; those pixels are clipped). P (B, 3, H, W) / A (B, 1, H, W) are
+    updated IN PLACE, where the TPU kernel aliased them to its outputs;
+    returns (P, A). The layer, P and A are all f32, or all bf16 (the
+    quality <= 9 form; the blend math stays f32).
 
     CUDA kernel ``csrc/region_over.cu`` on a CUDA tensor (bit-identical
     to ``region_over_plain``), the plain version on a CPU tensor.
@@ -368,7 +444,7 @@ def region_over(P, A, layer, dy0, dx0):
     if dev.type != 'cuda':
         raise ValueError('region_over: unsupported device %s' % (dev,))
     H, W = P.shape[2], P.shape[3]
-    dy0, dx0 = _check_offsets('region_over', dy0, dx0, h, w, H, W)
+    oy, ox = _device_offsets('region_over', dy0, dx0, dev)
     dtype = _acc_dtype('region_over', P)
     _need(layer, 'layer', dtype, (B, 4, h, w), dev)
     _need(P, 'P', dtype, (B, 3, H, W), dev)
@@ -376,12 +452,12 @@ def region_over(P, A, layer, dy0, dx0):
     if B > 65535:
         raise ValueError('region_over: B=%d frames (max 65535)' % (B,))
     bf16 = dtype == torch.bfloat16
-    n_px = max(0, min(h, H - dy0)) * max(0, min(w, W - dx0))
-    if B and n_px:
+    if B and h and w and H and W:
         lib = _build.library()
         rc = lib.canvas_region_over(
-            layer.data_ptr(), P.data_ptr(), A.data_ptr(), B, h, w, H, W,
-            dy0, dx0, int(bf16), _blocks(n_px, 4), dev.index, _stream(dev))
+            layer.data_ptr(), P.data_ptr(), A.data_ptr(), oy.data_ptr(),
+            ox.data_ptr(), B, h, w, H, W, int(bf16), _blocks(h * w, 4),
+            dev.index, _stream(dev))
         _build.check(lib, 'region_over', rc)
         _count(region_over, bf16)
     return P, A
@@ -394,7 +470,8 @@ region_over.launches_bf16 = 0
 def region_over_sep_plain(P, A, color, ry, rx, dy0, dx0):
     """Plain ``region_over_sep``: materialise the rank-1 layer in the
     order of pallas_ops.py:396-398, ``(color*ry)*rx``, then
-    ``region_over_plain``. Updates (P, A) in place; returns them."""
+    ``region_over_plain`` (host-int or tensor offsets). Updates (P, A) in
+    place; returns them."""
     _check_region('region_over_sep', ry.shape[1], rx.shape[1])
     layer = (color[:, :, None, None] * ry[:, None, :, None]
              * rx[:, None, None, :])
@@ -407,8 +484,10 @@ def region_over_sep(P, A, color, ry, rx, dy0, dx0):
     without materialising the (B, 4, h, w) layer.
 
     color (B, 4) f32; ry (B, h), rx (B, w) f32 with h % 64 == 0 and
-    w % 128 == 0; dy0/dx0 host ints, block-aligned, the region inside
-    the frame's (64, 128) envelope (it may overhang the bottom and right
+    w % 128 == 0; dy0/dx0 int32 tensors of one value on P's device
+    (checked with ``check_offsets`` on the host before their upload; the
+    plain version on a CPU tensor takes host ints too), block-aligned,
+    the region inside the frame's (64, 128) envelope (it may overhang the bottom and right
     edges; those pixels are clipped). P (B, 3, H, W) / A (B, 1, H, W),
     both f32 or both bf16 (the quality <= 9 form; the math stays f32),
     are updated IN PLACE, where the TPU kernel aliased them to its
@@ -427,7 +506,7 @@ def region_over_sep(P, A, color, ry, rx, dy0, dx0):
     if dev.type != 'cuda':
         raise ValueError('region_over_sep: unsupported device %s' % (dev,))
     H, W = P.shape[2], P.shape[3]
-    dy0, dx0 = _check_offsets('region_over_sep', dy0, dx0, h, w, H, W)
+    oy, ox = _device_offsets('region_over_sep', dy0, dx0, dev)
     _need(color, 'color', torch.float32, (B, 4), dev)
     _need(ry, 'ry', torch.float32, (B, h), dev)
     _need(rx, 'rx', torch.float32, (B, w), dev)
@@ -442,8 +521,8 @@ def region_over_sep(P, A, color, ry, rx, dy0, dx0):
         lib = _build.library()
         rc = lib.canvas_region_over_sep(
             color.data_ptr(), ry.data_ptr(), rx.data_ptr(), P.data_ptr(),
-            A.data_ptr(), B, h, w, H, W, dy0, dx0, int(bf16), int(vector),
-            dev.index, _stream(dev))
+            A.data_ptr(), oy.data_ptr(), ox.data_ptr(), B, h, w, H, W,
+            int(bf16), int(vector), dev.index, _stream(dev))
         _build.check(lib, 'region_over_sep', rc)
         _count(region_over_sep, bf16, vector)
     return P, A

@@ -32,25 +32,43 @@ a replayed range plans nothing and copies nothing; ``max_inflight``
 bounds how far the host runs ahead of the device, and a pre-flight
 estimate refuses a batch that cannot fit the card's memory.
 
+Render programs (render.py:1302-1503, 2183-2217): as the JAX package
+compiles one ``jax.jit`` program per structure signature and replays it
+for every batch, segment and pass, the port captures the evaluation of
+a signature once as ONE CUDA graph on its card (``_get_program``,
+``_Program``; at its second batch, the first two running eagerly) and
+replays it: a batch then costs one packed param copy, one graph replay
+and a short eager finish (the op that writes the returned frames, into
+memory the caller owns), not ~130 launches from Python. The region
+kernels read their offsets from the param buffer, so one graph serves
+every position of an animated region. ``render``, ``iter_batches``
+(unsharded and per shard), ``render_display`` and the tail batch each
+take their program; the memory guard counts the programs' pools and
+evicts the least recently used (``_make_room``). On the CPU a program
+runs the same binding, body and finish eagerly.
+
 Multi-device (render.py:1750-2042, 2392-2460): ``iter_batches(mesh=,
 axis=)`` splits each batch's frames over one axis of a ``mesh.Mesh``
 and renders each shard on its own device, and ``render_sharded`` is the
 frame-parallel collector over it, with an optional row reshard over a
 second mesh axis. The JAX package compiles one sharded program per
 signature (``_get_sharded_program``) and commits the replicated params
-to the mesh (``_commit_replicated_params``); the port runs eagerly and
-has no program to build, so only their placement carries over: a param
-an op declares per frame splits, every other is replicated
+to the mesh (``_commit_replicated_params``); the port takes one program
+per (shard signature, device), so a mesh that names a card twice
+replays that card's program once per shard, and keeps the placement: a
+param an op declares per frame splits, every other is replicated
 (``_param_sharding``), and each shard's params go to its device in one
 packed copy (``params_to_shards``).
 """
 
 import contextlib
-
 import functools
+import gc
 import logging
 import os
 import threading
+import time
+import weakref
 from collections import OrderedDict, deque
 from concurrent.futures import ThreadPoolExecutor
 
@@ -71,9 +89,9 @@ from canvas_tpu_torch.ops import scale as scale_ops
 from canvas_tpu_torch.plan import PlanContext, StageLRU
 
 __all__ = ['RenderPlanner', 'render_frames', 'render_sharded', 'Node',
-           'box2i', 'display_matrices_host', 'flat_params',
-           'params_to_shards', 'params_to_torch', 'run', 'signature',
-           'sliced_signature']
+           'box2i', 'check_placed', 'display_matrices_host', 'flat_params',
+           'params_to_shards', 'params_to_torch', 'program_stats', 'run',
+           'signature', 'sliced_signature']
 
 #: The transports of ``RenderPlanner.render_display``.
 DISPLAY_TRANSPORTS = ('u8', 'rgb24', 'yuv420')
@@ -88,10 +106,6 @@ _LATER = {
 }
 
 _log = logging.getLogger('canvas_tpu_torch.render')
-
-#: Params kept as host Python ints: the region offsets. On the device
-#: they would force a sync before every region launch.
-_HOST_INT_PARAMS = frozenset(('dy0', 'dx0'))
 
 
 def _not_ported(what, item):
@@ -110,47 +124,112 @@ def _canonical(v):
     return a
 
 
+def _leaf_layout(plist):
+    """The packed layout of a flat param list's host leaves:
+    ``([(i, key, flat array, shape, offset)], size)``, node by node and
+    within a node by sorted key, each leaf at a multiple of 16 bytes, in
+    the dtype both evaluators see (``_canonical``). Tensors already on
+    the device pass through and take no place. A signature fixes the
+    layout of the lists it has host leaves at the same places for."""
+    leaves, size = [], 0
+    for i, p in enumerate(plist):
+        for k in sorted(p):
+            v = p[k]
+            if isinstance(v, torch.Tensor):
+                continue
+            a = _canonical(v)
+            # (ascontiguousarray would make a 0-d leaf 1-d)
+            leaves.append((i, k, np.ascontiguousarray(a).reshape(-1),
+                           a.shape, size))
+            size += -(-a.nbytes // 16) * 16
+    return leaves, size
+
+
+def _leaf_key(leaves):
+    """What two layouts must share for one packed buffer to fill the
+    other's: each leaf's place, dtype, shape and offset."""
+    return tuple((i, k, a.dtype.str, shape, off)
+                 for i, k, a, shape, off in leaves)
+
+
+def _pack(leaves, size, pinned):
+    """The host leaves in one uint8 tensor of *size* bytes (pinned memory
+    for a copy to a card)."""
+    host = torch.empty(size, dtype=torch.uint8, pin_memory=pinned)
+    flat = host.numpy()
+    for _i, _k, a, _shape, off in leaves:
+        flat[off:off + a.nbytes] = a.view(np.uint8)
+    return host
+
+
+def _leaf_view(buffer, dtype_str, shape, off):
+    """The tensor of one leaf: a view of its bytes in *buffer*."""
+    dtype = torch.from_numpy(np.empty(0, dtype_str)).dtype
+    nbytes = np.dtype(dtype_str).itemsize * int(np.prod(shape,
+                                                       dtype=np.int64))
+    return buffer[off:off + nbytes].view(dtype).reshape(shape)
+
+
+class _DeviceParams(list):
+    """A flat param list on the device (``params_to_torch``): the node
+    dicts, plus the one buffer that holds every host leaf (``buffer``)
+    and that buffer's layout (``leaf_key``), so a render program with the
+    same layout takes all the leaves in one device copy."""
+
+    __slots__ = ('buffer', 'leaf_key')
+
+
 def params_to_torch(plist, device):
     """The planner's flat param list (one dict per node, depth first; the
     same list ``Node.flat_params`` gives ``canvas_tpu.render._eval``) as
     tensors on *device*, uploaded in ONE copy: every host leaf packed
-    into one buffer (leaves start at multiples of 16 bytes), the buffer
-    copied, and each leaf a tensor that views its bytes there. Some
-    thirty small arrays per batch would else each cost a copy of their
-    own. Region offsets stay host ints; tensors already made by the
-    planner (the staged stacks, on *device*) pass through. On CUDA the
-    bytes go from pinned memory with ``non_blocking=True`` on the
-    current stream, and the copy is counted in
-    ``backend.transfer_stats``."""
-    out, leaves, size = [], [], 0
-    for p in plist:
-        q = {}
-        for k, v in p.items():
-            if k in _HOST_INT_PARAMS:
-                q[k] = int(v)
-            elif isinstance(v, torch.Tensor):
-                q[k] = v
-            else:
-                a = _canonical(v)
-                # (ascontiguousarray would make a 0-d leaf 1-d)
-                leaves.append((q, k, np.ascontiguousarray(a).reshape(-1),
-                               a.shape, size))
-                size += -(-a.nbytes // 16) * 16
-        out.append(q)
+    into one buffer (``_leaf_layout``: leaves start at multiples of 16
+    bytes), the buffer copied, and each leaf a tensor that views its
+    bytes there. Some thirty small arrays per batch would else each cost
+    a copy of their own. The region offsets ``dy0``/``dx0`` are leaves
+    like any other (int32 tensors of one value, which the region kernels
+    read on the device; ``check_placed`` checked them on the host).
+    Tensors already made by the planner (the staged stacks, on *device*)
+    pass through. On CUDA the bytes go from pinned memory with
+    ``non_blocking=True`` on the current stream, and the copy is counted
+    in ``backend.transfer_stats``. Returns a ``_DeviceParams``."""
+    leaves, size = _leaf_layout(plist)
     cuda = device.type == 'cuda'
-    host = torch.empty(size, dtype=torch.uint8, pin_memory=cuda)
-    flat = host.numpy()
-    for _q, _k, a, _shape, off in leaves:
-        flat[off:off + a.nbytes] = a.view(np.uint8)
+    host = _pack(leaves, size, cuda)
     if cuda:
         buffer = host.to(device, non_blocking=True)
         backend.count_h2d(size, 1)
     else:
         buffer = host
-    for q, k, a, shape, off in leaves:
-        dtype = torch.from_numpy(np.empty(0, a.dtype)).dtype
-        q[k] = buffer[off:off + a.nbytes].view(dtype).reshape(shape)
+    out = _DeviceParams(dict(p) for p in plist)
+    for i, k, a, shape, off in leaves:
+        out[i][k] = _leaf_view(buffer, a.dtype.str, shape, off)
+    out.buffer = buffer
+    out.leaf_key = _leaf_key(leaves)
     return out
+
+
+def check_placed(node):
+    """Check every region offset of a planned tree on the host, before
+    its params go to the device (the planner's region quantization,
+    sources.py): a ``placed`` layer of an ``over_stack`` of (H, W) frames
+    is whole (64, 128) blocks, at block-aligned offsets, inside the
+    frame's (64, 128) envelope (``cuda_ops.check_offsets``). The region
+    kernels read the offsets from device memory and cannot check them.
+    Returns *node*."""
+    stack = [node]
+    while stack:
+        n = stack.pop()
+        if n.op == 'over_stack':
+            H, W = n.static[0], n.static[1]
+            for c in n.children:
+                if c.op == 'placed':
+                    h, w = c.static
+                    cuda_ops._check_region('placed', h, w)
+                    cuda_ops.check_offsets('placed', c.params['dy0'],
+                                           c.params['dx0'], h, w, H, W)
+        stack.extend(n.children)
+    return node
 
 
 def _param_sharding(op, key):
@@ -175,14 +254,12 @@ def _on(device):
     return contextlib.nullcontext()
 
 
-def params_to_shards(plist, ops, devices):
+def _split_shards(plist, ops, devices):
     """One batch's flat param list (*ops* its nodes' ops, depth first)
-    split over ``len(devices)`` frame shards: shard j takes frames
-    [j*b, (j+1)*b) of every param ``_param_sharding`` splits, and every
-    replicated param whole (a ``mesh.Replicated`` stack as its copy on
-    the shard's device). Each shard's list goes to its device in ONE
-    packed copy (``params_to_torch``, on that device's current stream).
-    Returns one tensor param list per shard."""
+    split over ``len(devices)`` frame shards, still on the host: shard j
+    takes frames [j*b, (j+1)*b) of every param ``_param_sharding``
+    splits, and every replicated param whole (a ``mesh.Replicated``
+    stack as its copy on the shard's device)."""
     n = len(devices)
     out = []
     for j, device in enumerate(devices):
@@ -198,6 +275,17 @@ def params_to_shards(plist, ops, devices):
                     v = v[(slice(None),) * ax + (slice(j * b, (j + 1) * b),)]
                 q[k] = v
             shard.append(q)
+        out.append(shard)
+    return out
+
+
+def params_to_shards(plist, ops, devices):
+    """One batch's flat param list split over ``len(devices)`` frame
+    shards (``_split_shards``), each shard's list sent to its device in
+    ONE packed copy (``params_to_torch``, on that device's current
+    stream). Returns one tensor param list per shard."""
+    out = []
+    for device, shard in zip(devices, _split_shards(plist, ops, devices)):
         with _on(device):
             out.append(params_to_torch(shard, device))
     return out
@@ -270,6 +358,16 @@ def _densify(idx, w, S):
     return torch.sum(terms, dim=2)
 
 
+def _tag_op(err, op):
+    """Name on *err* the innermost op that raised it (a failed capture
+    reports it), unless an op inside already did."""
+    if getattr(err, 'canvas_op', None) is None:
+        try:
+            err.canvas_op = op
+        except AttributeError:     # an exception type without a __dict__
+            pass
+
+
 def _eval(node_sig, params_iter, device, out_dtype=torch.float32):
     """Rebuild the computation from the structure signature on *device*,
     visiting nodes in the depth-first order of ``Node.flat_params``.
@@ -277,7 +375,15 @@ def _eval(node_sig, params_iter, device, out_dtype=torch.float32):
     (render.py:786-1127). An ``over_stack`` at the root whose last child
     is a solid run finalizes straight to *out_dtype*, which ``run`` sets
     to f16 (the root's f16 store folded into the kernel); everything else
-    is f32."""
+    is f32. An exception names the op that raised it (``canvas_op``)."""
+    try:
+        return _eval_op(node_sig, params_iter, device, out_dtype)
+    except Exception as err:
+        _tag_op(err, node_sig[0])
+        raise
+
+
+def _eval_op(node_sig, params_iter, device, out_dtype):
     op, static, _, child_sigs = node_sig
     params = next(params_iter)
 
@@ -451,13 +557,20 @@ def _eval(node_sig, params_iter, device, out_dtype=torch.float32):
     raise ValueError('unknown op: %r' % (op,))
 
 
-def _over_stack(static, child_sigs, params_iter, device, out_dtype):
+def _over_stack(static, child_sigs, params_iter, device, out_dtype,
+                split=False):
     """Premultiplied-alpha fold of the children (render.py:869-1015).
     Solid runs fold through the ``solid_fold`` kernel (the last one
     finalizes straight to *out_dtype*); each placed rank-1 region
-    composites through ``region_over_sep`` in place, any other placed
-    region layer through ``region_over`` in place; any other child is a
-    layer blended with torch ops.
+    composites through ``region_over_sep`` in place (its offsets read on
+    the device), any other placed region layer through ``region_over``
+    in place; any other child is a layer blended with torch ops.
+
+    With *split* (a render program's root) the op that writes the frames
+    is left out and returned instead: ``(outs, finish)``, where *outs*
+    are the accumulators a captured graph leaves in its pool and
+    ``finish(outs)`` writes fresh frames from them (the finalizing
+    ``solid_fold``, or the f16 store of the un-premultiplied result).
 
     The (P, A) accumulators are f32, or at quality <= 9 (the ``acc16``
     tag) bf16 at every pass boundary: the kernels store them as bf16,
@@ -475,58 +588,86 @@ def _over_stack(static, child_sigs, params_iter, device, out_dtype):
         return x.to(acc_dt).contiguous()
 
     P = A = None
-    for i, cs in enumerate(child_sigs):
-        c_op = cs[0]
-        if c_op == 'solid_stack':
-            c_params = next(params_iter)
-            if P is not None:
-                P, A = P.contiguous(), A.contiguous()
-            if i == len(child_sigs) - 1:
-                return cuda_ops.solid_fold(
-                    P, A, c_params['color'], c_params['box'],
-                    c_params['gain'], c_params['offset'], H, W,
-                    finalize=True, out_dtype=out_dtype)
-            P, A = cuda_ops.solid_fold(
-                to_acc(P) if P is not None else None,
-                to_acc(A) if A is not None else None,
-                c_params['color'], c_params['box'], c_params['gain'],
-                c_params['offset'], H, W, acc_dtype=acc_dt)
-            continue
-        if c_op == 'placed':
-            pl_params = next(params_iter)
-            inner = cs[3][0]
-            if inner[0] in ('scale_solid', 'scale_solid_dyn'):
-                color, ry, rx = _scale_solid_factors(inner[0], inner[1],
-                                                     next(params_iter))
-                layer = None
-                B = color.shape[0]
-            else:
-                layer = _eval(inner, params_iter, device).contiguous()
-                B = layer.shape[0]
+    c_op = None
+    try:
+        for i, cs in enumerate(child_sigs):
+            c_op = cs[0]
+            if c_op == 'solid_stack':
+                c_params = next(params_iter)
+                if P is not None:
+                    P, A = P.contiguous(), A.contiguous()
+                if i == len(child_sigs) - 1:
+                    finish = functools.partial(_finalize, c_params, H, W,
+                                               out_dtype)
+                    if split and P is not None:
+                        return (P, A), finish
+                    out = finish((P, A))
+                    return ((out,), _to_f16) if split else out
+                P, A = cuda_ops.solid_fold(
+                    to_acc(P) if P is not None else None,
+                    to_acc(A) if A is not None else None,
+                    c_params['color'], c_params['box'], c_params['gain'],
+                    c_params['offset'], H, W, acc_dtype=acc_dt)
+                continue
+            if c_op == 'placed':
+                pl_params = next(params_iter)
+                inner = cs[3][0]
+                if inner[0] in ('scale_solid', 'scale_solid_dyn'):
+                    color, ry, rx = _scale_solid_factors(
+                        inner[0], inner[1], next(params_iter))
+                    layer = None
+                    B = color.shape[0]
+                else:
+                    layer = _eval(inner, params_iter, device).contiguous()
+                    B = layer.shape[0]
+                if P is None:
+                    P = torch.zeros((B, 3, H, W), dtype=acc_dt,
+                                    device=device)
+                    A = torch.zeros((B, 1, H, W), dtype=acc_dt,
+                                    device=device)
+                if layer is None:
+                    P, A = cuda_ops.region_over_sep(
+                        to_acc(P), to_acc(A), color, ry, rx,
+                        pl_params['dy0'], pl_params['dx0'])
+                else:
+                    P, A = cuda_ops.region_over(
+                        to_acc(P), to_acc(A), to_acc(layer),
+                        pl_params['dy0'], pl_params['dx0'])
+                continue
+            layer = _eval(cs, params_iter, device)
+            la = layer[:, 3:4]
             if P is None:
-                P = torch.zeros((B, 3, H, W), dtype=acc_dt, device=device)
-                A = torch.zeros((B, 1, H, W), dtype=acc_dt, device=device)
-            if layer is None:
-                P, A = cuda_ops.region_over_sep(
-                    to_acc(P), to_acc(A), color, ry, rx,
-                    pl_params['dy0'], pl_params['dx0'])
+                P = layer[:, :3] * la
+                A = la
             else:
-                P, A = cuda_ops.region_over(
-                    to_acc(P), to_acc(A), to_acc(layer),
-                    pl_params['dy0'], pl_params['dx0'])
-            continue
-        layer = _eval(cs, params_iter, device)
-        la = layer[:, 3:4]
-        if P is None:
-            P = layer[:, :3] * la
-            A = la
-        else:
-            P = layer[:, :3] * la + P.float() * (1.0 - la)
-            A = la + A.float() * (1.0 - la)
+                P = layer[:, :3] * la + P.float() * (1.0 - la)
+                A = la + A.float() * (1.0 - la)
+    except Exception as err:
+        _tag_op(err, c_op)     # the child whose fold or composite raised
+        raise
     P, A = P.float(), A.float()
     nz = A != 0.0
     rgb = torch.where(nz, P / torch.where(nz, A, 1.0), 0.0)
-    return torch.cat([rgb, A], dim=1)
+    out = torch.cat([rgb, A], dim=1)
+    return ((out,), _to_f16) if split else out
+
+
+def _finalize(c_params, H, W, out_dtype, outs):
+    """The root's last solid run folded over the accumulators *outs* and
+    finalized to fresh *out_dtype* frames (a program's finish)."""
+    P, A = outs
+    return cuda_ops.solid_fold(P, A, c_params['color'], c_params['box'],
+                               c_params['gain'], c_params['offset'], H, W,
+                               finalize=True, out_dtype=out_dtype)
+
+
+def _to_f16(outs):
+    """The frames of *outs* (one tensor) stored as fresh f16: the
+    conversion of ``run``'s ``.to(torch.float16)``, into a tensor of its
+    own even where the source is f16 already (a program's finish)."""
+    x, = outs
+    return torch.empty(x.shape, dtype=torch.float16,
+                       device=x.device).copy_(x)
 
 
 def run(sig, params, device, post=None):
@@ -560,6 +701,630 @@ def display_run(sig, params, device, mats, order, intent, transport):
     if intent is None:
         return color_ops.u8_interleaved(out, order)
     return color_ops.display_u8(out, intent, order)
+
+
+# --- render programs (canvas_tpu/render.py:1302-1487) ---------------------
+
+#: The render programs, by key, least recently used first: the
+#: counterpart of the JAX package's ``_program_cache`` of compiled
+#: programs. A key is ``(signature, device)``, ``((signature, 'post',
+#: post), device)`` or, for ``render_display``, ``((one-frame signature,
+#: 'display', order, intent, display_size, transport), device)``. The JAX
+#: keys also carry ``_trace_env_key``'s TPU A/B gates, which the port
+#: does not have (ROADMAP.md item 9).
+_program_cache = OrderedDict()
+_program_lock = threading.Lock()
+
+#: Most programs kept at once, over every device. A captured program
+#: keeps its graph's memory pool for as long as it lives (an XLA program
+#: frees its buffers between calls), so the cache is bounded, by count
+#: here and by the memory guard's budget (``_make_room``).
+_PROGRAMS_KEPT = 32
+
+#: ``(full segment signature, device)`` -> how many live programs render
+#: a form of that segment (a batch cut, a post, a display pull): what
+#: ``explain`` reports as "program CAPTURED" (render.py:1330-1336).
+_compiled_families = {}
+
+#: Program calls, captures, replays, captures replayed at least once
+#: and evictions since import (``program_stats``).
+_program_totals = {'calls': 0, 'captures': 0, 'replays': 0,
+                   'replayed_captures': 0, 'evictions': 0}
+
+#: The side stream of each card that programs are captured on (a
+#: capture needs a stream of its own), and the lock one capture at a
+#: time holds (the pull queue's workers may capture two programs at
+#: once). Work that another thread enqueues on a stream while it is
+#: captured joins the capture, and a wait for that stream invalidates
+#: it; torch hands out its pooled streams round robin, so the side
+#: stream comes from the pool of the highest priority, which nothing
+#: else of the port draws from (``staging._copy_stream`` keeps one copy
+#: stream a device for the same reason).
+_side_streams = {}
+_capture_lock = threading.Lock()
+
+
+def _program_device(device):
+    """*device* with an index where it is a card (``torch.device('cuda')``
+    is the current card), so one card has one key."""
+    device = torch.device(device)
+    if device.type == 'cuda' and device.index is None:
+        return torch.device('cuda', torch.cuda.current_device())
+    return device
+
+
+def _side_stream(device):
+    stream = _side_streams.get(device)
+    if stream is None:
+        stream = _side_streams[device] = torch.cuda.Stream(
+            device, priority=torch.cuda.Stream.priority_range()[1])
+    return stream
+
+
+class _Program:
+    """One render program: the body of a signature captured as ONE CUDA
+    graph on its card and replayed for every later batch, segment and
+    cold pass with that signature, as the JAX package replays one
+    ``jax.jit`` program (``canvas_tpu.render._get_program``). A replay
+    launches the very kernels the eager run launched, in the same order,
+    so its frames are the eager ``run``'s bit for bit.
+
+    - **Static inputs.** The program owns one param buffer in the leaf
+      layout of ``params_to_torch`` (fixed by the signature) and one
+      slot per tensor that passes through (a staged stack, a display
+      pull's device params). A call copies a host param list into the
+      buffer in one packed host-to-device copy, or a ``_DeviceParams``
+      (a cached plan's params) in one device copy; a slot is copied only
+      when its source tensor is not the one it last copied (held weakly:
+      a freed source can never match).
+    - **Capture.** The first call runs the body eagerly on the static
+      inputs and returns its frames; a signature rendered once (a tail
+      batch, a thumbnail) captures nothing. The second call, after the
+      memory guard found room for the batch and the new pool beside the
+      live programs (what it cannot fit raises), runs the body eagerly
+      once more on the card's side stream and returns those frames: the
+      warm-up, on the capture's own thread and stream, so the cuBLAS
+      handle and workspaces, the level tables and the kernel library
+      exist; then it captures on that stream into the graph's private
+      pool, in ``thread_local`` mode, so the prepare thread's copies and
+      waits go on (the ctypes kernels launch on torch's current stream,
+      the capture stream then). Every later call replays. Each call
+      launches, or replays, one batch's kernels. A capture that fails
+      raises, naming the op (``canvas_op``); nothing falls back to an
+      eager run on a card.
+    - **Outputs.** The graph ends before the op that writes the returned
+      tensor: its ``finish`` (the root's finalizing ``solid_fold`` or its
+      f16 store, then the post; a display pull's copy to the host) runs
+      eagerly after each replay into fresh memory, reading the pool in
+      stream order before the next replay can write it. The caller owns
+      what it gets, as a JAX program's caller does.
+    - **Launch counts.** A replay runs no wrapper, so the program adds
+      the launches it recorded at capture (``cuda_ops.recording``).
+    - **Streams and threads.** One call at a time (a lock); a call on
+      another stream than the last waits for the last one first.
+
+    On the CPU there is no graph: the same binding, guard, body and
+    finish run eagerly at every call, the second one counting as the
+    capture."""
+
+    def __init__(self, key, device, body, family=None):
+        self.key = key
+        self.device = device
+        self.family = family
+        self._body = body
+        self._lock = threading.Lock()
+        #: the batch's memory estimate with the pool, which the capture
+        #: must find room for (the latest caller's, ``_program``)
+        self.reserve = 0
+        self.calls = 0
+        self.replays = 0
+        self.capture_ms = None
+        #: where a card's capture took its time (ms): the eager warm-up
+        #: batch's enqueue, making room (``empty_cache``, only where the
+        #: card lacks it), recording the body, instantiating the graph
+        self.capture_split = None
+        self.pool_bytes = 0
+        self.slot_copies = 0
+        self.slot_bytes = 0
+        self.out_shape = None
+        #: ``program_stats()['captures']`` right after this capture
+        self.capture_index = None
+        #: what the memory guard counted when it let this program
+        #: capture: the batch's estimate with the new pool, and the bytes
+        #: of the programs live then
+        self.guard_bytes = 0
+        self._reset()
+
+    def _reset(self):
+        self.captured = False
+        self.params = None
+        self._buffer = None
+        self._leaf_key = None
+        self._slots = None
+        self._graph = None
+        self._outs = None
+        self._finish = None
+        self._launches = None
+        self._stream = None
+
+    @property
+    def held_bytes(self):
+        """Device bytes this program keeps: its pool, param buffer and
+        slots."""
+        if self.params is None:
+            return 0
+        return (self.pool_bytes + self._buffer.numel()
+                + sum(s[2].numel() * s[2].element_size()
+                      for s in self._slots))
+
+    def stats(self):
+        return {'key': _describe_key(self.key), 'device': str(self.device),
+                'frames': self.out_shape, 'captured': self.captured,
+                'capture_index': self.capture_index,
+                'guard_bytes': self.guard_bytes,
+                'calls': self.calls, 'replays': self.replays,
+                'capture_ms': self.capture_ms,
+                'capture_split': self.capture_split,
+                'pool_bytes': self.pool_bytes,
+                'held_bytes': self.held_bytes,
+                'param_bytes': (0 if self._buffer is None
+                                else self._buffer.numel()),
+                'slot_copies': self.slot_copies,
+                'slot_bytes': self.slot_bytes}
+
+    def __call__(self, plist):
+        """Run the program on *plist* (host params as planned, or a
+        ``_DeviceParams``) and return what its finish writes."""
+        with self._lock:
+            if self.device.type == 'cuda':
+                cur = torch.cuda.current_stream(self.device)
+                if self._stream is not None and self._stream != cur:
+                    cur.wait_stream(self._stream)
+                self._stream = cur
+            self._bind(plist)
+            replayed = self.captured
+            first_replay = replayed and not self.replays
+            if replayed:
+                outs, finish = self._replay()
+                out = finish(outs)
+                self.replays += 1
+            elif self.calls:
+                out = self._capture()
+            else:
+                # the first call: the body eagerly on the static inputs,
+                # its launches real
+                outs, finish = self._body(self.params)
+                out = finish(outs)
+            self.calls += 1
+            if self.out_shape is None:
+                self.out_shape = tuple(out.shape)
+        with _program_lock:
+            _program_totals['calls'] += 1
+            _program_totals['replays'] += replayed
+            _program_totals['replayed_captures'] += first_replay
+        return out
+
+    # binding
+
+    def _layout(self, plist):
+        """The static inputs, laid out from the first param list: the
+        leaves of ``params_to_torch``'s layout in one buffer, a slot for
+        every tensor."""
+        if isinstance(plist, _DeviceParams):
+            self._leaf_key = plist.leaf_key
+        else:
+            self._leaf_key = _leaf_key(_leaf_layout(plist)[0])
+        size = 0
+        at = {}
+        for i, k, dt, shape, off in self._leaf_key:
+            at[(i, k)] = (dt, shape, off)
+            size = off + -(-_nbytes(dt, shape) // 16) * 16
+        self._buffer = torch.empty(size, dtype=torch.uint8,
+                                   device=self.device)
+        self.params, self._slots = [], []
+        for i, p in enumerate(plist):
+            q = {}
+            for k, v in p.items():
+                if (i, k) in at:
+                    q[k] = _leaf_view(self._buffer, *at[(i, k)])
+                else:
+                    q[k] = torch.empty(v.shape, dtype=v.dtype,
+                                       device=self.device)
+                    self._slots.append([i, k, q[k], None])
+            self.params.append(q)
+
+    def _bind(self, plist):
+        """Copy *plist* into the static inputs, on the current stream."""
+        if self.params is None:
+            self._layout(plist)
+        if len(plist) != len(self.params):
+            raise ValueError('%d param dicts for a program of %d nodes'
+                             % (len(plist), len(self.params)))
+        cuda = self.device.type == 'cuda'
+        if (isinstance(plist, _DeviceParams)
+                and plist.leaf_key == self._leaf_key):
+            self._buffer.copy_(plist.buffer, non_blocking=True)
+        else:
+            leaves, tensors = [], []
+            for i, k, dt, shape, off in self._leaf_key:
+                v = plist[i][k]
+                if isinstance(v, torch.Tensor):
+                    tensors.append((self.params[i][k], v))
+                    continue
+                a = _canonical(v)
+                if a.dtype.str != dt or a.shape != shape:
+                    raise ValueError(
+                        'param %r of node %d is %s %s; the program takes %s '
+                        '%s' % (k, i, a.dtype, a.shape, dt, shape))
+                leaves.append((i, k, np.ascontiguousarray(a).reshape(-1),
+                               shape, off))
+            if leaves:
+                size = self._buffer.numel()
+                self._buffer.copy_(_pack(leaves, size, cuda),
+                                   non_blocking=cuda)
+                if cuda:
+                    backend.count_h2d(size, 1)
+            for dst, v in tensors:
+                dst.copy_(v, non_blocking=True)
+        for slot in self._slots:
+            i, k, dst, last = slot
+            v = plist[i][k]
+            if isinstance(v, torch.Tensor):
+                if last is not None and last() is v:
+                    continue
+                dst.copy_(v, non_blocking=True)
+                slot[3] = weakref.ref(v)
+            else:
+                dst.copy_(torch.from_numpy(np.ascontiguousarray(
+                    _canonical(v))).reshape(dst.shape))
+                slot[3] = None
+            self.slot_copies += 1
+            self.slot_bytes += dst.numel() * dst.element_size()
+
+    # capture and replay
+
+    def _capture(self):
+        """The second call: this batch's frames eagerly (the warm-up, on
+        the stream the capture then uses), then the capture. Returns the
+        frames."""
+        # the memory guard at the capture: the batch with the new pool,
+        # beside the programs live now (the tail batch's signature after
+        # the main one's, say); what no eviction can fit raises
+        held = _make_room(self.device, self.reserve, keep=self)
+        budget = _hbm_budget_bytes(self.device)
+        if budget and self.reserve + held > budget:
+            raise ValueError(
+                'capturing the render program %s on %s needs ~%.1f GiB '
+                'beside ~%.1f GiB of live render programs, against a ~%.1f '
+                'GiB HBM budget (CANVAS_HBM_MB overrides it, 0 disables the '
+                'check)' % (_describe_key(self.key), self.device,
+                            self.reserve / (1 << 30), held / (1 << 30),
+                            budget / (1 << 30)))
+        self.guard_bytes = self.reserve + held
+        t0 = time.perf_counter()
+        if self.device.type == 'cuda':
+            backend.ensure_initialized()   # TF32 stays off in the capture
+            with _capture_lock:
+                out = self._capture_on_side_stream()
+        else:
+            outs, finish = self._body(self.params)
+            out = finish(outs)
+        self.captured = True
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        with _program_lock:
+            _program_totals['captures'] += 1
+            self.capture_index = _program_totals['captures']
+            if self.family is not None:
+                fk = (self.family, self.device)
+                _compiled_families[fk] = _compiled_families.get(fk, 0) + 1
+        return out
+
+    def _capture_on_side_stream(self):
+        cur = torch.cuda.current_stream(self.device)
+        side = _side_stream(self.device)
+        side.wait_stream(cur)
+        t0 = time.perf_counter()
+        with torch.cuda.stream(side):
+            # this batch's frames, eagerly on the capture's thread and
+            # stream: what the body creates there lazily (a cuBLAS
+            # handle, its workspaces) exists before the capture
+            outs, finish = self._body(self.params)
+            out = finish(outs)
+            del outs
+            t1 = time.perf_counter()
+            # The pool takes device memory of its own (no cached block of
+            # another pool). Only where the card lacks the room the
+            # memory guard counted for the batch and its pool does the
+            # allocator hand its cached blocks back first (the pools of
+            # evicted programs among them): a synchronize of the whole
+            # card, which torch.cuda.graph makes before every capture.
+            # Nothing else waits: the warm-up stays queued on the side
+            # stream, ahead of the capture.
+            if torch.cuda.mem_get_info(self.device)[0] < self.reserve:
+                torch.cuda.empty_cache()
+            t2 = time.perf_counter()
+            reserved = torch.cuda.memory_reserved(self.device)
+            graph = torch.cuda.CUDAGraph()
+            # No collection runs during the capture: a tensor freed then
+            # would record events from the capturing thread.
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                graph.capture_begin(capture_error_mode='thread_local')
+                try:
+                    with cuda_ops.recording() as launches:
+                        outs, finish = self._body(self.params)
+                except Exception as err:
+                    try:
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass               # the capture is invalid already
+                    raise self._failed(err) from err
+                t3 = time.perf_counter()
+                try:
+                    graph.capture_end()
+                except RuntimeError as err:
+                    raise self._failed(err) from err
+            finally:
+                if collecting:
+                    gc.enable()
+            t4 = time.perf_counter()
+            growth = torch.cuda.memory_reserved(self.device) - reserved
+        cur.wait_stream(side)
+        if isinstance(out, torch.Tensor) and out.is_cuda:
+            out.record_stream(cur)         # made on the side stream
+        self._graph, self._outs, self._finish = graph, outs, finish
+        self._launches = launches
+        # the pool's segments (allocated anew: a pool takes no cached
+        # block of another)
+        self.pool_bytes = max(0, int(growth))
+        self.capture_split = {
+            'warm_ms': (t1 - t0) * 1e3, 'room_ms': (t2 - t1) * 1e3,
+            'record_ms': (t3 - t2) * 1e3, 'instantiate_ms': (t4 - t3) * 1e3}
+        return out
+
+    def _failed(self, err):
+        return RuntimeError(
+            'capturing the render program %s on %s failed in op %r: %s: %s'
+            % (_describe_key(self.key), self.device,
+               getattr(err, 'canvas_op', None), type(err).__name__, err))
+
+    def _replay(self):
+        if self._graph is not None:
+            self._graph.replay()
+            cuda_ops.add_launches(self._launches)
+            return self._outs, self._finish
+        with cuda_ops.recording() as launches:
+            outs, finish = self._body(self.params)
+        if self._launches is None:
+            self._launches = launches
+        cuda_ops.add_launches(self._launches)
+        return outs, finish
+
+    def _release(self, blocking=True):
+        """Drop the graph, its pool and the static inputs (an eviction),
+        once the card is done with them; a later call captures anew.
+        Without *blocking*, a program in use on another thread is left
+        as it is: returns whether it was released."""
+        if not self._lock.acquire(blocking):
+            return False
+        try:
+            if self._stream is not None:
+                self._stream.synchronize()
+            if self.captured and self.family is not None:
+                fk = (self.family, self.device)
+                with _program_lock:
+                    left = _compiled_families.get(fk, 0) - 1
+                    if left > 0:
+                        _compiled_families[fk] = left
+                    else:
+                        _compiled_families.pop(fk, None)
+            self.pool_bytes = 0
+            self._reset()
+        finally:
+            self._lock.release()
+        return True
+
+
+def _nbytes(dtype_str, shape):
+    return np.dtype(dtype_str).itemsize * int(np.prod(shape, dtype=np.int64))
+
+
+def _describe_key(key):
+    """A short name of a program key: the root op, the post or the
+    display transport."""
+    what, _device = key
+    if what[1] == 'post':
+        return '%s post=%s' % (what[0][0], what[2])
+    if what[1] == 'display':
+        return '%s display %s %s' % (what[0][0], what[5], what[4] or 'full')
+    return what[0]
+
+
+def _make_run(signature, post, device):
+    """The program body of *signature* (render.py:1463-1487): the
+    evaluation up to the op that writes the frames, with a finish that
+    writes them as fresh f16 and converts them for export by *post*
+    (``color.POSTS``). ONE definition for the sharded and unsharded
+    programs."""
+    post_fn = None if post is None else color_ops.POSTS[post]
+
+    def body(params):
+        outs, finish = _split_eval(signature, iter(params), device)
+        if post_fn is None:
+            return outs, finish
+        return outs, lambda o: post_fn(finish(o))
+
+    return body
+
+
+def _split_eval(sig, params_iter, device):
+    """``run``'s evaluation as ``(outs, finish)``: ``finish(outs)`` is the
+    op that writes the returned frames, left out of a captured graph (the
+    root ``over_stack``'s last solid fold or its f16 store, else the f16
+    store of the root)."""
+    op, static, _, child_sigs = sig
+    if op != 'over_stack':
+        return (_eval(sig, params_iter, device, torch.float16),), _to_f16
+    next(params_iter)
+    try:
+        return _over_stack(static, child_sigs, params_iter, device,
+                           torch.float16, split=True)
+    except Exception as err:
+        _tag_op(err, op)
+        raise
+
+
+def _fetch(outs):
+    """A display program's finish: its u8 frames copied to the host."""
+    return backend.to_host(outs[0])
+
+
+def _held_bytes(device):
+    """Device bytes the live programs on *device* keep."""
+    with _program_lock:
+        progs = [p for p in _program_cache.values() if p.device == device]
+    return sum(p.held_bytes for p in progs)
+
+
+def _evict(victims):
+    for prog in victims:
+        prog._release()
+    with _program_lock:
+        _program_totals['evictions'] += len(victims)
+
+
+#: The share of the memory guard's budget above which a render is
+#: marginal: it warns there, and live programs are evicted to stay below
+#: it, leaving room for what the estimate does not model (outputs a
+#: caller keeps past its depth, the allocator's cached blocks).
+_MARGINAL = 0.8
+
+
+def _make_room(device, need, keep=None):
+    """Evict the least recently used programs on *device* while their
+    bytes and *need* (a batch's estimate) would pass the marginal share
+    of the memory guard's budget (``_MARGINAL`` of ``_hbm_budget_bytes``),
+    never *keep* (the program about to capture). Returns the bytes the
+    programs left on *device* keep."""
+    device = _program_device(device)
+    budget = _hbm_budget_bytes(device)
+    held = _held_bytes(device)
+    busy = {id(keep)}
+    while budget and need + held > _MARGINAL * budget:
+        with _program_lock:
+            victim = next((p for p in _program_cache.values()
+                           if p.device == device and id(p) not in busy
+                           and p.held_bytes), None)
+        if victim is None:
+            break
+        # a program another thread runs is skipped, not waited for: that
+        # thread may be making room itself
+        if not victim._release(blocking=False):
+            busy.add(id(victim))
+            continue
+        with _program_lock:
+            if _program_cache.get(victim.key) is victim:
+                del _program_cache[victim.key]
+            _program_totals['evictions'] += 1
+        held = _held_bytes(device)
+    return held
+
+
+def _program(key, make_body, reserve=0, family=None):
+    """The program of *key*, made when there is none (its first call runs
+    eagerly, its second captures). *reserve* is the batch's memory
+    estimate with a new pool (``_check_hbm_footprint``), which the
+    capture must find room for beside the programs live then. The least
+    recently used programs past ``_PROGRAMS_KEPT`` are evicted."""
+    with _program_lock:
+        prog = _program_cache.get(key)
+        if prog is not None:
+            _program_cache.move_to_end(key)
+    if prog is None:
+        made = _Program(key, key[1], make_body(), family)
+        with _program_lock:
+            prog = _program_cache.setdefault(key, made)
+            _program_cache.move_to_end(key)
+    if reserve:
+        prog.reserve = reserve
+    victims = []
+    with _program_lock:
+        while len(_program_cache) > _PROGRAMS_KEPT:
+            victims.append(_program_cache.popitem(last=False)[1])
+    _evict(victims)
+    return prog
+
+
+def _get_program(signature, device, post=None, reserve=0, family=None):
+    """The render program of *signature* on *device* (render.py:1445-1475):
+    ``post`` None gives (B, 4, H, W) f16 frames, else their export
+    conversion (``color.POSTS``) in the program's finish. *reserve* is
+    the batch's memory estimate, room made for it before a capture;
+    *family* the unsliced segment signature ``explain`` reports."""
+    device = _program_device(device)
+    key = ((signature if post is None else (signature, 'post', post)),
+           device)
+    return _program(key, lambda: _make_run(signature, post, device),
+                    reserve, family)
+
+
+def _get_sharded_program(signature, devices, post=None, reserve=0,
+                         family=None):
+    """The program of each frame shard of a batch (render.py:1382-1405):
+    one per (shard signature, device), so a mesh that names a device
+    twice replays that device's program once per shard; stream order
+    keeps the shards apart (each shard's finish reads the pool before the
+    next replay writes it). *reserve* maps a device to its share of the
+    batch's estimate."""
+    return [_get_program(signature, d, post,
+                         (reserve or {}).get(d, 0), family)
+            for d in devices]
+
+
+def _get_display_program(sig1, device, order, intent, display_size,
+                         transport, reserve=0, family=None):
+    """The display program of ``render_display`` under the JAX key
+    (render.py:2183-2217): ``display_run`` whole, viewport resample
+    included (its matrices a trailing param dict ``{'dy', 'dx'}``), and
+    the u8 result copied to the host as its finish."""
+    device = _program_device(device)
+    key = ((sig1, 'display', order, intent, display_size, transport),
+           device)
+
+    def make():
+        def body(params):
+            mats = None
+            if display_size is not None:
+                mats = (params[-1]['dy'], params[-1]['dx'])
+                params = params[:-1]
+            try:
+                out = display_run(sig1, params, device, mats, order, intent,
+                                  transport)
+            except Exception as err:
+                _tag_op(err, 'display %s' % transport)
+                raise
+            return (out,), _fetch
+        return body
+
+    return _program(key, make, reserve, family)
+
+
+def program_stats():
+    """The render programs: totals since import (``calls``, ``captures``,
+    ``replays``, ``replayed_captures``: the captures a later call replayed
+    at least once, ``evictions``), the ``live`` count, and per live program
+    (least recently used first) its key, device, output shape, calls,
+    replays, capture ms and its split (``capture_split``), pool bytes,
+    bytes held (pool, param buffer and slots), param buffer bytes, the
+    slot copies made with their bytes,
+    ``capture_index`` (the captures total right after its capture) and
+    ``guard_bytes`` (what the memory guard counted at its capture)."""
+    with _program_lock:
+        progs = list(_program_cache.values())
+        totals = dict(_program_totals)
+    return dict(totals, live=len(progs),
+                programs=[p.stats() for p in progs])
 
 
 @functools.lru_cache(maxsize=16)
@@ -622,7 +1387,8 @@ POST_WORKING_BPP = {
     for post in ('rgba_u8', 'bgra_u8', 'yuv420')}
 
 
-def _hbm_estimate_bytes(batch, window, post, max_inflight, working_bpp=16):
+def _hbm_estimate_bytes(batch, window, post, max_inflight, working_bpp=16,
+                        device=None):
     """The memory guard's model of a batched render, in bytes, and the
     output depth it counted: ``depth`` retained output buffers
     (``max_inflight``, 3 when unbounded or non-positive, as in
@@ -633,15 +1399,20 @@ def _hbm_estimate_bytes(batch, window, post, max_inflight, working_bpp=16):
     int32 bits of its level gather (16), the gather's int64 indices
     (32) and the f32 levels (16), 72 bytes for each of ``rgba_u8``,
     ``bgra_u8`` and ``yuv420``. The accumulators are freed by the
-    finalize before the post runs, so the sum is an upper bound. See
-    ``_check_hbm_footprint``."""
+    finalize before the post runs, so the sum is an upper bound. With
+    *device*, the bytes the live render programs on it keep (their graph
+    pools, measured at capture, param buffers and slots) are added; the
+    pool of a program still to capture is the capture's to find room for
+    (``_check_hbm_footprint``, ``_Program._capture``)."""
     px = window.width * window.height
     out_bpp = {None: 8, 'rgba_u8': 4, 'bgra_u8': 4,
                'yuv420': 1.5}.get(post, 8)
     post_bpp = sum(b for _name, b in POST_WORKING_BPP.get(post, ()))
     depth = max_inflight if (max_inflight and max_inflight > 0) else 3
-    return (int((depth * out_bpp + working_bpp + post_bpp) * batch * px),
-            depth)
+    est = int((depth * out_bpp + working_bpp + post_bpp) * batch * px)
+    if device is not None:
+        est += _held_bytes(_program_device(device))
+    return est, depth
 
 
 def _check_hbm_footprint(batch, window, post, max_inflight, device,
@@ -670,36 +1441,56 @@ def _check_hbm_footprint(batch, window, post, max_inflight, device,
     is held to its own budget with its share of the estimate. The JAX
     guard divides by the shard count (render.py:1576-1578), which is
     right only when every shard has a device of its own: a device named
-    twice holds two shards' worth. None means *device* renders it all."""
+    twice holds two shards' worth. None means *device* renders it all.
+
+    The live render programs on each device count too (their pools,
+    param buffers and slots): the least recently used are evicted
+    (``_make_room``) while the sum would pass the marginal share of the
+    budget, and only what no eviction can fit raises. Returns {device:
+    the batch's estimate without the programs, plus on a card one
+    working stack for the pool of a program the render may still
+    capture}: what a capture on that device must find room for
+    (``_program``)."""
     if shares is None:
         shares = {device: 1}
     n = sum(shares.values())
     est_all, depth = _hbm_estimate_bytes(batch, window, post, max_inflight,
                                          working_bpp)
+    # a program still to capture on a card keeps one more working stack:
+    # its graph's pool (the CPU captures nothing)
+    pool_all = int(working_bpp * batch * window.width * window.height)
+    need = {}
     for dev, count in shares.items():
+        est = int(est_all * count / n)
+        need[dev] = est + (int(pool_all * count / n)
+                           if dev.type == 'cuda' else 0)
         budget = _hbm_budget_bytes(dev)
         if not budget:        # None: the CPU; 0: switched off
             continue
-        est = int(est_all * count / n)
+        held = _make_room(dev, est)
         share = ('' if n == 1 else ', %d of %d frame shards on %s'
                  % (count, n, dev))
-        if est > budget:
+        if est + held > budget:
             raise ValueError(
                 '%d frames at %dx%d estimate ~%.1f GiB on the device '
-                '(%d retained output buffers%s%s%s) against a ~%.1f GiB HBM '
-                'budget; the render would run out of memory part-way. '
+                '(%d retained output buffers%s%s%s%s) against a ~%.1f GiB '
+                'HBM budget; the render would run out of memory part-way. '
                 'Reduce batch, bound max_inflight, or override with '
                 'CANVAS_HBM_MB (0 disables this check).'
-                % (batch, window.width, window.height, est / (1 << 30),
-                   depth, ' + f32 working set' if working_bpp else '',
+                % (batch, window.width, window.height,
+                   (est + held) / (1 << 30), depth,
+                   ' + f32 working set' if working_bpp else '',
                    ' + the %s post\'s working set' % post if post else '',
-                   share, budget / (1 << 30)))
-        if est > 0.8 * budget:
+                   ' + %.1f GiB of render programs' % (held / (1 << 30))
+                   if held else '', share, budget / (1 << 30)))
+        est += held
+        if est > _MARGINAL * budget:
             _log.warning(
                 'batch %d at %dx%d estimates ~%.1f GiB on the device%s '
                 'against a ~%.1f GiB HBM budget: marginal; consider a '
                 'smaller batch or max_inflight', batch, window.width,
                 window.height, est / (1 << 30), share, budget / (1 << 30))
+    return need
 
 
 def _device_shares(mesh, axis):
@@ -736,12 +1527,15 @@ class _Prepared:
     dispatch on (``device_params``, or over a mesh ``shard_params``), so
     a cached plan replays with no copy."""
 
-    __slots__ = ('seg_start', 'sig', 'ops', 'spans', 'plists', 'uploaded')
+    __slots__ = ('seg_start', 'sig', 'ops', 'spans', 'plists', 'uploaded',
+                 'family')
 
-    def __init__(self, seg_start, sig, batches, ops=None):
+    def __init__(self, seg_start, sig, batches, ops=None, family=None):
         self.seg_start = seg_start
         self.sig = sig
         self.ops = ops
+        #: the unsliced segment signature (``explain``'s program line)
+        self.family = family
         self.spans = [(pos, take) for pos, take, _pl in batches]
         self.plists = [pl for _pos, _take, pl in batches]
         self.uploaded = [False] * len(batches)
@@ -871,15 +1665,19 @@ class RenderPlanner:
 
     def _plan(self, seg):
         """Plan segment [s0, s1) on the host with the port's
-        ``PlanContext`` (NumPy, plus the port's device staging)."""
-        return self._plan_context(seg).plan(self.source)
+        ``PlanContext`` (NumPy, plus the port's device staging), its
+        region offsets checked (``check_placed``)."""
+        return check_placed(self._plan_context(seg).plan(self.source))
 
     def explain(self, start, stop):
         """Human-readable plan report for [start, stop): per segment, the
         IR tree (op, static geometry, param shapes with ``@dev`` on
         tensors already on the device, per-frame window coverage), then
-        the stage cache's and the plan cache's size. Planning is real: it
-        stages what a first render would, into the same caches."""
+        the stage cache's and the plan cache's size. Each segment's line
+        says whether a render program of it was captured on this
+        planner's device and is live (render.py:1686-1692). Planning is
+        real: it stages what a first render would, into the same
+        caches."""
         lines = []
         area = float(self.window.width * self.window.height)
 
@@ -909,9 +1707,14 @@ class RenderPlanner:
                 walk(c, depth + 1)
 
         self._drain_plan_pool()
+        device = _program_device(self.device)
         for (s0, s1) in self.segments(start, stop):
             node = self._plan((s0, s1))
-            lines.append('segment [%d, %d)  %d frames' % (s0, s1, s1 - s0))
+            with _program_lock:
+                captured = (signature(node), device) in _compiled_families
+            lines.append('segment [%d, %d)  %d frames  program %s'
+                         % (s0, s1, s1 - s0,
+                            'CAPTURED' if captured else 'not captured'))
             walk(node, 0)
         cache = self.persistent_cache
         lines.append('stage cache: %d entries, %.1f MB of %.1f MB'
@@ -1017,10 +1820,10 @@ class RenderPlanner:
                     return got[0]
         ctx = self._plan_context(seg, mesh)
         with profiling.Timer('render.plan'):
-            node = ctx.plan(self.source)
+            node = check_placed(ctx.plan(self.source))
         shards = mesh.shape[axis] if mesh is not None else 1
         result = _Prepared(*self._cut(seg, node, batch, shards),
-                           ops=node.flat_ops([]))
+                           ops=node.flat_ops([]), family=signature(node))
         if cache_plans:
             pinned = _pinned_bytes(result.plists)
             budget = self.persistent_cache.budget
@@ -1082,10 +1885,13 @@ class RenderPlanner:
 
         Each structure segment is prepared once, one segment ahead, on a
         worker thread (planning and staging); each batch's params go to
-        the device in one packed copy (one a shard), and launches happen,
-        on the calling thread. Prepared segments are kept for the next
-        call with the params they uploaded (``plan_cache_segments``),
-        keyed by the mesh and axis too. One live iterator per planner:
+        the device in one packed copy (one a shard), and its render
+        program (``_get_program``: one CUDA graph per signature and
+        device, captured at its second batch) replays, on the calling
+        thread. Every ``out`` is a fresh tensor the caller owns.
+        Prepared segments are kept for the next call with the params
+        they uploaded (``plan_cache_segments``), keyed by the mesh and
+        axis too. One live iterator per planner:
         the prepare thread shares the planner's staging state."""
         devices = shares = None
         if mesh is not None:
@@ -1104,8 +1910,8 @@ class RenderPlanner:
                              % (sorted(color_ops.POSTS), post))
         if max_inflight is not None and max_inflight <= 0:
             max_inflight = None
-        _check_hbm_footprint(batch, self.window, post, max_inflight,
-                             self.device, shares=shares)
+        need = _check_hbm_footprint(batch, self.window, post, max_inflight,
+                                    self.device, shares=shares)
         # Plans pin staged device stacks: no staging budget, no plan
         # cache either (a cold staging measurement sets stage_cache_mb =
         # 0 and relies on it disabling BOTH).
@@ -1129,21 +1935,34 @@ class RenderPlanner:
                 if i + 1 < len(segs):
                     fut = pool.submit(self._prepared, segs[i + 1], batch,
                                       post, cache_plans, mesh, axis)
+                if devices is None:
+                    program = _get_program(prepared.sig, self.device, post,
+                                           need[self.device],
+                                           prepared.family)
+                else:
+                    programs = _get_sharded_program(
+                        prepared.sig, devices, post, need, prepared.family)
                 for k, (pos, take) in enumerate(prepared.spans):
                     if pending is not None and len(pending) >= max_inflight:
                         # the oldest pending batch: each stream runs in
                         # order, so everything older has finished too
                         for done in pending.popleft():
                             done.synchronize()
+                    # A cached plan keeps its params on the device (one
+                    # device copy into the program a batch); otherwise the
+                    # host params go straight into the program's buffer.
                     if devices is None:
                         with _on(self.device):
-                            out = run(prepared.sig,
-                                      prepared.device_params(k, self.device),
-                                      self.device, post)
+                            out = program(
+                                prepared.device_params(k, self.device)
+                                if cache_plans else prepared.plists[k])
                     else:
                         out = self._run_shards(
-                            prepared.sig, prepared.shard_params(k, devices),
-                            devices, mesh, axis, post)
+                            prepared.sig,
+                            prepared.shard_params(k, devices) if cache_plans
+                            else _split_shards(prepared.plists[k],
+                                               prepared.ops, devices),
+                            devices, mesh, axis, post, programs)
                     if pending is not None:
                         events = []
                         for d in ran_on:
@@ -1162,13 +1981,17 @@ class RenderPlanner:
                 self._plan_pool = None
 
     @staticmethod
-    def _run_shards(sig, shard_params, devices, mesh, axis, post):
-        """Render one batch's shards, each on its device, as one
-        ``ShardedFrames`` whose shard i holds frames [i*b, (i+1)*b)."""
+    def _run_shards(sig, shard_params, devices, mesh, axis, post,
+                    programs=None):
+        """Render one batch's shards, each on its device through its
+        program (``_get_sharded_program``), as one ``ShardedFrames`` whose
+        shard i holds frames [i*b, (i+1)*b)."""
+        if programs is None:
+            programs = _get_sharded_program(sig, devices, post)
         outs = []
-        for device, params in zip(devices, shard_params):
+        for device, params, program in zip(devices, shard_params, programs):
             with _on(device):
-                outs.append(run(sig, params, device, post))
+                outs.append(program(params))
         b = outs[0].shape[0]
         shape = (b * len(outs),) + tuple(outs[0].shape[1:])
         spec = (axis,) + (None,) * (len(shape) - 1)
@@ -1181,7 +2004,9 @@ class RenderPlanner:
         array, or the device tensor with ``device_out=True``. With
         ``with_windows=True`` returns ``(data, windows)``, windows the
         per-frame current_window as a (B, 4) int64 [x0, y0, x1, y1]
-        array (empty encoded max < min)."""
+        array (empty encoded max < min). Each segment renders through
+        its program (``_get_program`` of its signature), its params in one
+        packed copy."""
         self._drain_plan_pool()
         self._watch_frames_updated()
         self._note_render_stream()
@@ -1194,12 +2019,14 @@ class RenderPlanner:
         windows = []
         for seg in self.segments(start, stop):
             # one segment renders at a time, its output kept: depth 1
-            _check_hbm_footprint(seg[1] - seg[0], self.window, None, 1,
-                                 self.device)
+            need = _check_hbm_footprint(seg[1] - seg[0], self.window, None,
+                                        1, self.device)
             node = self._plan(seg)
-            outs.append(run(signature(node),
-                            params_to_torch(flat_params(node), self.device),
-                            self.device))
+            sig = signature(node)
+            program = _get_program(sig, self.device,
+                                   reserve=need[self.device], family=sig)
+            with _on(self.device):
+                outs.append(program(flat_params(node)))
             windows.append(windows_to_array(node.windows))
         if outs:
             out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
@@ -1236,7 +2063,11 @@ class RenderPlanner:
 
         Scrub-friendly: the pipeline-chunk segment holding the frame is
         planned once and its params go to the device once; later frames
-        of the segment slice their params out of those tensors. Edits
+        of the segment slice their params out of those tensors, which the
+        display program (``_get_display_program``: one CUDA graph per
+        one-frame signature, order, intent, display size and transport)
+        copies into its slots on the device, and whose finish fetches the
+        u8 bytes. Edits
         drop the cached segment through the source's ``frames_updated``
         signal (subscribed automatically) or
         ``invalidate_display_cache()``."""
@@ -1251,14 +2082,21 @@ class RenderPlanner:
         if display_size is not None:
             display_size = (int(display_size[0]), int(display_size[1]))
         pos = frame_index - seg['lo']
+        # views of the frame's params: the program's slots copy them
         params = [{k: (v if _param_sharding(op, k) is None
-                       else _frame_slice(v, _param_sharding(op, k), pos))
+                       else v[(slice(None),) * _param_sharding(op, k)
+                              + (slice(pos, pos + 1),)])
                    for k, v in p.items()}
                   for p, op in zip(seg['params'], seg['ops'])]
-        flat = backend.to_host(display_run(
-            seg['sig1'], params, self.device,
-            self._display_matrices(display_size), order,
-            None if intent is None else float(intent), transport))
+        mats = self._display_matrices(display_size)
+        if mats is not None:
+            params.append({'dy': mats[0], 'dx': mats[1]})
+        program = _get_display_program(
+            seg['sig1'], self.device, order,
+            None if intent is None else float(intent), display_size,
+            transport, seg['need'], seg['family'])
+        with _on(self.device):
+            flat = program(params)
         if transport == 'yuv420':
             dw, dh = display_size or (self.window.width, self.window.height)
             return color_ops.yuv420_unpack_batch(flat, dh, dw, order)[0]
@@ -1284,6 +2122,9 @@ class RenderPlanner:
             'params': params_to_torch(flat_params(node), self.device),
             'ops': node.flat_ops([]),
             'sig1': sliced_signature(node, hi - lo, 1),
+            'family': signature(node),
+            'need': _check_hbm_footprint(1, self.window, None, 1,
+                                         self.device)[self.device],
         }
         return seg
 

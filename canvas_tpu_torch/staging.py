@@ -13,8 +13,13 @@ changed with the device:
   pageable memory would be silently synchronous.
 - Copies are asynchronous DMA, so no stager thread is needed: the
   thread that plans (the prepare thread of ``iter_batches``, the calling
-  thread of ``render``) issues each completed slab's copy on the
-  stager's own CUDA stream and goes on filling later rows while it runs.
+  thread of ``render``) issues each completed slab's copy on its
+  device's copy stream and goes on filling later rows while it runs.
+  That stream is made once a device (``_copy_stream``): torch hands out
+  its pooled streams round robin, so a new one a stager would sooner or
+  later be the stream a render program is capturing on
+  (``render._side_stream``), and a stager's copies and wait on it
+  invalidate that capture.
 - The device stacks are preallocated once and each slab copies into its
   rows, instead of a concatenation of slabs that would transiently
   double device memory (the reason the JAX stager capped pipelining).
@@ -38,6 +43,7 @@ upload takes the copy on its own device.
 """
 
 import contextlib
+import threading
 
 import numpy as np
 import torch
@@ -49,6 +55,20 @@ __all__ = ['SlabStager', 'SLAB_BYTES', 'device_nbytes']
 
 #: Least bytes per shipped slab (a slab is a multiple of 8 rows).
 SLAB_BYTES = int(16e6)
+
+_copy_streams = {}
+_copy_streams_lock = threading.Lock()
+
+
+def _copy_stream(device):
+    """The copy stream of *device*, made at its first use and shared by
+    every stager after it (each stager waits for its own copies with
+    ``finish``)."""
+    with _copy_streams_lock:
+        stream = _copy_streams.get(device)
+        if stream is None:
+            stream = _copy_streams[device] = torch.cuda.Stream(device)
+        return stream
 
 
 def device_nbytes(stacks):
@@ -92,7 +112,7 @@ class SlabStager:
         self.n_real = int(n_real)
         self.n_total = self.n_real + ((-self.n_real) % 8)
         cuda = self.device.type == 'cuda'
-        self.streams = ({d: torch.cuda.Stream(d) for d in self.devices}
+        self.streams = ({d: _copy_stream(d) for d in self.devices}
                         if cuda else None)
         self.consumer = consumer
         self._host_t = [

@@ -9,7 +9,10 @@ of ``canvas_tpu_torch.ops.study_ops``:
   ``scripts/fold_tile_study.py``;
 - ``vpu_roofline``: the card's bandwidth and FMA rate, the roofline
   probe's fold, and what bounds the shipped ``solid_fold``,
-  ``scripts/vpu_roofline.py``.
+  ``scripts/vpu_roofline.py``;
+- ``capture_probe`` (the port's own, no TPU counterpart): which work on
+  another thread invalidates a render program's CUDA graph capture;
+  ``python -m canvas_tpu_torch.studies.capture_probe`` on a card.
 
 Each runs as ``python -m canvas_tpu_torch.studies.<name> --check`` (each
 kernel against its plain version on the card; ``--device cpu`` runs the

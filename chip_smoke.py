@@ -12,7 +12,9 @@ editor's display path (``render_display``, the quality <= 9 tier and the
 playback engine), then coded video and the plan cache's replays, then
 the export path at 4K, then the editor's projects through its graph
 managers, then an editor session through its UI layer, then the eager
-pull in the default backend mode. Each phase
+pull in the default backend mode, then multi-device rendering over
+logical shards, then the render programs (one CUDA graph per signature,
+which every path above runs through). Each phase
 prints one line or more; any failure raises
 (traceback, nonzero exit, no result line):
 
@@ -216,12 +218,43 @@ prints one line or more; any failure raises
    beside its peak. Rehearse it on the CPU with ``_multi_device(tag,
    box2i(0, 0, 319, 179), {'enqueue_ms': 0.0, 'batches': 1},
    device='cpu')``.
+17. the render programs (``render._get_program``: each signature's
+   evaluation captured once as one CUDA graph, replayed for every batch;
+   the region kernels read their offsets from device memory): (a) every
+   path through its programs against the eager run on the same params,
+   max diff 0: the headline's frames 128..515 at batch 128 (the tail
+   segment [512, 516) its own signature), config7's frames 0..127 at
+   batch 16, the ``rgba_u8`` and ``yuv420`` posts, ``render_display``
+   rgb24 at full size and 960x540 (frames 0, 130, 1000), config5 over a
+   mesh naming the card twice; (b) from no program, three cold passes of
+   the headline capture once per signature (a program's first two calls
+   run eagerly, the second captures after it) and replay every later
+   batch; (c)
+   eager (the programs replaced by ``_Eager`` stand-ins) against
+   program, the median of five interleaved passes: fps, host enqueue and
+   device busy ms a batch and the idle share for the cold headline, cold
+   config7, the config7b replay and config5 on logical shards, the warm
+   ``render_display`` p50/p95, each program's capture ms and pool bytes,
+   and a cold headline pass's peak memory from no program beside the
+   memory guard's estimate (the programs' pools counted; it must not be
+   below the peak); (d) both region kernels with their offsets as int32
+   values in card memory against their plain versions, f32 and bf16, at
+   the main path's shapes (the headline's two rank-1 regions at batch
+   128, config7's three DV regions at batch 16) and over the bottom
+   edge, each beside its byte floor. Rehearse (a) and (b) on the CPU with
+   ``_programs(tag, box2i(0, 0, 319, 179), device='cpu')``.
+
+A render program's first two calls run its body eagerly (the second
+then captures it), and every later call replays it, so every call
+launches, or replays, exactly one batch's kernels: the checks of
+launches a batch (phases 12, 13a, 14e) hold as they are.
 
 Each path (the headline, the mixed timeline, the studies' timing runs,
 the export posts, the display path, the coded composite, the replays,
 each post's checked pass of the 4K export, the editor's passes, the
 editor session's and phase 15's ``time_get_frame`` planner branches,
-phase 16's sharded renders)
+phase 16's sharded renders, phase 17's checked paths; a program's
+replay adds the launches its capture recorded)
 runs
 with every launch counter set to 0 just before it and read just after;
 the kernels line
@@ -243,11 +276,13 @@ hold the card against the NumPy pull path, pinned with
 """
 
 import importlib.abc
+import hashlib
 import json
 import os
 import subprocess
 import sys
 import time
+import traceback
 
 SEED = 20261016
 WINDOW = (0, 0, 1919, 1079)
@@ -414,7 +449,8 @@ def _bf16_forms_vs_plain(rng, on, H, W):
                 args = on(*[rng.uniform(0.0, 1.0, s).astype(np.float32)
                             for s in ((8, 4), (8, h), (8, w))])
             P2, A2 = P.clone(), A.clone()
-            outP, outA = getattr(cuda_ops, kind)(P, A, *args, dy0, dx0)
+            outP, outA = getattr(cuda_ops, kind)(
+                P, A, *args, *_device_offsets(P.device, dy0, dx0))
             getattr(cuda_ops, kind + '_plain')(P2, A2, *args, dy0, dx0)
             if outP is not P or P.dtype != bf:
                 raise AssertionError('%s bf16 did not update in place' % kind)
@@ -486,7 +522,8 @@ def _scalar_forms_vs_plain(rng, on):
             args = on(*[rng.uniform(0.0, 1.0, s).astype(np.float32)
                         for s in ((3, 4), (3, h), (3, w))])
             P2, A2 = P.clone(), A.clone()
-            cuda_ops.region_over_sep(P, A, *args, dy0, dx0)
+            cuda_ops.region_over_sep(P, A, *args,
+                                     *_device_offsets(P.device, dy0, dx0))
             cuda_ops.region_over_sep_plain(P2, A2, *args, dy0, dx0)
             err = max(err, _max_diff((P, A), (P2, A2)))
     return err
@@ -726,17 +763,19 @@ def _mixed_timing(tag, ws, window):
     err = 0.0
     ms = plain_ms = 0.0
     px_all = 0
-    for (h, w), dy0, dx0 in regions:
+    for (h, w), oy, ox in regions:
+        # the offsets as the path holds them: int32 values on the card
+        dy0, dx0 = int(oy), int(ox)
         P, A, layer = [torch.from_numpy(rng.uniform(0, 1, s).astype(
             np.float32)).to(dev) for s in ((B, 3, H, W), (B, 1, H, W),
                                             (B, 4, h, w))]
         P2, A2 = P.clone(), A.clone()
-        cuda_ops.region_over(P, A, layer, dy0, dx0)
-        cuda_ops.region_over_plain(P2, A2, layer, dy0, dx0)
+        cuda_ops.region_over(P, A, layer, oy, ox)
+        cuda_ops.region_over_plain(P2, A2, layer, oy, ox)
         err = max(err, float((P - P2).abs().max()),
                   float((A - A2).abs().max()))
-        k = lambda: cuda_ops.region_over(P, A, layer, dy0, dx0)
-        p = lambda: cuda_ops.region_over_plain(P2, A2, layer, dy0, dx0)
+        k = lambda: cuda_ops.region_over(P, A, layer, oy, ox)
+        p = lambda: cuda_ops.region_over_plain(P2, A2, layer, oy, ox)
         tk, tp = paired_ms(k, p, 20, 3)
         ms += tk
         plain_ms += tp
@@ -961,17 +1000,19 @@ def _headline_kernels(batch_work, H, W, B):
         out['fold_ops'] += B * H * W * (L * FOLD_OPS_PER_LAYER + (
             FINALIZE_OPS if nbytes == 24 else 0))
     for j, (pl, (color, ry, rx)) in enumerate(regions):
-        dy0, dx0 = pl['dy0'], pl['dx0']
+        # the offsets as the path holds them: int32 values on the card
+        oy, ox = pl['dy0'], pl['dx0']
+        dy0, dx0 = int(oy), int(ox)
         h, w = ry.shape[1], rx.shape[1]
         P1, A1 = baseP.clone(), baseA.clone()
         P2, A2 = baseP.clone(), baseA.clone()
-        cuda_ops.region_over_sep(P1, A1, color, ry, rx, dy0, dx0)
-        cuda_ops.region_over_sep_plain(P2, A2, color, ry, rx, dy0, dx0)
+        cuda_ops.region_over_sep(P1, A1, color, ry, rx, oy, ox)
+        cuda_ops.region_over_sep_plain(P2, A2, color, ry, rx, oy, ox)
         out['err_reg'] = max(out['err_reg'], float((P1 - P2).abs().max()),
                              float((A1 - A2).abs().max()))
-        k = lambda: cuda_ops.region_over_sep(P1, A1, color, ry, rx, dy0, dx0)
+        k = lambda: cuda_ops.region_over_sep(P1, A1, color, ry, rx, oy, ox)
         p = lambda: cuda_ops.region_over_sep_plain(P2, A2, color, ry, rx,
-                                                   dy0, dx0)
+                                                   oy, ox)
         tk, tp = paired_ms(k, p, 20, 3)
         out['reg_ms'] += tk
         out['reg_plain_ms'] += tp
@@ -1237,16 +1278,17 @@ def _bf16_timings(tag, p9, mixed5, window):
     err = ms = plain_ms = 0.0
     nbytes = ops = 0
     for j, (pl, (color, ry, rx)) in enumerate(regions):
-        dy0, dx0 = pl['dy0'], pl['dx0']
+        oy, ox = pl['dy0'], pl['dx0']       # int32 values on the card
+        dy0, dx0 = int(oy), int(ox)
         h, w = ry.shape[1], rx.shape[1]
         P1, A1 = baseP.clone(), baseA.clone()
         P2, A2 = baseP.clone(), baseA.clone()
-        cuda_ops.region_over_sep(P1, A1, color, ry, rx, dy0, dx0)
-        cuda_ops.region_over_sep_plain(P2, A2, color, ry, rx, dy0, dx0)
+        cuda_ops.region_over_sep(P1, A1, color, ry, rx, oy, ox)
+        cuda_ops.region_over_sep_plain(P2, A2, color, ry, rx, oy, ox)
         err = max(err, _max_diff((P1, A1), (P2, A2)))
-        k = lambda: cuda_ops.region_over_sep(P1, A1, color, ry, rx, dy0, dx0)
+        k = lambda: cuda_ops.region_over_sep(P1, A1, color, ry, rx, oy, ox)
         p = lambda: cuda_ops.region_over_sep_plain(P2, A2, color, ry, rx,
-                                                   dy0, dx0)
+                                                   oy, ox)
         tk, tp = paired_ms(k, p, 20, 3)
         ms += tk
         plain_ms += tp
@@ -1277,16 +1319,17 @@ def _bf16_timings(tag, p9, mixed5, window):
     B = 16
     err = ms = plain_ms = 0.0
     px_all = 0
-    for (h, w), dy0, dx0 in shapes:
+    for (h, w), oy, ox in shapes:
+        dy0, dx0 = int(oy), int(ox)         # oy, ox: int32 on the card
         P, A, layer = [torch.from_numpy(rng.uniform(0, 1, s).astype(
             np.float32)).to(dev).to(bf) for s in ((B, 3, H, W), (B, 1, H, W),
                                                   (B, 4, h, w))]
         P2, A2 = P.clone(), A.clone()
-        cuda_ops.region_over(P, A, layer, dy0, dx0)
-        cuda_ops.region_over_plain(P2, A2, layer, dy0, dx0)
+        cuda_ops.region_over(P, A, layer, oy, ox)
+        cuda_ops.region_over_plain(P2, A2, layer, oy, ox)
         err = max(err, _max_diff((P, A), (P2, A2)))
-        k = lambda: cuda_ops.region_over(P, A, layer, dy0, dx0)
-        p = lambda: cuda_ops.region_over_plain(P2, A2, layer, dy0, dx0)
+        k = lambda: cuda_ops.region_over(P, A, layer, oy, ox)
+        p = lambda: cuda_ops.region_over_plain(P2, A2, layer, oy, ox)
         tk, tp = paired_ms(k, p, 20, 3)
         ms += tk
         plain_ms += tp
@@ -1851,7 +1894,7 @@ def _upload_cost(tag, name, planner, seg, batch):
     plists = [pl for _p, _t, pl in batches]
 
     def copy_each(plist):
-        return [{k: (v if k in ('dy0', 'dx0') or isinstance(v, torch.Tensor)
+        return [{k: (v if isinstance(v, torch.Tensor)
                      else backend.to_device(np.asarray(v), dev))
                  for k, v in p.items()} for p in plist]
 
@@ -2425,9 +2468,17 @@ class _Warnings:
         self.text = text
         self.seen = []
         handler = logging.Handler()
-        handler.emit = lambda record: (
-            self.seen.append(record.getMessage())
-            if text in record.getMessage() else None)
+
+        def emit(record):
+            # the message, with the exception's last lines where one came
+            if text in record.getMessage():
+                tail = ''
+                if record.exc_info:
+                    tail = ': ' + ' | '.join(traceback.format_exception(
+                        *record.exc_info)[-3:]).replace('\n', ' ')
+                self.seen.append(record.getMessage() + tail)
+
+        handler.emit = emit
         self._handler = handler
 
     def __enter__(self):
@@ -3272,8 +3323,8 @@ def _multi_device(tag, window, config7, device=None):
     from canvas_tpu_torch.backend import cuda_ms
     from canvas_tpu_torch.mesh import (Mesh, Replicated, ShardedFrames,
                                        local_mesh)
-    from canvas_tpu_torch.render import (RenderPlanner, _hbm_estimate_bytes,
-                                         render_sharded, run)
+    from canvas_tpu_torch.render import (RenderPlanner, _get_program,
+                                         _hbm_estimate_bytes, render_sharded)
 
     t_phase = time.perf_counter()
     card = (torch.device(device) if device is not None
@@ -3479,7 +3530,7 @@ def _multi_device(tag, window, config7, device=None):
 
     def replay_plain():
         for sig, params in plain:
-            run(sig, params, card)
+            _get_program(sig, card)(params)
 
     def replay_sharded():
         for sig, params in sharded:
@@ -3558,6 +3609,752 @@ def _multi_device(tag, window, config7, device=None):
     return launches
 
 
+def _device_offsets(device, dy0, dx0):
+    """A region kernel's offsets: int32 values in *device* memory."""
+    import torch
+    return [torch.tensor([v], dtype=torch.int32, device=device)
+            for v in (dy0, dx0)]
+
+
+def _captures():
+    """Render programs captured so far (``render.program_stats``)."""
+    from canvas_tpu_torch.render import program_stats
+    return program_stats()['captures']
+
+
+def _drop_programs():
+    """Evict every render program (a cold program cache)."""
+    from canvas_tpu_torch import render
+    with render._program_lock:
+        progs = list(render._program_cache.values())
+        render._program_cache.clear()
+    render._evict(progs)
+
+
+class _Eager:
+    """The eager arm of phase 17's comparison, in a render program's
+    place: ``run`` (``display_run`` for a display pull, its u8 bytes
+    fetched) over the batch's params, a host list uploaded in one packed
+    copy as before the programs."""
+
+    def __init__(self, sig, device, post=None, display=None):
+        self.sig, self.device, self.post = sig, device, post
+        self.display = display
+
+    def __call__(self, plist):
+        import torch
+
+        from canvas_tpu_torch import backend, render
+        params = (plist if isinstance(plist, render._DeviceParams)
+                  else render.params_to_torch(plist, self.device))
+        if self.display is None:
+            return render.run(self.sig, params, self.device, self.post)
+        order, intent, size, transport = self.display
+        # a frame's params are views into its segment's: contiguous, as
+        # the eager display pull cut them (render._frame_slice)
+        params = [{k: (v.contiguous() if isinstance(v, torch.Tensor)
+                       else v) for k, v in p.items()} for p in params]
+        mats = None
+        if size is not None:
+            mats = (params[-1]['dy'], params[-1]['dx'])
+            params = params[:-1]
+        return backend.to_host(render.display_run(
+            self.sig, params, self.device, mats, order, intent, transport))
+
+
+class _EagerPrograms:
+    """Inside the block every render program is an ``_Eager`` stand-in:
+    the path runs as it did before the programs (one packed upload a
+    batch, every op enqueued from Python)."""
+
+    def __enter__(self):
+        from canvas_tpu_torch import render
+        self.saved = (render._get_program, render._get_sharded_program,
+                      render._get_display_program)
+        render._get_program = (
+            lambda sig, device, post=None, reserve=0, family=None:
+            _Eager(sig, device, post))
+        render._get_sharded_program = (
+            lambda sig, devices, post=None, reserve=0, family=None:
+            [_Eager(sig, d, post) for d in devices])
+        render._get_display_program = (
+            lambda sig1, device, order, intent, size, transport, reserve=0,
+            family=None: _Eager(sig1, device,
+                                display=(order, intent, size, transport)))
+        return self
+
+    def __exit__(self, *exc):
+        from canvas_tpu_torch import render
+        (render._get_program, render._get_sharded_program,
+         render._get_display_program) = self.saved
+        return False
+
+
+def _median(values):
+    import numpy as np
+    return float(np.median(values))
+
+
+def _programs(tag, window, device=None):
+    """Phase 17: the render programs, one CUDA graph per signature.
+    (a) every path through programs against the eager run on the same
+    params, max diff 0: the headline's frames 128..515 at batch 128 (the
+    tail segment [512, 516) its own signature), config7's frames 0..127
+    at batch 16, the rgba_u8 and yuv420 posts, render_display rgb24 at
+    full size and 960x540, config5 over a mesh naming the card twice;
+    (b) with no program left, three cold passes of the headline capture
+    once per signature (at a program's second call, after its eager
+    run) and replay every later batch; (c) eager against program
+    side by side, the median of five interleaved passes: host enqueue and
+    device busy ms a batch, idle share and fps for the cold headline, cold
+    config7, the config7b replay and config5 on logical shards, the warm
+    render_display p50/p95, each program's capture ms and pool bytes, and
+    the peak memory of a cold headline pass (its capture included)
+    beside the memory guard's estimate; (d) both region kernels with
+    their offsets in device memory against their plain versions, f32 and
+    bf16, at the main path's shapes and over an edge, beside their byte
+    floors. Returns the launches of (a) and (b).
+
+    ``device='cpu'`` rehearses (a) and (b) on the CPU (the kernels' plain
+    versions; no graphs, times, memory or kernels):
+    ``_programs(tag, box2i(0, 0, 319, 179), device='cpu')``."""
+    import numpy as np
+    import torch
+
+    from canvas_tpu_torch import backend, timelines
+    from canvas_tpu_torch.backend import cuda_ms, paired_ms
+    from canvas_tpu_torch.mesh import Mesh
+    from canvas_tpu_torch.ops import color as color_ops
+    from canvas_tpu_torch.ops import cuda_ops
+    from canvas_tpu_torch.render import (RenderPlanner, _get_program,
+                                         _hbm_estimate_bytes, _frame_slice,
+                                         _param_sharding, display_run,
+                                         params_to_torch, program_stats,
+                                         render_sharded, run)
+
+    t_phase = time.perf_counter()
+    card = (torch.device(device) if device is not None
+            else torch.device('cuda', torch.cuda.current_device()))
+    on_card = card.type == 'cuda'
+    ws = timelines.build_timeline(1024)
+    mixed = timelines.mixed_timeline(256)
+    launches = dict.fromkeys(_launch_counts(), 0)
+    H, W = window.height, window.width
+    # the phase starts from no program: the earlier phases' pools go
+    _drop_programs()
+    _empty_cache()
+
+    def counted(fn):
+        _zero_launch_counts()
+        out = fn()
+        _sync(card)
+        for k, v in _launch_counts().items():
+            launches[k] += v
+        return out
+
+    def diff(a, b):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return float('inf')
+        return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+    # (a) every path through its programs against the eager run: two
+    # passes from no program (each program's first call runs eagerly, its
+    # second captures), then the compared pass, every call of it a replay
+    def vs_eager(what, src, start, stop, batch, post=None, mesh=None,
+                 cold=None):
+        _drop_programs()
+
+        def one_pass():
+            planner = RenderPlanner(src, window, device=card)
+            planner.plan_cache_segments = 0
+            if cold == 'stage':
+                planner.stage_cache_mb = 0
+            got = counted(lambda: [(s, n, out) for s, n, out in
+                                   planner.iter_batches(start, stop,
+                                                        batch=batch,
+                                                        post=post,
+                                                        mesh=mesh)])
+            return planner, got
+
+        for _warm in range(2):
+            planner, _got = one_pass()
+            planner.close()
+            del _got
+        before = program_stats()
+        planner, got = one_pass()
+        after = program_stats()
+        calls = after['calls'] - before['calls']
+        replays = after['replays'] - before['replays']
+        worst, i, sigs = 0.0, 0, set()
+        devices = mesh.axis_devices('frames') if mesh is not None else None
+        for seg in planner.segments(start, stop, min_span=batch):
+            prep = planner._prepared(seg, batch, post, False, mesh, 'frames')
+            sigs.add(prep.sig)
+            for k, (pos, take) in enumerate(prep.spans):
+                s, n, out = got[i]
+                i += 1
+                if (s, n) != (prep.seg_start + pos, take):
+                    raise AssertionError('%s: batch %r against %r' % (
+                        what, (s, n), (prep.seg_start + pos, take)))
+                if mesh is None:
+                    want = run(prep.sig, prep.device_params(k, card), card,
+                               post)[:take]
+                    worst = max(worst, diff(out, want))
+                    continue
+                # a tail batch cut to its valid frames keeps each shard's
+                # leading ones
+                for (t, _b), d, p in zip(out.shards, devices,
+                                         prep.shard_params(k, devices)):
+                    want = run(prep.sig, p, d, post)
+                    worst = max(worst, diff(t, want[:t.shape[0]]))
+        planner.close()
+        if worst != 0.0 or i != len(got):
+            raise AssertionError('%s: programs against the eager run: max '
+                                 'diff %r over %d of %d batches'
+                                 % (what, worst, i, len(got)))
+        if not replays or replays != calls:
+            raise AssertionError('%s: the compared pass made %d program '
+                                 'calls, %d of them replays (all must be)'
+                                 % (what, calls, replays))
+        return dict(batches=len(got), calls=calls, replays=replays,
+                    signatures=len(sigs))
+
+    checked = {
+        'headline 128..515 batch 128': vs_eager('headline', ws, 128, 516,
+                                                128),
+        'config7 0..127 batch 16': vs_eager('config7', mixed, 0, 128, 16,
+                                            cold='stage'),
+        'post rgba_u8 128..383': vs_eager('rgba_u8', ws, 128, 384, 128,
+                                          post='rgba_u8'),
+        'post yuv420 128..383': vs_eager('yuv420', ws, 128, 384, 128,
+                                         post='yuv420'),
+        'config5 Mesh([card] * 2) 0..255 batch 128': vs_eager(
+            'config5', ws, 0, 256, 128, mesh=Mesh([card, card],
+                                                  ('frames',))),
+    }
+    # render_display: four frames of one segment a size and start, so
+    # that its display program runs eagerly, captures and replays; each
+    # pull against the eager display run of the same frame
+    _drop_programs()
+    planner = RenderPlanner(ws, window, device=card)
+    worst = 0.0
+    for size in (None, VIEWPORT):
+        for start in (4, 130, 1000):
+            replays = program_stats()['replays']
+            for i in range(start, start + 4):
+                got = planner.render_display(i, transport='rgb24',
+                                             display_size=size)
+                seg = planner._display_seg
+                pos = i - seg['lo']
+                params = [{k: (v if _param_sharding(op, k) is None
+                               else _frame_slice(v, _param_sharding(op, k),
+                                                 pos))
+                           for k, v in p.items()}
+                          for p, op in zip(seg['params'], seg['ops'])]
+                mats = planner._display_matrices(size)
+                flat = backend.to_host(display_run(
+                    seg['sig1'], params, card, mats, (2, 1, 0, 3), None,
+                    'rgb24'))
+                want = torch.from_numpy(color_ops.rgb24_unpack(
+                    flat[0], (2, 1, 0, 3)))
+                worst = max(worst, diff(torch.from_numpy(got), want))
+            replays = program_stats()['replays'] - replays
+            if replays < 2:
+                raise AssertionError('render_display %s frames %d..%d: %d '
+                                     'replays (want at least 2)'
+                                     % (size, start, start + 3, replays))
+            checked['render_display rgb24 %s frames %d..%d' % (
+                'full' if size is None else '%dx%d' % size, start,
+                start + 3)] = dict(pulls=4, replays=replays)
+    planner.close()
+    if worst != 0.0:
+        raise AssertionError('render_display through its program differs '
+                             'from the eager display run by %r' % worst)
+    print('phase 17a programs against the eager run on the same params, max '
+          'diff 0 on every path, every compared call a replay: %s %s'
+          % ('; '.join('%s %s' % (k, json.dumps(v))
+                       for k, v in checked.items()), tag), flush=True)
+
+    # (b) a cold program cache: one capture per signature over three cold
+    # passes, every batch a replay
+    _drop_programs()
+    planner = RenderPlanner(ws, window, device=card)
+    planner.plan_cache_segments = 0
+    sigs = {planner._prepared(seg, 128, None, False).sig
+            for seg in planner.segments(128, 512, min_span=128)}
+    before = program_stats()
+    n_batches = counted(lambda: sum(
+        1 for _rep in range(3)
+        for _out in planner.iter_batches(128, 512, batch=128)))
+    after = program_stats()
+    planner.close()
+    captures = after['captures'] - before['captures']
+    replays = after['replays'] - before['replays']
+    # each program's first two calls run eagerly, the second captures
+    if captures != len(sigs) or replays != n_batches - 2 * len(sigs):
+        raise AssertionError('three cold passes: %d captures for %d '
+                             'signatures, %d replays for %d batches'
+                             % (captures, len(sigs), replays, n_batches))
+    print('phase 17b capture and replay: three cold passes of the headline '
+          '(frames 128..511, batch 128, plan cache off) from no program: %d '
+          'captures for %d signatures, %d replays for %d batches (each '
+          'program\'s first two calls eager, the second captures); '
+          'programs %s %s'
+          % (captures, len(sigs), replays, n_batches,
+                     json.dumps([{k: p[k] for k in ('key', 'frames',
+                                                    'replays', 'capture_ms',
+                                                    'pool_bytes')}
+                                 for p in after['programs']]), tag),
+          flush=True)
+    if not on_card:
+        print('phase 17c, 17d: not measured (CPU rehearsal); phase 17 %.1f '
+              's %s' % (time.perf_counter() - t_phase, tag), flush=True)
+        return launches
+
+    # (c) eager against program, side by side
+    def work_of(planner, start, stop, batch):
+        work = []
+        for seg in planner.segments(start, stop, min_span=batch):
+            _s0, sig, batches = planner._prepare(seg, batch)
+            work += [(sig, params_to_torch(pl, card)) for _p, _t, pl
+                     in batches]
+        torch.cuda.synchronize()
+        return work
+
+    def enqueue_busy(work, eager):
+        """(host ms a batch to enqueue the prepared batches, device busy
+        ms a batch)."""
+        if eager:
+            def go():
+                for sig, tp in work:
+                    run(sig, tp, card)
+        else:
+            progs = [_get_program(sig, card) for sig, _tp in work]
+
+            def go():
+                for prog, (_sig, tp) in zip(progs, work):
+                    prog(tp)
+        go()
+        go()                    # programs: eager, then eager and captured
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        go()
+        host = (time.perf_counter() - t0) * 1e3 / len(work)
+        torch.cuda.synchronize()
+        return host, cuda_ms(go, 3) / len(work)
+
+    def wall_of(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def side_by_side(name, make, frames, pass_fn, work=None):
+        """Five interleaved passes of each arm (eager first in even
+        turns): the median wall, fps, enqueue and busy ms a batch, idle
+        share. *make* makes the arm's state, *pass_fn(state)* one pass."""
+        out = {}
+        states = {}
+        for arm in ('eager', 'program'):
+            ctx = _EagerPrograms() if arm == 'eager' else _Null()
+            with ctx:
+                states[arm] = make()
+                # programs: eager, then eager and captured
+                for _warm in range(2):
+                    pass_fn(states[arm])
+        walls = {'eager': [], 'program': []}
+        for rep in range(5):
+            for arm in (('eager', 'program') if rep % 2 == 0
+                        else ('program', 'eager')):
+                ctx = _EagerPrograms() if arm == 'eager' else _Null()
+                with ctx:
+                    walls[arm].append(wall_of(lambda: pass_fn(states[arm])))
+        for arm in ('eager', 'program'):
+            wall = _median(walls[arm])
+            row = dict(fps=frames / wall, wall_ms=wall * 1e3)
+            if work is not None:
+                host, busy = enqueue_busy(work, arm == 'eager')
+                row.update(enqueue_ms=host, busy_ms=busy,
+                           idle=1.0 - busy * len(work) / (wall * 1e3))
+            out[arm] = row
+        print('phase 17c %s, median of 5 interleaved passes: %s %s'
+              % (name, '; '.join(
+                  '%s %s' % (arm, ', '.join('%s %.4f' % kv
+                                            for kv in sorted(row.items())))
+                  for arm, row in out.items()), tag), flush=True)
+        return out
+
+    def first_pass(name, make, frames, pass_fn):
+        """A one-shot pass from no program (its captures included)
+        against the eager pass, five interleaved pairs: the median wall
+        and fps, the captures the pass made and how many of its calls
+        replayed, and the median capture split."""
+        walls = {'eager': [], 'program': []}
+        made = {'captures': [], 'replays': [], 'calls': []}
+        split = {}
+        for rep in range(5):
+            for arm in (('eager', 'program') if rep % 2 == 0
+                        else ('program', 'eager')):
+                if arm == 'program':
+                    _drop_programs()
+                    before = program_stats()
+                ctx = _EagerPrograms() if arm == 'eager' else _Null()
+                with ctx:
+                    state = make()
+                    walls[arm].append(wall_of(lambda: pass_fn(state)))
+                state.close()
+                if arm == 'eager':
+                    continue
+                after = program_stats()
+                for k in made:
+                    made[k].append(after[k] - before[k])
+                for prog in after['programs']:
+                    if ((prog['capture_index'] or 0) > before['captures']
+                            and prog['capture_split']):
+                        for k, v in prog['capture_split'].items():
+                            split.setdefault(k, []).append(v)
+        row = {arm: dict(wall_ms=_median(w) * 1e3,
+                         fps=frames / _median(w)) for arm, w in walls.items()}
+        print('phase 17c %s, one-shot pass from no program, median of 5 '
+              'interleaved pairs: %s; program pass: captures %s, calls %s, '
+              'replays %s; capture split (median ms) %s %s'
+              % (name, '; '.join('%s wall %.4f ms, fps %.4f'
+                                 % (arm, r['wall_ms'], r['fps'])
+                                 for arm, r in row.items()),
+                 made['captures'], made['calls'], made['replays'],
+                 json.dumps({k: round(_median(v), 4)
+                             for k, v in split.items()}), tag), flush=True)
+        return row
+
+    def headline_planner():
+        planner = RenderPlanner(ws, window, device=card)
+        planner.plan_cache_segments = 0
+        return planner
+
+    def headline_pass(planner):
+        for _out in planner.iter_batches(128, 512, batch=128):
+            pass
+
+    hp = headline_planner()
+    head_work = work_of(hp, 128, 512, 128)
+    hp.close()
+    cells = {}
+    cells['headline'] = side_by_side(
+        'cold headline (frames 128..511, batch 128)', headline_planner, 384,
+        headline_pass, head_work)
+    del head_work
+    cells['headline first'] = first_pass(
+        'headline (frames 128..511, batch 128)', headline_planner, 384,
+        headline_pass)
+
+    def mixed_planner(cold=True):
+        def make():
+            planner = RenderPlanner(mixed, window, device=card)
+            if cold:
+                planner.stage_cache_mb = 0
+            return planner
+        return make
+
+    def mixed_pass(planner):
+        for _out in planner.iter_batches(0, 128, batch=16):
+            pass
+
+    mp = RenderPlanner(mixed, window, device=card)
+    mp.stage_cache_mb = 0
+    mixed_work = work_of(mp, 0, 128, 16)
+    mp.close()
+    cells['config7'] = side_by_side(
+        'cold config7 (frames 0..127, batch 16)', mixed_planner(True), 128,
+        mixed_pass, mixed_work)
+    cells['config7 first'] = first_pass(
+        'config7 (frames 0..127, batch 16, stage cache off)',
+        mixed_planner(True), 128, mixed_pass)
+    cells['config7b'] = side_by_side(
+        'config7b replay (the same range, caches on)', mixed_planner(False),
+        128, mixed_pass, mixed_work)
+    del mixed_work
+    mesh = Mesh([card, card], ('frames',))
+
+    def config5_pass(_state):
+        out = render_sharded(ws, window, 0, 256, mesh=mesh, device_out=True,
+                             batch=128)
+        del out
+
+    cells['config5'] = side_by_side(
+        'config5 on logical shards (render_sharded over Mesh([card] * 2), '
+        'frames 0..255, batch 128)', lambda: None, 256, config5_pass)
+    plain, sharded = _shard_work(ws, window, 0, 512, 128, mesh)
+    devices = mesh.axis_devices('frames')
+    for arm in ('eager', 'program'):
+        ctx = _EagerPrograms() if arm == 'eager' else _Null()
+        with ctx:
+            def go():
+                for sig, params in sharded:
+                    RenderPlanner._run_shards(sig, params, devices, mesh,
+                                              'frames', None)
+            go()
+            go()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            go()
+            cells['config5'][arm]['enqueue_ms'] = (
+                (time.perf_counter() - t0) * 1e3 / len(sharded))
+            busy = cuda_ms(go, 3) / len(sharded)
+            cells['config5'][arm]['busy_ms'] = busy
+            cells['config5'][arm]['idle'] = 1.0 - busy * 2 / cells[
+                'config5'][arm]['wall_ms']
+    del plain, sharded
+    print('phase 17c config5 enqueue and device busy a 128-frame batch of 2 '
+          'shards: %s %s' % ('; '.join(
+              '%s enqueue %.4f ms, busy %.4f ms, idle %.4f' % (
+                  arm, cells['config5'][arm]['enqueue_ms'],
+                  cells['config5'][arm]['busy_ms'],
+                  cells['config5'][arm]['idle'])
+              for arm in ('eager', 'program')), tag), flush=True)
+
+    display = {}
+    frames = {}
+    for arm in ('eager', 'program'):
+        ctx = _EagerPrograms() if arm == 'eager' else _Null()
+        with ctx:
+            planner = RenderPlanner(ws, window, device=card)
+            for size in (None, VIEWPORT):
+                kw = dict(transport='rgb24', display_size=size)
+                planner.render_display(1, **kw)
+
+                def pull(i):
+                    t0 = time.perf_counter()
+                    got = planner.render_display(i, **kw)
+                    ms = (time.perf_counter() - t0) * 1e3
+                    # a digest, not the frame: frames kept alive would
+                    # make every later pull fault in fresh host pages
+                    frames[(arm, size, i)] = hashlib.blake2b(
+                        np.ascontiguousarray(got).data,
+                        digest_size=16).digest()
+                    return ms
+
+                warm = [pull(i) for i in range(1, 64)]
+                display[(arm, size)] = (float(np.percentile(warm, 50)),
+                                        float(np.percentile(warm, 95)))
+            planner.close()
+    # the program arm's frames against the eager arm's
+    differ = [(size, i) for size in (None, VIEWPORT) for i in range(1, 64)
+              if frames[('program', size, i)] != frames[('eager', size, i)]]
+    if differ:
+        raise AssertionError('render_display warm: the program arm\'s '
+                             'frames differ from the eager arm\'s at %r'
+                             % differ[:8])
+    # cold pulls at full size: frame 1 of eight 128-frame strides, each on
+    # a fresh planner (its display segment uncached), the arms alternating
+    # a pull; each pull split into planning the segment with its upload
+    # (``_plan_display_seg``) and the pull on the cached segment (the
+    # program's call or the eager run, and the fetch)
+    cold = {'eager': [], 'program': []}
+    captures = program_stats()['captures']
+    for k, i in enumerate(range(1, 1024, 128)):
+        for arm in (('eager', 'program') if k % 2 == 0
+                    else ('program', 'eager')):
+            ctx = _EagerPrograms() if arm == 'eager' else _Null()
+            with ctx:
+                planner = RenderPlanner(ws, window, device=card)
+                t0 = time.perf_counter()
+                planner._plan_display_seg(i)
+                t1 = time.perf_counter()
+                planner.render_display(i, transport='rgb24')
+                t2 = time.perf_counter()
+                planner.close()
+            cold[arm].append(((t2 - t0) * 1e3, (t1 - t0) * 1e3,
+                              (t2 - t1) * 1e3))
+    captures = program_stats()['captures'] - captures
+    print('phase 17c render_display rgb24 1920x1080 cold (frame 1 of eight '
+          '128-frame strides, a fresh planner a pull, arms alternating; '
+          'host clock) p50 ms total / planning and upload / the pull on the '
+          'cached segment: %s; the program arm captured %d times %s'
+          % ('; '.join('%s %.3f / %.3f / %.3f (totals %s)' % (
+              arm, _median([c[0] for c in rows]),
+              _median([c[1] for c in rows]), _median([c[2] for c in rows]),
+              ', '.join('%.2f' % c[0] for c in rows))
+              for arm, rows in cold.items()), captures, tag), flush=True)
+    print('phase 17c render_display rgb24 warm (frames 1..63 of a cached '
+          'segment, host clock to the host copy; the program arm\'s frames '
+          'equal to the eager arm\'s) p50/p95 ms: %s %s'
+          % ('; '.join('%s %s %.3f/%.3f' % (arm, 'full' if size is None
+                                             else '%dx%d' % size, p50, p95)
+                       for (arm, size), (p50, p95) in display.items()), tag),
+          flush=True)
+
+    # peak memory of a cold headline pass from no program, its captures
+    # included, beside the memory guard's estimates: before the pass (no
+    # program live) and at its last capture (the batch, the new pool and
+    # the pools already live), which must not be below the peak
+    _drop_programs()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    est = _hbm_estimate_bytes(128, window, None, None, device=card)[0]
+    since = _captures()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    planner = headline_planner()
+    headline_pass(planner)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    planner.close()
+    stats = program_stats()
+    at_capture = max([p['guard_bytes'] for p in stats['programs']
+                      if p['capture_index'] and p['capture_index'] > since]
+                     + [est])
+    print('phase 17c programs: %s; a cold headline pass from no program: '
+          'peak %.3f GB above its start beside the guard\'s estimate %.3f '
+          'GB before it and %.3f GB at its last capture (estimate / peak '
+          '%.3f, %.3f); %d live programs hold %.3f GB on the card %s'
+          % (json.dumps([{k: p[k] for k in ('key', 'frames', 'replays',
+                                             'capture_ms', 'pool_bytes',
+                                             'held_bytes', 'guard_bytes',
+                                             'slot_bytes')}
+                         for p in stats['programs']]),
+             peak / 1e9, est / 1e9, at_capture / 1e9, est / peak,
+             at_capture / peak, stats['live'],
+             sum(p['held_bytes'] for p in stats['programs']) / 1e9, tag),
+          flush=True)
+    if at_capture < peak:
+        raise AssertionError('the memory guard counted %d bytes at the '
+                             'pass\'s last capture, below its peak of %d'
+                             % (at_capture, peak))
+
+    # (d) the region kernels with device offsets: the main path's shapes
+    # and an edge overhang, f32 and bf16, beside their byte floors
+    hp = headline_planner()
+    _s0, sig, batches = hp._prepare((128, 256), 128)
+    tparams = params_to_torch(batches[0][2], card)
+    hp.close()
+    from canvas_tpu_torch.render import _scale_solid_factors
+    seps = []
+    for cs, cp in _children_params(sig, tparams):
+        if cs[0] == 'placed' and cs[3][0][0].startswith('scale_solid'):
+            inner = cs[3][0]
+            seps.append((cp[0]['dy0'], cp[0]['dx0'],
+                         _scale_solid_factors(inner[0], inner[1], cp[1])))
+    mp = RenderPlanner(mixed, window, device=card)
+    mp.stage_cache_mb = 0
+    _s0, msig, mbatches = mp._prepare((1, 65), 16)
+    mparams = params_to_torch(mbatches[0][2], card)
+    mp.close()
+    overs = [(cs[1], cp[0]['dy0'], cp[0]['dx0'])
+             for cs, cp in _children_params(msig, mparams)
+             if cs[0] == 'placed'
+             and not cs[3][0][0].startswith('scale_solid')]
+    if len(seps) != 2 or len(overs) != 3:
+        raise AssertionError('expected the headline\'s 2 rank-1 regions and '
+                             'config7\'s 3 DV regions, got %d and %d'
+                             % (len(seps), len(overs)))
+    rng = np.random.default_rng(SEED + 17)
+    rows = []
+    worst = 0.0
+
+    cases = []
+    for oy, ox, (color, ry, rx) in seps:
+        cases.append(('region_over_sep', 128, ry.shape[1], rx.shape[1], oy,
+                      ox, (color, ry, rx)))
+    for (h, w), oy, ox in overs:
+        cases.append(('region_over', 16, h, w, oy, ox, None))
+    # over the bottom edge: the last block row (rows 1024..1087) of a
+    # 1080-row frame
+    for kind, B in (('region_over_sep', 128), ('region_over', 16)):
+        oy, ox = _device_offsets(card, 1024, 1792)
+        cases.append((kind, B, 64, 128, oy, ox, None))
+    for kind, B, h, w, oy, ox, factors in cases:
+        dy0, dx0 = int(oy), int(ox)
+        for dtype in (torch.float32, torch.bfloat16):
+            P, A = [torch.from_numpy(rng.uniform(0, 1, s).astype(
+                np.float32)).to(card, dtype) for s in ((B, 3, H, W),
+                                                         (B, 1, H, W))]
+            if kind == 'region_over_sep':
+                args = factors or [torch.from_numpy(rng.uniform(
+                    0, 1, s).astype(np.float32)).to(card)
+                    for s in ((B, 4), (B, h), (B, w))]
+            else:
+                args = [torch.from_numpy(rng.uniform(0, 1, (B, 4, h, w))
+                                         .astype(np.float32)).to(card, dtype)]
+            P2, A2 = P.clone(), A.clone()
+            fn = getattr(cuda_ops, kind)
+            plain = getattr(cuda_ops, kind + '_plain')
+            fn(P, A, *args, oy, ox)
+            plain(P2, A2, *args, dy0, dx0)
+            worst = max(worst, _max_diff((P, A), (P2, A2)))
+            tk, tp = paired_ms(lambda: fn(P, A, *args, oy, ox),
+                               lambda: plain(P2, A2, *args, dy0, dx0), 20, 3)
+            px = B * min(h, H - dy0) * min(w, W - dx0)
+            per_px = ((32 if kind == 'region_over_sep' else 48)
+                      // (2 if dtype == torch.bfloat16 else 1))
+            floor = _bound(px * per_px, 0)[0]
+            rows.append('%s %s %dx%d @ (%d, %d) batch %d: cuda %.4f ms, '
+                        'plain %.4f ms, byte floor %.4f ms (%d B/px), time '
+                        '/ floor %.2f' % (
+                            kind, 'bf16' if dtype == torch.bfloat16
+                            else 'f32', h, w, dy0, dx0, B, tk, tp, floor,
+                            per_px, tk / floor))
+            del P, A, P2, A2
+    print('phase 17d region kernels with device offsets (int32 values in '
+          'card memory) against their plain versions, max diff %r (must be '
+          '0): %s %s' % (worst, '; '.join(rows), tag), flush=True)
+    if worst != 0.0:
+        raise AssertionError('a region kernel with device offsets differs '
+                             'from plain by %r' % worst)
+    del tparams, mparams
+    torch.cuda.empty_cache()
+    print('phase 17 launches (17a, 17b): %s; phase 17 %.1f s %s'
+          % (json.dumps(launches), time.perf_counter() - t_phase, tag),
+          flush=True)
+    return launches
+
+
+class _Null:
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_program_notes = []
+
+
+def _note_programs(phases):
+    """Note the render programs' totals after *phases* (``_print_programs``
+    reports what each stretch of phases captured and replayed)."""
+    from canvas_tpu_torch.render import program_stats
+    stats = program_stats()
+    since = _program_notes[-1][1]['captures'] if _program_notes else 0
+    split = {}
+    for prog in stats['programs']:
+        if (prog['capture_index'] or 0) > since and prog['capture_split']:
+            split.setdefault('capture_ms', []).append(prog['capture_ms'])
+            for k, v in prog['capture_split'].items():
+                split.setdefault(k, []).append(v)
+    _program_notes.append((phases, {k: stats[k] for k in (
+        'calls', 'captures', 'replays', 'replayed_captures', 'evictions')},
+        {k: [round(min(v), 3), round(_median(v), 3), round(max(v), 3)]
+         for k, v in split.items()}))
+
+
+def _print_programs(tag):
+    """Per stretch of phases: program calls, captures, replays, first
+    replays (of a capture made then or before) and evictions, with the
+    min/median/max capture ms and its split over the captures still live
+    at its end; and over the run, how many captures a later call ever
+    replayed."""
+    rows, last = [], None
+    for phases, totals, split in _program_notes:
+        rows.append('%s %s %s' % (phases, json.dumps(
+            {k: v - (last or {}).get(k, 0) for k, v in totals.items()}),
+            json.dumps(split)))
+        last = totals
+    print('programs by phase: %s; over the run %d of %d captures replayed '
+          'at least once %s' % ('; '.join(rows), last['replayed_captures'],
+                                last['captures'], tag), flush=True)
+
+
 def main():
     sys.meta_path.insert(0, _Refuse())
     import numpy as np
@@ -3626,7 +4423,8 @@ def main():
                            for s in ((8, 3, Hf, Wf), (8, 1, Hf, Wf),
                                      (8, 4, h, w))])
         P2, A2 = P.clone(), A.clone()
-        outP, outA = cuda_ops.region_over(P, A, layer, dy0, dx0)
+        outP, outA = cuda_ops.region_over(P, A, layer,
+                                          *_device_offsets(dev, dy0, dx0))
         cuda_ops.region_over_plain(P2, A2, layer, dy0, dx0)
         if outP is not P or outA is not A:
             raise AssertionError('region_over did not update in place')
@@ -3642,7 +4440,8 @@ def main():
             for s in ((8, 3, Hf, Wf), (8, 1, Hf, Wf), (8, 4), (8, h),
                       (8, w))])
         P2, A2 = P.clone(), A.clone()
-        cuda_ops.region_over_sep(P, A, color, ry, rx, dy0, dx0)
+        cuda_ops.region_over_sep(P, A, color, ry, rx,
+                                 *_device_offsets(dev, dy0, dx0))
         cuda_ops.region_over_sep_plain(P2, A2, color, ry, rx, dy0, dx0)
         err_reg = max(err_reg, float((P - P2).abs().max()),
                       float((A - A2).abs().max()))
@@ -3782,11 +4581,13 @@ def main():
     torch.cuda.empty_cache()
 
     # 6-7. the mixed-content path
+    _note_programs('1-5')
     mixed, mixed_launches = _mixed_slice(tag, window)
     (err_ro_path, ro_ms, ro_plain_ms, ro_bound, ro_by,
      config7) = _mixed_timing(
         tag, mixed, window)
 
+    _note_programs('6-7')
     # 8. the fold studies and the roofline probe
     del mixed
     torch.cuda.empty_cache()
@@ -3796,42 +4597,56 @@ def main():
     torch.cuda.empty_cache()
     post_launches = _posts(tag, window)
 
+    _note_programs('8-9')
     # 10. the editor's display path
     torch.cuda.empty_cache()
     display_launches, bf16, latency = _display_path(tag, window)
 
+    _note_programs('10')
     # 11. coded video and replay
     torch.cuda.empty_cache()
     replay_launches = _coded_and_replay(tag, window)
 
+    _note_programs('11')
     # 12. config6 and config6b: the export path at 4K
     torch.cuda.empty_cache()
     export_launches = _export_4k(tag)
 
+    _note_programs('12')
     # 13. the editor on the card; phase 5's planner is the headline its
     # headline project is held to
     torch.cuda.empty_cache()
     editor_launches = _editor(tag, window, planner, dict(
         phase5=phase5, config7=config7, display=latency[None]))
 
+    _note_programs('13')
     # 14. an editor session through the UI layer
     del planner
     torch.cuda.empty_cache()
     session_launches = _editor_session(tag, window)
 
+    _note_programs('14')
     # 15. the eager pull on the card
     torch.cuda.empty_cache()
     eager_launches = _eager_pull(tag, window)
 
+    _note_programs('15')
     # 16. multi-device rendering on logical shards of the card
     torch.cuda.empty_cache()
     sharded_launches = _multi_device(tag, window, config7)
+
+    _note_programs('16')
+    # 17. the render programs: one CUDA graph per signature
+    torch.cuda.empty_cache()
+    program_launches = _programs(tag, window)
+    _note_programs('17')
+    _print_programs(tag)
 
     total = {k: (launches[k] + mixed_launches[k] + post_launches[k]
                  + display_launches[k] + replay_launches[k]
                  + export_launches[k] + editor_launches[k]
                  + session_launches[k] + eager_launches[k]
-                 + sharded_launches[k])
+                 + sharded_launches[k] + program_launches[k])
              for k in mixed_launches}
     fold_bound, fold_by = _bound(fold_bytes, fold_ops)
     reg_bound, reg_by = _bound(reg_bytes, reg_ops)

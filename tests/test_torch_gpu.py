@@ -26,8 +26,13 @@ bit-equal to the first pass on the same card, and a headline batch
 rendered over a logical mesh of the one card (two shards) to the
 unsharded batch. A default-mode eager
 pull at 1080p (the torch arms on the card) is held to the same gates
-against the NumPy arm's pull.
+against the NumPy arm's pull. A render program's replay (the headline,
+config7, the posts, the display program, the fuzz's graphs) is
+bit-equal to the eager run, also while another thread stages and runs
+batches during the captures.
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -61,6 +66,12 @@ def _solid_layers(rng, L, B, H, W):
 
 def _on(device, *arrays):
     return [torch.from_numpy(np.array(a)).to(device) for a in arrays]
+
+
+def _offsets(device, dy0, dx0):
+    """A region kernel's offsets: int32 values in device memory."""
+    return [torch.tensor([v], dtype=torch.int32, device=device)
+            for v in (dy0, dx0)]
 
 
 @pytest.mark.gpu
@@ -106,7 +117,8 @@ def test_region_over_sep_kernel_matches_plain(cuda, H, W, h, w, dy0, dx0):
                 ((B, 3, H, W), (B, 1, H, W), (B, 4), (B, h), (B, w))])
     P2, A2 = P.clone(), A.clone()
     launches = co.region_over_sep.launches
-    outP, outA = co.region_over_sep(P, A, color, ry, rx, dy0, dx0)
+    outP, outA = co.region_over_sep(P, A, color, ry, rx,
+                                    *_offsets(cuda, dy0, dx0))
     torch.cuda.synchronize()
     assert outP is P and outA is A
     assert co.region_over_sep.launches == launches + 1
@@ -129,7 +141,7 @@ def test_region_over_kernel_matches_plain(cuda, H, W, h, w, dy0, dx0):
                                         (B, 4, h, w))])
     P2, A2 = P.clone(), A.clone()
     launches = co.region_over.launches
-    outP, outA = co.region_over(P, A, layer, dy0, dx0)
+    outP, outA = co.region_over(P, A, layer, *_offsets(cuda, dy0, dx0))
     torch.cuda.synchronize()
     assert outP is P and outA is A
     assert co.region_over.launches == launches + 1
@@ -184,13 +196,14 @@ def test_kernel_wrappers_refuse_noncontiguous(cuda):
     with pytest.raises(ValueError):
         co.region_over_sep(P, A, torch.zeros((1, 4), device=cuda),
                            torch.zeros((1, 64), device=cuda),
-                           torch.zeros((1, 128), device=cuda), 0, 0)
+                           torch.zeros((1, 128), device=cuda),
+                           *_offsets(cuda, 0, 0))
     with pytest.raises(ValueError):
         co.region_over(P, A, torch.zeros((1, 4, 64, 128), device=cuda),
-                       0, 0)
+                       *_offsets(cuda, 0, 0))
     layer = torch.zeros((1, 4, 128, 64), device=cuda).transpose(2, 3)
     with pytest.raises(ValueError):
-        co.region_over(P, A.contiguous(), layer, 0, 0)
+        co.region_over(P, A.contiguous(), layer, *_offsets(cuda, 0, 0))
 
 
 @pytest.mark.gpu
@@ -345,7 +358,7 @@ def test_narrow_stores_round_denormals_as_torch(cuda, vector):
                         (rng.uniform(0.5, 1, (B, 256)) * 2.0 ** -70).astype(
                             np.float32))
     P2, A2 = Pb.clone(), Ab.clone()
-    co.region_over_sep(Pb, Ab, color, ry, rx, 0, 0)
+    co.region_over_sep(Pb, Ab, color, ry, rx, *_offsets(cuda, 0, 0))
     co.region_over_sep_plain(P2, A2, color, ry, rx, 0, 0)
     assert torch.equal(Pb.view(torch.int16), P2.view(torch.int16))
     assert torch.equal(Ab.view(torch.int16), A2.view(torch.int16))
@@ -371,7 +384,7 @@ def test_region_over_sep_forms_match_plain(cuda, dtype, B, H, W, h, w, dy0,
     P2, A2 = P.clone(), A.clone()
     fn = co.region_over_sep
     before = (fn.launches_vector, fn.launches_scalar)
-    outP, outA = fn(P, A, color, ry, rx, dy0, dx0)
+    outP, outA = fn(P, A, color, ry, rx, *_offsets(cuda, dy0, dx0))
     torch.cuda.synchronize()
     assert outP is P and outA is A
     assert (fn.launches_vector, fn.launches_scalar) == \
@@ -396,7 +409,8 @@ def test_region_over_sep_unaligned_takes_the_scalar_form(cuda, dtype, which):
     P2, A2 = t['P'].clone(), t['A'].clone()
     fn = co.region_over_sep
     before = (fn.launches_vector, fn.launches_scalar)
-    fn(t['P'], t['A'], t['color'], t['ry'], t['rx'], 64, 128)
+    fn(t['P'], t['A'], t['color'], t['ry'], t['rx'],
+       *_offsets(cuda, 64, 128))
     torch.cuda.synchronize()
     assert (fn.launches_vector, fn.launches_scalar) == (before[0],
                                                         before[1] + 1)
@@ -461,7 +475,7 @@ def test_region_bf16_kernels_match_plain(cuda, kind, H, W, h, w, dy0, dx0):
     P2, A2 = P.clone(), A.clone()
     fn = getattr(co, kind)
     launches = (fn.launches, fn.launches_bf16)
-    outP, outA = fn(P, A, *args, dy0, dx0)
+    outP, outA = fn(P, A, *args, *_offsets(cuda, dy0, dx0))
     torch.cuda.synchronize()
     assert outP is P and outA is A
     assert (fn.launches, fn.launches_bf16) == (launches[0], launches[1] + 1)
@@ -476,15 +490,18 @@ def test_bf16_wrappers_refuse_mixed_dtypes(cuda):
     A = torch.zeros((1, 1, 128, 256), device=cuda)
     with pytest.raises(ValueError):
         co.region_over(P, A, torch.zeros((1, 4, 64, 128), device=cuda,
-                                         dtype=torch.bfloat16), 0, 0)
+                                         dtype=torch.bfloat16),
+                       *_offsets(cuda, 0, 0))
     with pytest.raises(ValueError):
         co.region_over(P, A.to(torch.bfloat16),
-                       torch.zeros((1, 4, 64, 128), device=cuda), 0, 0)
+                       torch.zeros((1, 4, 64, 128), device=cuda),
+                       *_offsets(cuda, 0, 0))
     with pytest.raises(ValueError):
         co.region_over_sep(P.half(), A.half(),
                            torch.zeros((1, 4), device=cuda),
                            torch.zeros((1, 64), device=cuda),
-                           torch.zeros((1, 128), device=cuda), 0, 0)
+                           torch.zeros((1, 128), device=cuda),
+                           *_offsets(cuda, 0, 0))
 
 
 @pytest.mark.gpu
@@ -595,12 +612,10 @@ def test_params_to_torch_on_card(cuda):
     assert got[0]['color'].untyped_storage().nbytes() % 16 == 0
     for p, q in zip(got, plist):
         for k, v in q.items():
-            if k in ('dy0', 'dx0'):
-                assert p[k] == int(v) and type(p[k]) is int
-            else:
-                want = torch.from_numpy(np.array(_canonical(v)))
-                assert p[k].is_cuda and p[k].dtype == want.dtype
-                assert torch.equal(p[k].cpu(), want)
+            # the region offsets too: int32 values on the card
+            want = torch.from_numpy(np.array(_canonical(v)))
+            assert p[k].is_cuda and p[k].dtype == want.dtype
+            assert torch.equal(p[k].cpu(), want)
 
 
 @pytest.mark.gpu
@@ -952,3 +967,241 @@ def test_sharded_headline_on_card_matches_unsharded(cuda):
         t.device == card for t, _b in got.shards)
     want = RenderPlanner(src, window).render(0, 5)
     assert np.array_equal(got.numpy().view(np.uint16), want.view(np.uint16))
+
+
+# --- render programs: one CUDA graph per signature ----------------------
+
+def _eager_batches(planner, start, stop, batch, post=None):
+    """The eager ``run`` of every batch of [start, stop) on the planner's
+    card: [(frame, out)]."""
+    from canvas_tpu_torch.render import params_to_torch, run
+    out = []
+    for seg in planner.segments(start, stop, min_span=batch):
+        s0, sig, batches = planner._prepare(seg, batch)
+        for pos, take, plist in batches:
+            got = run(sig, params_to_torch(plist, planner.device),
+                      planner.device, post)
+            out.append((s0 + pos, got[:take]))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('name, post', [('headline', None),
+                                        ('config7', None),
+                                        ('headline', 'rgba_u8'),
+                                        ('headline', 'yuv420')])
+def test_program_replay_equals_eager_on_card(cuda, name, post):
+    """The headline (frames 0..40 at 960x540, batch 8: a 1-frame segment
+    with its own program), config7 (frames 0..7, batch 4, DV planes in
+    the program's slots) and the headline's two posts through their
+    programs over three cold passes (each program's first call eager, the
+    second captured, every call of the third pass a replay), bit-equal
+    (max diff 0) to the eager run on the card; the launch counters rise
+    by the eager run's launches a batch."""
+    from canvas_tpu_torch import timelines
+    from canvas_tpu_torch.render import RenderPlanner, box2i, program_stats
+    if name == 'headline':
+        src, start, stop, batch = timelines.build_timeline(64), 0, 41, 8
+    else:
+        src, start, stop, batch = timelines.mixed_timeline(16), 0, 8, 4
+    planner = RenderPlanner(src, box2i(0, 0, 959, 539))
+    planner.plan_cache_segments = 0
+    names = ('solid_fold', 'region_over_sep', 'region_over')
+    since = program_stats()['captures']
+    before = [getattr(co, k).launches for k in names]
+    passes, calls = [], []
+    for _rep in range(3):
+        stats = program_stats()
+        passes.append([(s, n, out) for s, n, out in planner.iter_batches(
+            start, stop, batch=batch, post=post)])
+        after = program_stats()
+        calls.append((after['calls'] - stats['calls'],
+                      after['replays'] - stats['replays']))
+    torch.cuda.synchronize()
+    got = [getattr(co, k).launches - b for k, b in zip(names, before)]
+    stats = program_stats()
+    n_batches = len(passes[0])
+    assert [c for c, _r in calls] == [n_batches] * 3
+    assert calls[2][1] == n_batches, calls
+    sigs = {planner._prepared(seg, batch, post, False).sig
+            for seg in planner.segments(start, stop, min_span=batch)}
+    assert stats['captures'] - since <= len(sigs)
+    assert all(p['captured'] for p in stats['programs'] if p['calls'] > 1)
+    before = [getattr(co, k).launches for k in names]
+    eager = _eager_batches(planner, start, stop, batch, post)
+    torch.cuda.synchronize()
+    per_pass = [getattr(co, k).launches - b for k, b in zip(names, before)]
+    assert got == [3 * e for e in per_pass]
+    for prog in passes:
+        for (s, n, out), (pos, want) in zip(prog, eager):
+            assert (s, n) == (pos, want.shape[0])
+            assert out.dtype == want.dtype and torch.equal(out, want), (
+                name, post, s)
+    planner.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('display_size', [None, (480, 270)])
+def test_display_program_replay_equals_eager_on_card(cuda, display_size):
+    """render_display rgb24 through its display program: four frames of
+    one segment (the first pull eager, the second captured, the last two
+    replays), each equal to the eager display run of its frame."""
+    from canvas_tpu_torch import timelines
+    from canvas_tpu_torch.backend import to_host
+    from canvas_tpu_torch.ops import color as color_ops
+    from canvas_tpu_torch.render import (RenderPlanner, _frame_slice,
+                                         _param_sharding, box2i, display_run,
+                                         program_stats)
+    planner = RenderPlanner(timelines.build_timeline(64),
+                            box2i(0, 0, 959, 539))
+    replays = []
+    for i in range(4, 8):
+        before = program_stats()['replays']
+        got = planner.render_display(i, transport='rgb24',
+                                     display_size=display_size)
+        replays.append(program_stats()['replays'] - before)
+        seg = planner._display_seg
+        pos = i - seg['lo']
+        params = [{k: (v if _param_sharding(op, k) is None
+                       else _frame_slice(v, _param_sharding(op, k), pos))
+                   for k, v in p.items()}
+                  for p, op in zip(seg['params'], seg['ops'])]
+        flat = to_host(display_run(
+            seg['sig1'], params, planner.device,
+            planner._display_matrices(display_size), (2, 1, 0, 3), None,
+            'rgb24'))
+        want = color_ops.rgb24_unpack(flat[0], (2, 1, 0, 3))
+        assert np.array_equal(got, want), i
+    assert replays[2:] == [1, 1], replays
+    planner.close()
+
+
+@pytest.mark.gpu
+def test_program_captures_beside_uploads_and_eager_runs(cuda):
+    """Captures made while another thread stages segments (a SlabStager a
+    segment: pinned host rows, device stacks, copies on the copy stream
+    and a wait for them), packs params into pinned memory and runs batches
+    eagerly: every capture succeeds and every frame, eager, captured or
+    replayed, equals the eager run. More stagers than torch pools streams
+    of a priority (32) are made meanwhile."""
+    import threading
+
+    from canvas_tpu_torch import render, staging, timelines
+    from canvas_tpu_torch.render import (RenderPlanner, box2i,
+                                         params_to_torch, run)
+    planner = RenderPlanner(timelines.build_timeline(64),
+                            box2i(0, 0, 959, 539))
+    seg = planner.segments(0, 8, min_span=8)[0]
+    _s0, sig, batches = planner._prepare(seg, 8)
+    plist = batches[0][2]
+    want = run(sig, params_to_torch(plist, cuda), cuda)
+    stop, errors, made = threading.Event(), [], [0]
+
+    def busy():
+        try:
+            while not stop.is_set():
+                stager = staging.SlabStager([((64, 1920), np.float32)], 16,
+                                            cuda)
+                for r in range(stager.n_real):
+                    stager.host[0][r] = r
+                    stager.note_row(r)
+                stager.finish()
+                got = run(sig, params_to_torch(plist, cuda), cuda)
+                torch.cuda.current_stream(cuda).synchronize()
+                if not torch.equal(got, want):
+                    errors.append(AssertionError('eager run differs'))
+                made[0] += 1
+        except Exception as err:          # reported by the main thread
+            errors.append(err)
+
+    worker = threading.Thread(target=busy)
+    worker.start()
+    captures = 0
+    try:
+        deadline = time.monotonic() + 120
+        while (captures < 40 or made[0] < 64) and not errors:
+            assert time.monotonic() < deadline, (captures, made[0])
+            prog = render._Program((sig, cuda), cuda,
+                                   render._make_run(sig, None, cuda))
+            for _call in range(3):     # eager, captured, replayed
+                got = prog(plist)
+                assert torch.equal(got, want), (captures, _call)
+            assert prog.captured and prog.replays == 1
+            prog._release()
+            captures += 1
+    finally:
+        stop.set()
+        worker.join()
+    assert not errors, errors[0]
+    planner.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kind', ['region_over', 'region_over_sep'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('H, W, h, w, dy0, dx0', [
+    (256, 512, 128, 256, 64, 128),        # inside
+    (150, 300, 128, 256, 64, 128),        # overhanging both edges
+    (1080, 1920, 512, 1024, 576, 896),    # a headline region at 1080p
+    (1080, 1920, 704, 1152, 64, 512),     # a config7 DV region
+])
+def test_region_kernels_read_device_offsets(cuda, kind, dtype, H, W, h, w,
+                                            dy0, dx0):
+    """Both region kernels with their offsets as int32 values in device
+    memory equal their plain versions (max diff 0); a new value written
+    into the same tensors moves the next launch's region (the kernel
+    reads the offsets at its launch, as a replayed graph needs)."""
+    rng = np.random.default_rng(H + W + h + dy0)
+    P = torch.from_numpy(rng.uniform(0, 1, (2, 3, H, W)).astype(
+        np.float32)).to(cuda, dtype)
+    A = torch.from_numpy(rng.uniform(0, 1, (2, 1, H, W)).astype(
+        np.float32)).to(cuda, dtype)
+    if kind == 'region_over':
+        args = (torch.from_numpy(rng.uniform(0, 1, (2, 4, h, w)).astype(
+            np.float32)).to(cuda, dtype),)
+    else:
+        args = tuple(torch.from_numpy(rng.uniform(0, 1, s).astype(
+            np.float32)).to(cuda) for s in ((2, 4), (2, h), (2, w)))
+    fn, plain = getattr(co, kind), getattr(co, kind + '_plain')
+    offsets = _offsets(cuda, dy0, dx0)
+    for at in ((dy0, dx0), (0, 0)):
+        offsets[0].fill_(at[0])
+        offsets[1].fill_(at[1])
+        got, want = (P.clone(), A.clone()), (P.clone(), A.clone())
+        fn(*got, *args, *offsets)
+        plain(*want, *args, *at)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert not torch.equal(got[1], A)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('seed', range(4))
+def test_fuzz_program_replay_equals_eager_on_card(cuda, seed):
+    """tests/test_torch_render_fuzz.py's random workspaces on the card:
+    each segment through its program equals the eager run, bit for bit,
+    over three renders of the range (each program's first call eager,
+    the second captured, every call of the third render a replay)."""
+    from test_torch_render_fuzz import PORT, WINDOW, fuzz_case
+
+    from canvas_tpu_torch.backend import force_backend
+    from canvas_tpu_torch.render import (RenderPlanner, box2i, flat_params,
+                                         params_to_torch, program_stats, run,
+                                         signature)
+    ws, start, stop = fuzz_case(PORT, seed)
+    planner = RenderPlanner(ws, box2i(*WINDOW))
+    with force_backend('numpy'):
+        want = []
+        for seg in planner.segments(start, stop):
+            node = planner._plan(seg)
+            want.append(run(signature(node), params_to_torch(
+                flat_params(node), planner.device), planner.device))
+        want = torch.cat(want)
+        for rep in range(3):
+            before = program_stats()
+            got = planner.render(start, stop, device_out=True)
+            after = program_stats()
+            assert torch.equal(got, want), (seed, rep)
+    calls = after['calls'] - before['calls']
+    assert calls and after['replays'] - before['replays'] == calls, seed
+    planner.close()

@@ -26,7 +26,9 @@ editor's UI layer (``canvas_tpu_torch.editor.ui``, its entry point
 ``canvas_tpu_torch.editor.__main__``), pulls a crossfade
 (``transitions``) through a ``pullqueue.VideoPullQueue``, plays a tone
 through an ``audioout.AudioPlayer``, and opens the headline project in
-an ``EditorApp`` whose thumbnails and painted timeline it takes; pulls
+an ``EditorApp`` whose thumbnails and painted timeline it takes, all
+through the render programs (``render.program_stats``, ``explain``'s
+program line); pulls
 through the torch arms on the CPU and times both branches of
 ``process.time_get_frame`` there, and reaches the rest of ``process``'s
 names (the pull queue, ``NS_PER_SEC``, the shims); and nothing it runs
@@ -310,6 +312,15 @@ SCRIPT = BLOCKER + textwrap.dedent('''
     assert port_render.Node is canvas_tpu_torch.ir.Node
     assert profiling.timed is profiling.Timer
     assert canvas_tpu_torch.libav.available() in (True, False)
+
+    # the render programs everything above ran through: one per
+    # signature, replayed; explain reports them
+    stats = port_render.program_stats()
+    assert stats['calls'] > stats['captures'] > 0 and stats['replays'] > 0
+    assert any('display' in p['key'] for p in stats['programs']), stats
+    for _rep in range(2):           # eagerly, then captured
+        planner.render(2, 4)
+    assert 'program CAPTURED' in planner.explain(2, 4)
 
     loaded = sorted(m for m in sys.modules if m.split('.')[0] in REFUSED)
     assert not loaded, loaded

@@ -177,11 +177,11 @@ def test_params_to_torch(timeline, ref_timeline):
     seen = set()
     for p in tparams:
         for k, v in p.items():
+            # the region offsets too: int32 tensors the kernels read
+            assert isinstance(v, torch.Tensor)
+            assert v.dtype in (torch.float32, torch.int32, torch.bool)
             if k in ('dy0', 'dx0'):
-                assert type(v) is int
-            else:
-                assert isinstance(v, torch.Tensor)
-                assert v.dtype in (torch.float32, torch.int32, torch.bool)
+                assert v.dtype == torch.int32 and v.numel() == 1
             seen.add(k)
     assert {'dy0', 'dx0', 'color', 'box', 'fy', 'tly'} <= seen
 
