@@ -1,4 +1,5 @@
-// Row accesses of the render kernels (solid_fold.cu, region_over_sep.cu):
+// Row accesses of the render kernels (solid_fold.cu, region_over_sep.cu,
+// region_over.cu):
 // kC neighbouring values of one row of a plane, widened to f32 on load
 // and narrowed on store.
 //

@@ -44,8 +44,8 @@ _SIGNATURES = {
     # color, ry, rx, P, A, dy0, dx0 (device int32s), B, h, w, H, W, bf16,
     # vec, device, stream
     'canvas_region_over_sep': (_P,) * 7 + (_I,) * 8 + (_P,),
-    # layer, P, A, dy0, dx0 (device int32s), B, h, w, H, W, bf16,
-    # blocks_x, device, stream
+    # layer, P, A, dy0, dx0 (device int32s), B, h, w, H, W, bf16, vec,
+    # device, stream
     'canvas_region_over': (_P,) * 5 + (_I,) * 8 + (_P,),
     # color, box, gain, offset, out, L, B, H, W, variant, device, stream
     'canvas_fold_interior': (_P,) * 5 + (_I,) * 6 + (_P,),

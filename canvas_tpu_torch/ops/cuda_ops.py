@@ -33,11 +33,11 @@ capture of a render program, which launches nothing) is not counted but
 recorded; the program adds the recorded launches to the counters at
 every replay.
 
-``solid_fold`` and ``region_over_sep`` each have two instantiations of
-one template: one that moves 16 bytes a thread, for rows of a multiple
-of 8 values in planes that start at a multiple of 16 bytes, and a
-scalar one for everything else. ``_vector_ok`` chooses from the row
-length and the tensors' pointers; ``launches_vector`` and
+``solid_fold``, ``region_over_sep`` and ``region_over`` each have two
+instantiations of one template: one that moves 16 bytes a thread, for
+rows of a multiple of 8 values in planes that start at a multiple of 16
+bytes, and a scalar one for everything else. ``_vector_ok`` chooses from
+the row length and the tensors' pointers; ``launches_vector`` and
 ``launches_scalar`` count which one ran. Both give the same bits.
 
 The plain versions keep the op order of the JAX fallbacks, rounding
@@ -434,7 +434,12 @@ def region_over(P, A, layer, dy0, dx0):
     quality <= 9 form; the blend math stays f32).
 
     CUDA kernel ``csrc/region_over.cu`` on a CUDA tensor (bit-identical
-    to ``region_over_plain``), the plain version on a CPU tensor.
+    to ``region_over_plain``), the plain version on a CPU tensor. The
+    kernel's 16-byte instantiation runs where ``_vector_ok`` grants it
+    from W and the three tensors' pointers, else its scalar one. A render
+    program captured as a CUDA graph freezes the pointers, and so this
+    choice, with its launch: that holds, as every replay reuses the same
+    buffers.
     """
     B, _c, h, w = layer.shape
     _check_region('region_over', h, w)
@@ -453,18 +458,21 @@ def region_over(P, A, layer, dy0, dx0):
         raise ValueError('region_over: B=%d frames (max 65535)' % (B,))
     bf16 = dtype == torch.bfloat16
     if B and h and w and H and W:
+        vector = _vector_ok(W, layer.data_ptr(), P.data_ptr(), A.data_ptr())
         lib = _build.library()
         rc = lib.canvas_region_over(
             layer.data_ptr(), P.data_ptr(), A.data_ptr(), oy.data_ptr(),
-            ox.data_ptr(), B, h, w, H, W, int(bf16), _blocks(h * w, 4),
+            ox.data_ptr(), B, h, w, H, W, int(bf16), int(vector),
             dev.index, _stream(dev))
         _build.check(lib, 'region_over', rc)
-        _count(region_over, bf16)
+        _count(region_over, bf16, vector)
     return P, A
 
 
 region_over.launches = 0
 region_over.launches_bf16 = 0
+region_over.launches_vector = 0
+region_over.launches_scalar = 0
 
 
 def region_over_sep_plain(P, A, color, ry, rx, dy0, dx0):

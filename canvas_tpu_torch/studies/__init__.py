@@ -12,7 +12,12 @@ of ``canvas_tpu_torch.ops.study_ops``:
   ``scripts/vpu_roofline.py``;
 - ``capture_probe`` (the port's own, no TPU counterpart): which work on
   another thread invalidates a render program's CUDA graph capture;
-  ``python -m canvas_tpu_torch.studies.capture_probe`` on a card.
+  ``python -m canvas_tpu_torch.studies.capture_probe`` on a card;
+- ``region_over_time`` (the port's own): ``cuda_ops.region_over`` held
+  to the plain version and timed at config7's regions beside its byte
+  floor, or an older checkout's kernel when that checkout comes first on
+  ``PYTHONPATH``; ``python -m canvas_tpu_torch.studies.region_over_time``
+  on a card.
 
 Each runs as ``python -m canvas_tpu_torch.studies.<name> --check`` (each
 kernel against its plain version on the card; ``--device cpu`` runs the

@@ -25,11 +25,12 @@ prints one line or more; any failure raises
    quality <= 9 form (bf16 accumulators: solid_fold's mid fold storing
    bf16, from a bf16 base, and its finalize from a bf16 base;
    region_over_sep and region_over in bf16) at the same shapes, then
-   solid_fold and region_over_sep in every form at frames whose rows are
-   not a multiple of 8 values and through planes that do not start at a
-   multiple of 16 bytes (the kernels' scalar instantiation; the shapes
-   before took the 16-byte one, some with the region overhanging the
-   bottom edge), with the launches of each instantiation counted;
+   solid_fold, region_over_sep and region_over in every form at frames
+   whose rows are not a multiple of 8 values and through planes that do
+   not start at a multiple of 16 bytes (the kernels' scalar
+   instantiation; the shapes before took the 16-byte one, some with the
+   region overhanging the bottom edge), with the launches of each
+   instantiation counted;
 4. headline slice: frames 0..255 of timelines.build_timeline(1024)
    through iter_batches; its kernels'
    launch counters must rise; finite f16 (B, 4, 1080, 1920) batches;
@@ -49,8 +50,8 @@ prints one line or more; any failure raises
    16, one warm pass, best of 3), the device busy time of the same
    batches replayed and the idle share, the replay's device time by
    kernel (torch.profiler),
-   and region_over beside its plain version at the path's three region
-   shapes;
+   and region_over beside its plain version and its byte floor at the
+   path's three region shapes, naming the instantiation that ran;
 8. studies (canvas_tpu_torch.studies): the fold_interior kernel in all
    four variants, tile_fold and roofline_fold bit-identical to their
    plain versions, and the FMA chain within study_ops.fma_chain_tol of
@@ -459,12 +460,42 @@ def _bf16_forms_vs_plain(rng, on, H, W):
 
 
 def _instantiation_counts():
-    """Launches of the 16-byte and the scalar instantiation of the two
-    kernels that have both."""
+    """Launches of the 16-byte and the scalar instantiation of each
+    render kernel."""
     from canvas_tpu_torch.ops import cuda_ops
     return {name: (getattr(cuda_ops, name).launches_vector,
                    getattr(cuda_ops, name).launches_scalar)
-            for name in ('solid_fold', 'region_over_sep')}
+            for name in _RENDER_KERNELS}
+
+
+def _instantiation(name, before):
+    """'16-byte' or 'scalar': the instantiation of *name* that launched
+    once since the counts *before* (an ``_instantiation_counts`` value);
+    raises unless exactly one launch was counted."""
+    now = _instantiation_counts()[name]
+    moved = (now[0] - before[0], now[1] - before[1])
+    if moved not in ((1, 0), (0, 1)):
+        raise AssertionError('%s: expected one launch, counted [16-byte, '
+                             'scalar] %r' % (name, moved))
+    return '16-byte' if moved == (1, 0) else 'scalar'
+
+
+#: region_over summed over config7's three DV regions at B=16, (min, max)
+#: ms, in the kernel's earlier design (one thread a pixel of a 1-D index)
+#: with its offsets on the device, on an NVIDIA H100 80GB HBM3 at 700.00
+#: W (PERF.md, table rows 4 and 4b): the "was" of phases 7, 10 and 17d.
+REGION_OVER_1D_MS = {'f32': (0.5881, 0.5914), 'bf16': (0.4752, 0.4821)}
+
+
+def _region_over_total(phase, dtype, ms, floor_ms, tag):
+    """Phases 7, 10 and 17d: region_over over config7's three regions
+    beside its byte floor and the earlier design's time."""
+    lo, hi = REGION_OVER_1D_MS[dtype]
+    print('phase %s region_over %s over config7\'s three DV regions, batch '
+          '16: %.4f ms, byte floor %.4f ms, time / floor %.3f (was %.4f-'
+          '%.4f ms, %.2f-%.2f, one thread a pixel) %s'
+          % (phase, dtype, ms, floor_ms, ms / floor_ms, lo, hi,
+             lo / floor_ms, hi / floor_ms, tag), flush=True)
 
 
 def _offset_view(t):
@@ -479,11 +510,12 @@ def _offset_view(t):
 
 def _scalar_forms_vs_plain(rng, on):
     """Phase 3's last part: solid_fold (mid fold and finalize, empty, f32
-    and bf16 base) and region_over_sep (f32, bf16) against their plain
-    versions where the 16-byte instantiation cannot run: a 270x481 and a
-    150x300 frame (rows not a multiple of 8 values; the region overhangs
-    both edges) and a 96x256 frame whose planes start one value into
-    their storage. Returns the largest difference (must be 0)."""
+    and bf16 base), region_over_sep and region_over (f32, bf16) against
+    their plain versions where the 16-byte instantiation cannot run: a
+    270x481 and a 150x300 frame (rows not a multiple of 8 values; the
+    region overhangs both edges) and a 96x256 frame whose planes (and
+    region_over's layer) start one value into their storage. Returns the
+    largest difference (must be 0)."""
     import numpy as np
     import torch
 
@@ -525,6 +557,15 @@ def _scalar_forms_vs_plain(rng, on):
             cuda_ops.region_over_sep(P, A, *args,
                                      *_device_offsets(P.device, dy0, dx0))
             cuda_ops.region_over_sep_plain(P2, A2, *args, dy0, dx0)
+            err = max(err, _max_diff((P, A), (P2, A2)))
+            layer = on(rng.uniform(0.0, 1.0, (3, 4, h, w)).astype(
+                np.float32))[0].to(dtype)
+            if shift:
+                layer = _offset_view(layer)
+            P2, A2 = P.clone(), A.clone()
+            cuda_ops.region_over(P, A, layer,
+                                 *_device_offsets(P.device, dy0, dx0))
+            cuda_ops.region_over_plain(P2, A2, layer, dy0, dx0)
             err = max(err, _max_diff((P, A), (P2, A2)))
     return err
 
@@ -770,7 +811,9 @@ def _mixed_timing(tag, ws, window):
             np.float32)).to(dev) for s in ((B, 3, H, W), (B, 1, H, W),
                                             (B, 4, h, w))]
         P2, A2 = P.clone(), A.clone()
+        before = _instantiation_counts()['region_over']
         cuda_ops.region_over(P, A, layer, oy, ox)
+        inst = _instantiation('region_over', before)
         cuda_ops.region_over_plain(P2, A2, layer, oy, ox)
         err = max(err, float((P - P2).abs().max()),
                   float((A - A2).abs().max()))
@@ -782,10 +825,13 @@ def _mixed_timing(tag, ws, window):
         px = B * min(h, H - dy0) * min(w, W - dx0)
         px_all += px
         nbytes = px * 48
-        print('phase 7 kernel region_over %dx%d @ (%d, %d), batch %d: cuda '
-              '%.4f ms (%.1f GB/s for %.1f MB), plain torch %.4f ms %s'
-              % (h, w, dy0, dx0, B, tk, nbytes / tk / 1e6, nbytes / 1e6, tp,
-                 tag), flush=True)
+        floor = _bound(nbytes, 0)[0]
+        print('phase 7 kernel region_over %dx%d @ (%d, %d), batch %d, %s '
+              'instantiation: cuda %.4f ms (%.1f GB/s for %.1f MB; byte '
+              'floor %.4f ms, time / floor %.3f), plain torch %.4f ms %s'
+              % (h, w, dy0, dx0, B, inst, tk, nbytes / tk / 1e6,
+                 nbytes / 1e6, floor, tk / floor, tp, tag), flush=True)
+    _region_over_total(7, 'f32', ms, _bound(px_all * 48, 0)[0], tag)
     if err != 0.0:
         raise AssertionError('region_over at the path shapes differs from '
                              'plain by %r' % err)
@@ -1325,7 +1371,9 @@ def _bf16_timings(tag, p9, mixed5, window):
             np.float32)).to(dev).to(bf) for s in ((B, 3, H, W), (B, 1, H, W),
                                                   (B, 4, h, w))]
         P2, A2 = P.clone(), A.clone()
+        before = _instantiation_counts()['region_over']
         cuda_ops.region_over(P, A, layer, oy, ox)
+        inst = _instantiation('region_over', before)
         cuda_ops.region_over_plain(P2, A2, layer, oy, ox)
         err = max(err, _max_diff((P, A), (P2, A2)))
         k = lambda: cuda_ops.region_over(P, A, layer, oy, ox)
@@ -1335,10 +1383,13 @@ def _bf16_timings(tag, p9, mixed5, window):
         plain_ms += tp
         px = B * min(h, H - dy0) * min(w, W - dx0)
         px_all += px
-        print('phase 10 kernel region_over bf16 %dx%d @ (%d, %d), batch %d: '
-              'cuda %.4f ms (%.1f GB/s for %.1f MB), plain torch %.4f ms %s'
-              % (h, w, dy0, dx0, B, tk, px * 24 / tk / 1e6, px * 24 / 1e6,
-                 tp, tag), flush=True)
+        floor = _bound(px * 24, 0)[0]
+        print('phase 10 kernel region_over bf16 %dx%d @ (%d, %d), batch %d, '
+              '%s instantiation: cuda %.4f ms (%.1f GB/s for %.1f MB; byte '
+              'floor %.4f ms, time / floor %.3f), plain torch %.4f ms %s'
+              % (h, w, dy0, dx0, B, inst, tk, px * 24 / tk / 1e6,
+                 px * 24 / 1e6, floor, tk / floor, tp, tag), flush=True)
+    _region_over_total(10, 'bf16', ms, _bound(px_all * 24, 0)[0], tag)
     # per pixel: the bf16 layer read (8 B), P and A read and written (16 B)
     out['region_over_bf16'] = (err, ms, plain_ms) + _bound(px_all * 24,
                                                            px_all * OVER_OPS)
@@ -4258,12 +4309,15 @@ def _programs(tag, window, device=None):
                       ox, (color, ry, rx)))
     for (h, w), oy, ox in overs:
         cases.append(('region_over', 16, h, w, oy, ox, None))
+    n_path = len(cases)
+    # region_over over config7's three regions: [ms, byte floor ms]
+    over_total = {'f32': [0.0, 0.0], 'bf16': [0.0, 0.0]}
     # over the bottom edge: the last block row (rows 1024..1087) of a
     # 1080-row frame
     for kind, B in (('region_over_sep', 128), ('region_over', 16)):
         oy, ox = _device_offsets(card, 1024, 1792)
         cases.append((kind, B, 64, 128, oy, ox, None))
-    for kind, B, h, w, oy, ox, factors in cases:
+    for i, (kind, B, h, w, oy, ox, factors) in enumerate(cases):
         dy0, dx0 = int(oy), int(ox)
         for dtype in (torch.float32, torch.bfloat16):
             P, A = [torch.from_numpy(rng.uniform(0, 1, s).astype(
@@ -4279,7 +4333,9 @@ def _programs(tag, window, device=None):
             P2, A2 = P.clone(), A.clone()
             fn = getattr(cuda_ops, kind)
             plain = getattr(cuda_ops, kind + '_plain')
+            before = _instantiation_counts()[kind]
             fn(P, A, *args, oy, ox)
+            inst = _instantiation(kind, before)
             plain(P2, A2, *args, dy0, dx0)
             worst = max(worst, _max_diff((P, A), (P2, A2)))
             tk, tp = paired_ms(lambda: fn(P, A, *args, oy, ox),
@@ -4288,16 +4344,21 @@ def _programs(tag, window, device=None):
             per_px = ((32 if kind == 'region_over_sep' else 48)
                       // (2 if dtype == torch.bfloat16 else 1))
             floor = _bound(px * per_px, 0)[0]
-            rows.append('%s %s %dx%d @ (%d, %d) batch %d: cuda %.4f ms, '
-                        'plain %.4f ms, byte floor %.4f ms (%d B/px), time '
-                        '/ floor %.2f' % (
-                            kind, 'bf16' if dtype == torch.bfloat16
-                            else 'f32', h, w, dy0, dx0, B, tk, tp, floor,
-                            per_px, tk / floor))
+            dname = 'bf16' if dtype == torch.bfloat16 else 'f32'
+            rows.append('%s %s %dx%d @ (%d, %d) batch %d, %s instantiation: '
+                        'cuda %.4f ms, plain %.4f ms, byte floor %.4f ms (%d '
+                        'B/px), time / floor %.2f' % (
+                            kind, dname, h, w, dy0, dx0, B, inst, tk, tp,
+                            floor, per_px, tk / floor))
+            if kind == 'region_over' and i < n_path:
+                over_total[dname][0] += tk
+                over_total[dname][1] += floor
             del P, A, P2, A2
     print('phase 17d region kernels with device offsets (int32 values in '
           'card memory) against their plain versions, max diff %r (must be '
           '0): %s %s' % (worst, '; '.join(rows), tag), flush=True)
+    for dname, (ms, floor_ms) in over_total.items():
+        _region_over_total('17d', dname, ms, floor_ms, tag)
     if worst != 0.0:
         raise AssertionError('a region kernel with device offsets differs '
                              'from plain by %r' % worst)
@@ -4472,11 +4533,11 @@ def main():
                for k in inst0}
     print('phase 3 instantiations: solid_fold (empty, f32 and bf16 base; '
           'mid f32, mid bf16, finalize f16) at 270x481 and through shifted '
-          'planes at 96x256, region_over_sep (f32, bf16) 128x256 @ (64, 128) '
-          'of 150x300 and 64x128 @ (64, 128) of shifted 96x256 planes, B=3, '
-          'max diff %r (must be 0); launches [16-byte, scalar] in the checks '
-          'above and here: %s %s' % (err_scalar, json.dumps(by_inst), tag),
-          flush=True)
+          'planes at 96x256, region_over_sep and region_over (f32, bf16) '
+          '128x256 @ (64, 128) of 150x300 and 64x128 @ (64, 128) of shifted '
+          '96x256 planes (and layer), B=3, max diff %r (must be 0); '
+          'launches [16-byte, scalar] in the checks above and here: %s %s'
+          % (err_scalar, json.dumps(by_inst), tag), flush=True)
     if err_scalar != 0.0:
         raise AssertionError('a scalar instantiation differs from plain by '
                              '%r' % err_scalar)

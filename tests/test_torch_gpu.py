@@ -9,8 +9,9 @@ so it also runs on a machine without JAX:
 
 Tolerances: solid_fold, region_over_sep, region_over and the study
 folds (fold_variant, tile_fold, roofline_fold), in every form (f32 and
-bf16 accumulators) and, for solid_fold and region_over_sep, through both
-the 16-byte and the scalar instantiation, are bit-identical to their
+bf16 accumulators) and, for solid_fold, region_over_sep and region_over,
+through both the 16-byte and the scalar instantiation, are
+bit-identical to their
 plain versions (both round after every operation, in the same order);
 the FMA chain rounds once per step on the card and twice in its plain
 version, so the two are held to study_ops.fma_chain_tol (constants in
@@ -127,24 +128,27 @@ def test_region_over_sep_kernel_matches_plain(cuda, H, W, h, w, dy0, dx0):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('H, W, h, w, dy0, dx0', [
     (1080, 1920, 640, 1024, 448, 896),   # overhangs the bottom
     (1080, 1920, 704, 1152, 64, 512),    # inside
     (540, 960, 384, 640, 192, 384),      # overhangs bottom and right
     (150, 300, 128, 256, 64, 128),       # overhangs both, W % 4 != 0
 ])
-def test_region_over_kernel_matches_plain(cuda, H, W, h, w, dy0, dx0):
+def test_region_over_kernel_matches_plain(cuda, H, W, h, w, dy0, dx0,
+                                          dtype):
     rng = np.random.default_rng(37)
     B = 3
-    P, A, layer = _on(cuda, *[rng.uniform(0, 1, s).astype(np.float32)
-                              for s in ((B, 3, H, W), (B, 1, H, W),
-                                        (B, 4, h, w))])
+    P, A, layer = [t.to(dtype) for t in _on(
+        cuda, *[rng.uniform(0, 1, s).astype(np.float32)
+                for s in ((B, 3, H, W), (B, 1, H, W), (B, 4, h, w))])]
     P2, A2 = P.clone(), A.clone()
-    launches = co.region_over.launches
+    name = 'launches_bf16' if dtype == torch.bfloat16 else 'launches'
+    launches = getattr(co.region_over, name)
     outP, outA = co.region_over(P, A, layer, *_offsets(cuda, dy0, dx0))
     torch.cuda.synchronize()
-    assert outP is P and outA is A
-    assert co.region_over.launches == launches + 1
+    assert outP is P and outA is A and P.dtype == dtype
+    assert getattr(co.region_over, name) == launches + 1
     co.region_over_plain(P2, A2, layer, dy0, dx0)
     assert torch.equal(P, P2) and torch.equal(A, A2)
 
@@ -223,10 +227,11 @@ def test_render_on_card_matches_cpu(cuda):
                                    atol=1e-3)
 
 
-# The 16-byte and the scalar instantiation of solid_fold and
-# region_over_sep, every form, bit-identical to the unchanged plain
-# versions: W % 8 != 0 or a plane that does not start at a multiple of
-# 16 bytes takes the scalar one, everything else the vector one.
+# The 16-byte and the scalar instantiation of solid_fold,
+# region_over_sep and region_over, every form, bit-identical to the
+# unchanged plain versions: W % 8 != 0 or a plane that does not start at
+# a multiple of 16 bytes takes the scalar one, everything else the vector
+# one.
 
 _BF = torch.bfloat16
 FOLD_FORMS = [(base, kw) for base in (None, torch.float32, _BF)
@@ -301,6 +306,44 @@ def test_solid_fold_unaligned_base_takes_the_scalar_form(cuda, base):
     assert _fold_counts() == (before[0], before[1] + 1)
     assert torch.equal(got, co.solid_fold_plain(
         P, A, *layers, H, W, finalize=True, out_dtype=torch.float16))
+
+
+def _region_over_counts():
+    return (co.region_over.launches_vector, co.region_over.launches_scalar)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, _BF])
+@pytest.mark.parametrize('H, W, shifted, vector', [
+    (150, 304, None, True),      # overhangs both edges, W % 8 == 0
+    (150, 300, None, False),     # W % 8 != 0
+    (192, 384, 'layer', False),  # a plane one value into its storage
+    (192, 384, 'P', False),
+    (192, 384, 'A', False),
+])
+def test_region_over_takes_both_instantiations(cuda, dtype, H, W, shifted,
+                                               vector):
+    """A 128x256 region at (64, 128): the 16-byte form where W % 8 == 0
+    and the layer, P and A start at multiples of 16 bytes, else the
+    scalar form; both bit-identical to the plain version."""
+    rng = np.random.default_rng(109 + W)
+    B, h, w = 2, 128, 256
+    t = dict(zip(('P', 'A', 'layer'), [x.to(dtype) for x in _on(
+        cuda, *[rng.uniform(0, 1, s).astype(np.float32)
+                for s in ((B, 3, H, W), (B, 1, H, W), (B, 4, h, w))])]))
+    if shifted:
+        t[shifted] = _offset_view(t[shifted], 1)
+        assert t[shifted].is_contiguous() and t[shifted].data_ptr() % 16
+    P, A, layer = t['P'], t['A'], t['layer']
+    P2, A2 = P.clone(), A.clone()
+    before = _region_over_counts()
+    outP, outA = co.region_over(P, A, layer, *_offsets(cuda, 64, 128))
+    torch.cuda.synchronize()
+    assert outP is P and outA is A
+    assert _region_over_counts() == (before[0] + vector,
+                                     before[1] + (not vector))
+    co.region_over_plain(P2, A2, layer, 64, 128)
+    assert torch.equal(P, P2) and torch.equal(A, A2)
 
 
 @pytest.mark.gpu

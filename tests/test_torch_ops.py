@@ -245,6 +245,25 @@ def test_region_over_matches_jax(case, jax_mode):
     assert not np.array_equal(gotA.numpy()[:, :, ys, xs], A[:, :, ys, xs])
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('case', ['overhang_both', 'inside'])
+def test_region_over_counts_no_launch_on_the_cpu(case, dtype):
+    """region_over on CPU tensors runs its plain version: no counter of
+    either form or either instantiation moves."""
+    H, W, h, w, dy0, dx0 = REGION_OVER_CASES[case]
+    rng = np.random.default_rng(43)
+    P, A, layer = [torch.from_numpy(rng.uniform(0, 1, s).astype(
+        np.float32)).to(dtype) for s in ((1, 3, H, W), (1, 1, H, W),
+                                         (1, 4, h, w))]
+    names = ('launches', 'launches_bf16', 'launches_vector',
+             'launches_scalar')
+    before = [getattr(co.region_over, n) for n in names]
+    want = co.region_over_plain(P.clone(), A.clone(), layer, dy0, dx0)
+    got = co.region_over(P, A, layer, dy0, dx0)
+    assert [getattr(co.region_over, n) for n in names] == before
+    assert got[0] is P and all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 @pytest.mark.parametrize('h, w, dy0, dx0', [
     (60, 128, 0, 0),          # region not whole blocks
     (64, 100, 0, 0),

@@ -17,6 +17,8 @@ the JAX package's, on the CPU.
   test_quality_acc16.py:119-126.
 """
 
+import zlib
+
 import numpy as np
 import pytest
 
@@ -33,6 +35,7 @@ from canvas_tpu_torch import render as port
 from canvas_tpu_torch import timelines
 from canvas_tpu_torch.basetypes import box2i
 from canvas_tpu_torch.ops import cuda_ops as co
+from test_torch_ops import REGION_OVER_CASES
 
 CPU = torch.device('cpu')
 BF16_ULP = 2.0 ** -7
@@ -179,14 +182,31 @@ def test_solid_fold_plain_bf16_matches_pallas(interp, with_base, finalize):
                 np.testing.assert_array_equal(_f32(g), _f32(w))
 
 
-@pytest.mark.parametrize('kind', ['region_over', 'region_over_sep'])
-def test_region_plain_bf16_matches_pallas(interp, kind):
-    """Region (128, 256) at (64, 128) of a 192x384 frame: dtype kept,
-    pixels outside the region untouched, the plain form equal to the
-    fallback and within one bf16 ulp of the interpreted kernel."""
+# (kind, seed, (H, W, h, w, dy0, dx0)): a (128, 256) region at (64, 128)
+# of a 192x384 frame for each region kernel, and region_over at every
+# shape of test_torch_ops.REGION_OVER_CASES (overhanging the bottom, the
+# right and both edges, where the card's scalar instantiation runs for
+# W % 8 != 0, and the mixed timeline's three DV regions at 1080p), each
+# seeded from its own name so that a case added there reseeds no other.
+REGION_BF16_CASES = {
+    'region_over': ('region_over', 37, (192, 384, 128, 256, 64, 128)),
+    'region_over_sep': ('region_over_sep', 37,
+                        (192, 384, 128, 256, 64, 128)),
+}
+REGION_BF16_CASES.update({'region_over-' + k: ('region_over',
+                                               zlib.crc32(k.encode()), v)
+                          for k, v in REGION_OVER_CASES.items()})
+
+
+@pytest.mark.parametrize('case', sorted(REGION_BF16_CASES))
+def test_region_plain_bf16_matches_pallas(interp, case):
+    """A bf16 region over bf16 accumulators: dtype kept, pixels outside
+    the region untouched, the plain form equal to the fallback and
+    within one bf16 ulp of the interpreted kernel."""
     on, off = interp
-    rng = np.random.default_rng(37)
-    B, H, W, h, w = 2, 192, 384, 128, 256
+    kind, seed, (H, W, h, w, dy0, dx0) = REGION_BF16_CASES[case]
+    rng = np.random.default_rng(seed)
+    B = 2
     P, tP = _bf16_pair(rng, (B, 3, H, W))
     A, tA = _bf16_pair(rng, (B, 1, H, W))
     if kind == 'region_over':
@@ -198,15 +218,18 @@ def test_region_plain_bf16_matches_pallas(interp, kind):
         args = tuple(jnp.asarray(a) for a in f32)
         targs = tuple(torch.from_numpy(a) for a in f32)
     gotP, gotA = getattr(co, kind + '_plain')(tP.clone(), tA.clone(),
-                                              *targs, 64, 128)
+                                              *targs, dy0, dx0)
     assert gotP.dtype == gotA.dtype == torch.bfloat16
-    np.testing.assert_array_equal(_f32(gotP[:, :, :64]), _f32(tP[:, :, :64]))
-    np.testing.assert_array_equal(_f32(gotA[:, :, :, :128]),
-                                  _f32(tA[:, :, :, :128]))
+    outside = np.ones((H, W), bool)
+    outside[dy0:dy0 + h, dx0:dx0 + w] = False
+    np.testing.assert_array_equal(_f32(gotP)[:, :, outside],
+                                  _f32(tP)[:, :, outside])
+    np.testing.assert_array_equal(_f32(gotA)[:, :, outside],
+                                  _f32(tA)[:, :, outside])
     for interpreted in (False, True):
         (on if interpreted else off)()
         wantP, wantA = getattr(po, kind)(jnp, jax, P, A, *args,
-                                         jnp.int32(64), jnp.int32(128))
+                                         jnp.int32(dy0), jnp.int32(dx0))
         for g, wnt in ((gotP, wantP), (gotA, wantA)):
             if interpreted:
                 np.testing.assert_allclose(_f32(g), _f32(wnt), rtol=0,
