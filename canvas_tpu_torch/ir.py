@@ -69,6 +69,7 @@ _BATCH_AXIS = {'solid_stack': 1}
 # produce has an entry.
 _FRAME_PARAMS = {
     'solid': frozenset(('color', 'box')),
+    'stage': frozenset(('data',)),
     'stage_rows': frozenset(('rows',)),
     'solid_stack': frozenset(('color', 'box', 'gain', 'offset')),
     'empty': frozenset(),
@@ -87,6 +88,8 @@ _FRAME_PARAMS = {
     'place': frozenset(),
     'transfer': frozenset(),
     'matrix': frozenset(),
+    'u8_linearize': frozenset(('data',)),
+    'dv_recon': frozenset(('y', 'cb', 'cr')),
     'dv_recon_rows': frozenset(('rows',)),
     'planar_recon_rows': frozenset(('rows',)),
     'field_interleave': frozenset(('start_y', 'end_y', 'x0', 'x1')),

@@ -726,10 +726,12 @@ _PROGRAMS_KEPT = 32
 #: ``explain`` reports as "program CAPTURED" (render.py:1330-1336).
 _compiled_families = {}
 
-#: Program calls, captures, replays, captures replayed at least once
-#: and evictions since import (``program_stats``).
+#: Program calls, captures, replays, captures replayed at least once,
+#: evictions and orphans (captures by a program that had left the cache
+#: meanwhile, which no later call can replay) since import
+#: (``program_stats``).
 _program_totals = {'calls': 0, 'captures': 0, 'replays': 0,
-                   'replayed_captures': 0, 'evictions': 0}
+                   'replayed_captures': 0, 'evictions': 0, 'orphans': 0}
 
 #: The side stream of each card that programs are captured on (a
 #: capture needs a stream of its own), and the lock one capture at a
@@ -802,6 +804,12 @@ class _Program:
       the launches it recorded at capture (``cuda_ops.recording``).
     - **Streams and threads.** One call at a time (a lock); a call on
       another stream than the last waits for the last one first.
+    - **Eviction.** An evicted program keeps nothing and never runs
+      again: a caller that still holds it (``iter_batches`` takes a
+      segment's program once for all its batches) reaches the cache's
+      entry of its key through ``_program`` at every later call, made
+      anew where there is none. So every capture lives in the cache,
+      where the memory guard, ``explain`` and the counts see it.
 
     On the CPU there is no graph: the same binding, guard, body and
     finish run eagerly at every call, the second one counting as the
@@ -833,6 +841,11 @@ class _Program:
         #: capture: the batch's estimate with the new pool, and the bytes
         #: of the programs live then
         self.guard_bytes = 0
+        #: set when the program leaves the cache; its holders' calls go
+        #: through ``_program`` from then on
+        self.evicted = False
+        #: whether ``_compiled_families`` counts this program
+        self._in_family = False
         self._reset()
 
     def _reset(self):
@@ -874,30 +887,38 @@ class _Program:
 
     def __call__(self, plist):
         """Run the program on *plist* (host params as planned, or a
-        ``_DeviceParams``) and return what its finish writes."""
+        ``_DeviceParams``) and return what its finish writes. An evicted
+        program runs the cache's entry of its key instead."""
         with self._lock:
-            if self.device.type == 'cuda':
-                cur = torch.cuda.current_stream(self.device)
-                if self._stream is not None and self._stream != cur:
-                    cur.wait_stream(self._stream)
-                self._stream = cur
-            self._bind(plist)
-            replayed = self.captured
-            first_replay = replayed and not self.replays
-            if replayed:
-                outs, finish = self._replay()
-                out = finish(outs)
-                self.replays += 1
-            elif self.calls:
-                out = self._capture()
-            else:
-                # the first call: the body eagerly on the static inputs,
-                # its launches real
-                outs, finish = self._body(self.params)
-                out = finish(outs)
-            self.calls += 1
-            if self.out_shape is None:
-                self.out_shape = tuple(out.shape)
+            if not self.evicted:
+                return self._run(plist)
+        return _program(self.key, lambda: self._body, self.reserve,
+                        self.family)(plist)
+
+    def _run(self, plist):
+        """A call, under the program's lock."""
+        if self.device.type == 'cuda':
+            cur = torch.cuda.current_stream(self.device)
+            if self._stream is not None and self._stream != cur:
+                cur.wait_stream(self._stream)
+            self._stream = cur
+        self._bind(plist)
+        replayed = self.captured
+        first_replay = replayed and not self.replays
+        if replayed:
+            outs, finish = self._replay()
+            out = finish(outs)
+            self.replays += 1
+        elif self.calls:
+            out = self._capture()
+        else:
+            # the first call: the body eagerly on the static inputs, its
+            # launches real
+            outs, finish = self._body(self.params)
+            out = finish(outs)
+        self.calls += 1
+        if self.out_shape is None:
+            self.out_shape = tuple(out.shape)
         with _program_lock:
             _program_totals['calls'] += 1
             _program_totals['replays'] += replayed
@@ -1014,9 +1035,14 @@ class _Program:
         with _program_lock:
             _program_totals['captures'] += 1
             self.capture_index = _program_totals['captures']
-            if self.family is not None:
+            if self.evicted or _program_cache.get(self.key) is not self:
+                # evicted during this call (its release waits for it), or
+                # never in the cache
+                _program_totals['orphans'] += 1
+            elif self.family is not None:
                 fk = (self.family, self.device)
                 _compiled_families[fk] = _compiled_families.get(fk, 0) + 1
+                self._in_family = True
         return out
 
     def _capture_on_side_stream(self):
@@ -1103,15 +1129,16 @@ class _Program:
 
     def _release(self, blocking=True):
         """Drop the graph, its pool and the static inputs (an eviction),
-        once the card is done with them; a later call captures anew.
-        Without *blocking*, a program in use on another thread is left
-        as it is: returns whether it was released."""
+        once the card is done with them; later calls go to the cache's
+        entry of the key. Without *blocking*, a program in use on another
+        thread is left as it is: returns whether it was released."""
         if not self._lock.acquire(blocking):
             return False
         try:
             if self._stream is not None:
                 self._stream.synchronize()
-            if self.captured and self.family is not None:
+            self.evicted = True
+            if self._in_family:
                 fk = (self.family, self.device)
                 with _program_lock:
                     left = _compiled_families.get(fk, 0) - 1
@@ -1119,6 +1146,7 @@ class _Program:
                         _compiled_families[fk] = left
                     else:
                         _compiled_families.pop(fk, None)
+                self._in_family = False
             self.pool_bytes = 0
             self._reset()
         finally:
@@ -1236,22 +1264,24 @@ def _program(key, make_body, reserve=0, family=None):
     eagerly, its second captures). *reserve* is the batch's memory
     estimate with a new pool (``_check_hbm_footprint``), which the
     capture must find room for beside the programs live then. The least
-    recently used programs past ``_PROGRAMS_KEPT`` are evicted."""
-    with _program_lock:
-        prog = _program_cache.get(key)
-        if prog is not None:
-            _program_cache.move_to_end(key)
-    if prog is None:
-        made = _Program(key, key[1], make_body(), family)
-        with _program_lock:
-            prog = _program_cache.setdefault(key, made)
-            _program_cache.move_to_end(key)
-    if reserve:
-        prog.reserve = reserve
+    recently used programs past ``_PROGRAMS_KEPT`` are evicted; an entry
+    the memory guard released (``_make_room``, before it drops the
+    entry) counts as none."""
     victims = []
     with _program_lock:
+        prog = _program_cache.get(key)
+        if prog is None or prog.evicted:
+            prog = _program_cache[key] = _Program(key, key[1], make_body(),
+                                                  family)
+        _program_cache.move_to_end(key)
+        if reserve:
+            prog.reserve = reserve
         while len(_program_cache) > _PROGRAMS_KEPT:
-            victims.append(_program_cache.popitem(last=False)[1])
+            victim = _program_cache.popitem(last=False)[1]
+            # out of the cache from here on: its holders' next calls come
+            # back here, and a capture it makes meanwhile is an orphan
+            victim.evicted = True
+            victims.append(victim)
     _evict(victims)
     return prog
 
@@ -1313,12 +1343,12 @@ def _get_display_program(sig1, device, order, intent, display_size,
 def program_stats():
     """The render programs: totals since import (``calls``, ``captures``,
     ``replays``, ``replayed_captures``: the captures a later call replayed
-    at least once, ``evictions``), the ``live`` count, and per live program
-    (least recently used first) its key, device, output shape, calls,
-    replays, capture ms and its split (``capture_split``), pool bytes,
-    bytes held (pool, param buffer and slots), param buffer bytes, the
-    slot copies made with their bytes,
-    ``capture_index`` (the captures total right after its capture) and
+    at least once, ``evictions``, ``orphans``: captures by a program out
+    of the cache, which no later call replays), the ``live`` count, and
+    per live program (least recently used first) its key, device, output
+    shape, calls, replays, capture ms and its split (``capture_split``),
+    pool bytes, bytes held (pool, param buffer and slots), param buffer
+    bytes, the slot copies made with their bytes, ``capture_index`` (the captures total right after its capture) and
     ``guard_bytes`` (what the memory guard counted at its capture)."""
     with _program_lock:
         progs = list(_program_cache.values())

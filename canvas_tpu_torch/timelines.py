@@ -7,6 +7,10 @@
   ``benchmarks.py`` config7 (``benchmarks.py:605-639``): the headline
   with layers 2, 4 and 6 replaced by 720x480 4:1:1 DV clips, decoded on
   the host, through animated 1.25x scalers;
+- ``crossfade_timeline(length)``: the two-clip crossfade of
+  ``benchmarks.py`` config2 (``benchmarks.py:240-252``, rendered there
+  at 1920x1080): two lerped solids through ``VideoMixFilter`` under a
+  mix lerped from 0 to 1;
 - ``transfer_timeline(length)``: the single clip of ``benchmarks.py``
   config1 (``benchmarks.py:225-237``, rendered there at 1280x720): a
   solid whose color ramps from black to white, through the rec709 ->
@@ -53,8 +57,9 @@ from canvas_tpu_torch.sources import (SolidColorVideoSource,
                                       VideoScaler, VideoWorkspace)
 
 __all__ = ['CONFIG6_WINDOW', 'CUT_CLIP', 'CUT_TRANSITION', 'EDITOR_LAYERS',
-           'PULLDOWN_WINDOW', 'build_timeline', 'decoded_planar_clip',
-           'editor_cut', 'editor_headline', 'editor_video',
+           'PULLDOWN_WINDOW', 'build_timeline', 'crossfade_timeline',
+           'decoded_planar_clip', 'editor_cut', 'editor_headline',
+           'editor_video',
            'mixed_timeline', 'planar_clip', 'pulldown_clip',
            'transfer_timeline']
 
@@ -139,6 +144,15 @@ def mixed_timeline(length=256):
             ws.remove(item)
         ws.add(source=clip, x=0, length=length, z=z)
     return ws
+
+
+def crossfade_timeline(length=1024):
+    """A red-to-green solid crossfading into a blue-to-yellow one over
+    *length* frames, the mix lerped from 0 to 1."""
+    return VideoMixFilter(
+        SolidColorVideoSource(LerpFunc((1, 0, 0, 1), (0, 1, 0, 1), length)),
+        SolidColorVideoSource(LerpFunc((0, 0, 1, 1), (1, 1, 0, 1), length)),
+        LerpFunc((0.0,), (1.0,), length))
 
 
 def transfer_timeline(length=1024):

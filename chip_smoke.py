@@ -14,7 +14,9 @@ the export path at 4K, then the editor's projects through its graph
 managers, then an editor session through its UI layer, then the eager
 pull in the default backend mode, then multi-device rendering over
 logical shards, then the render programs (one CUDA graph per signature,
-which every path above runs through). Each phase
+which every path above runs through), then the eviction of programs a
+caller holds and the user entry points (``canvas_tpu_torch.tools``).
+Each phase
 prints one line or more; any failure raises
 (traceback, nonzero exit, no result line):
 
@@ -244,6 +246,27 @@ prints one line or more; any failure raises
    128, config7's three DV regions at batch 16) and over the bottom
    edge, each beside its byte floor. Rehearse (a) and (b) on the CPU with
    ``_programs(tag, box2i(0, 0, 319, 179), device='cpu')``.
+18. held programs and tools: (a) planner A streams frames 1..64 (one
+   segment) with the plan cache off, holding the segment's program across
+   its batches, on the headline at batch 8 and config7 at batch 16;
+   paused mid-segment, planner B renders frames 200..201 twice and
+   evicts A's program, by count (``render._PROGRAMS_KEPT`` 1 inside the
+   phase) and by memory (``CANVAS_HBM_MB`` at 1.25x B's batch with its
+   pool while B renders); A resumes. Per scenario: captures, replays,
+   orphans (must be 0) and evictions; ``_held_bytes`` beside what every
+   program made holds (must be equal); the families left once the
+   programs are cleared (must be 0); ``explain``'s status (must read
+   "not captured" then); A's frames against an uninterrupted pass (max
+   diff 0). (b) ``tools.explain --demo`` over frames 128..191 in this
+   process before and after two renders of that segment (its status
+   lines, "CAPTURED" after, and its wall ms); (c)
+   ``tools.decode_raw_image`` in the default mode (the torch arms on the
+   card) to a temporary PPM, its ms and its pixels against the same pull
+   on the host (at most 1 u8 step); (d) config2
+   (``timelines.crossfade_timeline(1024)``, one lerped ``solid`` after
+   the mix peephole) frames 0, 1, 500 and 1023 at 1080p against the
+   NumPy pull path (atol 2e-3). Rehearse it on the CPU with
+   ``_held_programs(tag, box2i(0, 0, 159, 89), device='cpu')`` (~40 s).
 
 A render program's first two calls run its body eagerly (the second
 then captures it), and every later call replays it, so every call
@@ -254,7 +277,8 @@ Each path (the headline, the mixed timeline, the studies' timing runs,
 the export posts, the display path, the coded composite, the replays,
 each post's checked pass of the 4K export, the editor's passes, the
 editor session's and phase 15's ``time_get_frame`` planner branches,
-phase 16's sharded renders, phase 17's checked paths; a program's
+phase 16's sharded renders, phase 17's checked paths, phase 18's
+held-program passes and its renders before ``explain``; a program's
 replay adds the launches its capture recorded)
 runs
 with every launch counter set to 0 just before it and read just after;
@@ -480,22 +504,12 @@ def _instantiation(name, before):
     return '16-byte' if moved == (1, 0) else 'scalar'
 
 
-#: region_over summed over config7's three DV regions at B=16, (min, max)
-#: ms, in the kernel's earlier design (one thread a pixel of a 1-D index)
-#: with its offsets on the device, on an NVIDIA H100 80GB HBM3 at 700.00
-#: W (PERF.md, table rows 4 and 4b): the "was" of phases 7, 10 and 17d.
-REGION_OVER_1D_MS = {'f32': (0.5881, 0.5914), 'bf16': (0.4752, 0.4821)}
-
-
 def _region_over_total(phase, dtype, ms, floor_ms, tag):
     """Phases 7, 10 and 17d: region_over over config7's three regions
-    beside its byte floor and the earlier design's time."""
-    lo, hi = REGION_OVER_1D_MS[dtype]
+    beside its byte floor."""
     print('phase %s region_over %s over config7\'s three DV regions, batch '
-          '16: %.4f ms, byte floor %.4f ms, time / floor %.3f (was %.4f-'
-          '%.4f ms, %.2f-%.2f, one thread a pixel) %s'
-          % (phase, dtype, ms, floor_ms, ms / floor_ms, lo, hi,
-             lo / floor_ms, hi / floor_ms, tag), flush=True)
+          '16: %.4f ms, byte floor %.4f ms, time / floor %.3f %s'
+          % (phase, dtype, ms, floor_ms, ms / floor_ms, tag), flush=True)
 
 
 def _offset_view(t):
@@ -4370,6 +4384,267 @@ def _programs(tag, window, device=None):
     return launches
 
 
+def _segment_status(text):
+    """The ``segment ...`` lines of an ``explain`` report."""
+    return [line for line in text.splitlines() if line.startswith('segment')]
+
+
+def _held_program_case(tag, name, src, window, batch, pause, route, want,
+                       card):
+    """One scenario of phase 18 (a): planner A streams frames 1..64 of
+    *src* (one segment) at *batch* with the plan cache off and holds the
+    segment's program across the batches; after *pause* batches planner
+    B renders frames 200..201 twice, which evicts A's program by count
+    (``_PROGRAMS_KEPT`` 1) or by memory (``CANVAS_HBM_MB`` at 1.25x B's
+    batch with its pool, so the guard must drop A's program to fit it);
+    then A resumes. *want* is an uninterrupted pass's [(start, n, out)].
+    Returns the launches counted."""
+    import torch
+
+    from canvas_tpu_torch import render
+    from canvas_tpu_torch.render import RenderPlanner
+
+    made = []
+    init = render._Program.__init__
+
+    def recording(self, *args, **kw):
+        init(self, *args, **kw)
+        made.append(self)
+
+    _drop_programs()
+    _empty_cache()
+    a = RenderPlanner(src, window, device=card)
+    a.plan_cache_segments = 0
+    b = RenderPlanner(src, window, device=card)
+    kept, hbm = render._PROGRAMS_KEPT, os.environ.get('CANVAS_HBM_MB')
+    before = render.program_stats()
+    render._Program.__init__ = recording
+    _zero_launch_counts()
+    try:
+        batches = a.iter_batches(1, 65, batch=batch)
+        got = [next(batches) for _k in range(pause)]
+        held = [p for p in made if p.captured]
+        if len(held) != 1:
+            raise AssertionError('%s: %d captured programs before the pause'
+                                 % (name, len(held)))
+        held_a = held[0].held_bytes
+        try:
+            if route == 'count':
+                render._PROGRAMS_KEPT = 1
+            else:
+                need = render._check_hbm_footprint(2, window, None, 1,
+                                                   card)[card]
+                os.environ['CANVAS_HBM_MB'] = repr(1.25 * need / (1 << 20))
+            for _rep in range(2):
+                b.render(200, 202, device_out=True)
+        finally:
+            render._PROGRAMS_KEPT = kept
+            if hbm is None:
+                os.environ.pop('CANVAS_HBM_MB', None)
+            else:
+                os.environ['CANVAS_HBM_MB'] = hbm
+        if not held[0].evicted:
+            raise AssertionError('%s: B did not evict A\'s program by %s'
+                                 % (name, route))
+        got += list(batches)
+        _sync(card)
+    finally:
+        render._Program.__init__ = init
+    launches = _launch_counts()
+    after = render.program_stats()
+    moved = {k: after[k] - before[k] for k in (
+        'captures', 'replays', 'orphans', 'evictions')}
+    guard = render._held_bytes(card)
+    every = sum(p.held_bytes for p in made)
+    cached = sum(p.held_bytes for p in made
+                 if render._program_cache.get(p.key) is p)
+    outside = [p for p in made if p.captured
+               and render._program_cache.get(p.key) is not p]
+    err = max(float((g.float() - w.float()).abs().max())
+              for (_s, _n, g), (_s2, _n2, w) in zip(got, want))
+    if [(s, n) for s, n, _o in got] != [(s, n) for s, n, _o in want]:
+        raise AssertionError('%s: batches %r' % (name, [(s, n) for s, n, _o
+                                                        in got]))
+    live = _segment_status(a.explain(1, 65))
+    family = (render.signature(a._plan((1, 65))), card)
+    live_family = family in render._compiled_families
+    _drop_programs()
+    left = sum(1 for p in made
+               if (p.family, p.device) in render._compiled_families)
+    status = _segment_status(a.explain(1, 65))
+    a.close()
+    b.close()
+    print('phase 18 held program, %s by %s: A paused after %d of %d batches '
+          'of %d, its program holding %d bytes; captures %d, replays %d, '
+          'orphans %d, evictions %d; _held_bytes %d beside %d held by every '
+          'program made (%d in the cache, %d captured outside it); '
+          'families left after the '
+          'programs are cleared %d (segment family live before: %s); '
+          'explain %r while live, %r after; A\'s resumed frames vs an '
+          'uninterrupted pass max diff %r %s'
+          % (name, route, pause, len(got), batch, held_a, moved['captures'],
+             moved['replays'], moved['orphans'], moved['evictions'], guard,
+             every, cached, len(outside), left, live_family, live, status,
+             err, tag), flush=True)
+    if (moved['orphans'] or outside or guard != every or left or err != 0.0
+            or moved['evictions'] <= 0
+            or not all(line.endswith('program not captured')
+                       for line in status)):
+        raise AssertionError('%s by %s: a held program outlived its eviction'
+                             % (name, route))
+    return launches
+
+
+def _held_programs(tag, window, device=None):
+    """Phase 18: held programs and the tools.
+    (a) the eviction of a program a caller holds (``_held_program_case``)
+    on the headline at batch 8 and on config7 at batch 16, by count and
+    by memory: no capture outside the cache (no orphan), the guard's
+    ``_held_bytes`` equal to what every program made holds, no family
+    left once the programs are cleared, ``explain`` then "not captured",
+    A's resumed frames bit-equal to an uninterrupted pass; (b)
+    ``tools.explain --demo`` over frames 128..191 before and after a
+    render of that segment captures its program, with its status lines and
+    wall ms; (c) ``tools.decode_raw_image`` to a temporary PPM in the
+    default mode (the torch arms on the card), its ms, and its pixels
+    against the same pull on the host (``force_backend('numpy')``),
+    which may differ by 1 u8 step; (d) frames 0, 1, 500 and 1023 of
+    ``timelines.crossfade_timeline(1024)`` (config2) through
+    ``iter_batches`` against the NumPy pull path at the headline's 2e-3.
+    Returns the launches of (a) and (b).
+
+    ``device='cpu'`` rehearses it on the CPU at a small window:
+    ``_held_programs(tag, box2i(0, 0, 159, 89), device='cpu')``."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from canvas_tpu_torch import backend, timelines
+    from canvas_tpu_torch.render import RenderPlanner, box2i
+    from canvas_tpu_torch.tools import decode_raw_image, explain, on_device
+
+    t_phase = time.perf_counter()
+    card = (torch.device(device) if device is not None
+            else torch.device('cuda', torch.cuda.current_device()))
+    launches = dict.fromkeys(_launch_counts(), 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    # (a) the eviction of held programs
+    for name, src, batch, pause in (
+            ('headline', timelines.build_timeline(1024), 8, 3),
+            ('config7', timelines.mixed_timeline(256), 16, 2)):
+        ref = RenderPlanner(src, window, device=card)
+        ref.plan_cache_segments = 0
+        _zero_launch_counts()
+        want = list(ref.iter_batches(1, 65, batch=batch))
+        add(_launch_counts())
+        ref.close()
+        for route in ('count', 'memory'):
+            add(_held_program_case(tag, name, src, window, batch, pause,
+                                   route, want, card))
+        del want
+    _drop_programs()
+    _empty_cache()
+
+    # (b) tools.explain --demo before and after a render of 128..191
+    argv = ['--demo', '--start', '128', '--stop', '192']
+    if card.type != 'cuda':
+        argv += ['--device', 'cpu']
+    lines = {}
+    for when in ('before', 'after'):
+        if when == 'after':
+            # the demo's timeline at the demo's window: the same family
+            planner = RenderPlanner(timelines.build_timeline(1024),
+                                    box2i(0, 0, 1919, 1079), device=card)
+            _zero_launch_counts()
+            for _rep in range(2):        # eagerly, then captured
+                planner.render(128, 192, device_out=True)
+            _sync(card)
+            add(_launch_counts())
+            planner.close()
+        said = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(said):
+            if explain.main(argv) != 0:
+                raise AssertionError('explain --demo failed')
+        ms = (time.perf_counter() - t0) * 1e3
+        lines[when] = _segment_status(said.getvalue())
+        print('phase 18 tools.explain --demo frames 128..191 %s a render: '
+              '%s, %.1f ms wall %s' % (when, lines[when], ms, tag),
+              flush=True)
+    if (not lines['before'] or lines['before'][-1].endswith('CAPTURED')
+            or not lines['after'][-1].endswith('program CAPTURED')):
+        raise AssertionError('explain --demo: %r' % lines)
+    _drop_programs()
+
+    # (c) tools.decode_raw_image in the default mode
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'raw_image.ppm')
+        argv = [path] + (['--device', 'cpu'] if card.type != 'cuda' else [])
+        with on_device(device):
+            on_torch = (backend.use_torch_for((4, 480, 720)),
+                        backend.eager_device().type)
+        with contextlib.redirect_stdout(io.StringIO()):
+            decode_raw_image.main(argv)          # warm
+            t0 = time.perf_counter()
+            decode_raw_image.main(argv)
+            ms = (time.perf_counter() - t0) * 1e3
+        with open(path, 'rb') as f:
+            ppm = f.read()
+    header = b'P6\n720 480\n255\n'
+    with backend.force_backend('numpy'):
+        host = decode_raw_image.render_rgb()
+    got = np.frombuffer(ppm[len(header):], np.uint8).reshape(host.shape)
+    du8 = np.abs(got.astype(np.int16) - host.astype(np.int16))
+    print('phase 18 tools.decode_raw_image: %.1f ms a run (the pull takes '
+          'the torch arms: %s, on %s), PPM header %r, max u8 diff against '
+          'the host pull %d on %d of %d values %s'
+          % (ms, on_torch[0], on_torch[1], ppm[:len(header)],
+             int(du8.max()), int(np.count_nonzero(du8)), du8.size, tag),
+          flush=True)
+    if (ppm[:len(header)] != header or int(du8.max()) > 1
+            or not on_torch[0] or on_torch[1] != card.type):
+        raise AssertionError('decode_raw_image: header %r, max u8 diff %d, '
+                             'arm %r' % (ppm[:len(header)], int(du8.max()),
+                                         on_torch))
+
+    # (d) config2's crossfade against the NumPy pull path
+    fade = timelines.crossfade_timeline(1024)
+    planner = RenderPlanner(fade, window, device=card)
+    picked = {}
+    for start in (0, 500, 1020):
+        for s, n, out in planner.iter_batches(start, start + 4, batch=4):
+            for i in range(s, s + n):
+                if i in (0, 1, 500, 1023):
+                    picked[i] = out[i - s].cpu().numpy()
+    planner.close()
+    errs = {}
+    for i in sorted(picked):
+        want = _numpy_pull(fade, i, window)
+        errs[i] = (float(np.abs(picked[i].astype(np.float32)
+                                - want.astype(np.float32)).max()),
+                   _bit_share(picked[i], want))
+    print('phase 18 config2 crossfade at %dx%d: frames %s vs the NumPy pull '
+          'path [max diff, bit-equal share] %s (atol 2e-3) %s'
+          % (window.width, window.height, sorted(picked), json.dumps(errs),
+             tag), flush=True)
+    if sorted(picked) != [0, 1, 500, 1023] or any(
+            not np.isfinite(picked[i]).all() or e > 2e-3
+            for i, (e, _s) in errs.items()):
+        raise AssertionError('config2 frames differ from the pull path: %r'
+                             % errs)
+    print('phase 18 held programs and tools: %.1f s, launches %s %s'
+          % (time.perf_counter() - t_phase, json.dumps(launches), tag),
+          flush=True)
+    return launches
+
+
 class _Null:
     def __enter__(self):
         return self
@@ -4394,7 +4669,8 @@ def _note_programs(phases):
             for k, v in prog['capture_split'].items():
                 split.setdefault(k, []).append(v)
     _program_notes.append((phases, {k: stats[k] for k in (
-        'calls', 'captures', 'replays', 'replayed_captures', 'evictions')},
+        'calls', 'captures', 'replays', 'replayed_captures', 'evictions',
+        'orphans')},
         {k: [round(min(v), 3), round(_median(v), 3), round(max(v), 3)]
          for k, v in split.items()}))
 
@@ -4701,13 +4977,18 @@ def main():
     torch.cuda.empty_cache()
     program_launches = _programs(tag, window)
     _note_programs('17')
+    # 18. held programs under eviction, and the tools
+    torch.cuda.empty_cache()
+    held_launches = _held_programs(tag, window)
+    _note_programs('18')
     _print_programs(tag)
 
     total = {k: (launches[k] + mixed_launches[k] + post_launches[k]
                  + display_launches[k] + replay_launches[k]
                  + export_launches[k] + editor_launches[k]
                  + session_launches[k] + eager_launches[k]
-                 + sharded_launches[k] + program_launches[k])
+                 + sharded_launches[k] + program_launches[k]
+                 + held_launches[k])
              for k in mixed_launches}
     fold_bound, fold_by = _bound(fold_bytes, fold_ops)
     reg_bound, reg_by = _bound(reg_bytes, reg_ops)

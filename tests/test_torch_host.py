@@ -2,10 +2,12 @@
 frames, sources, coded, ir, plan and timelines) against the JAX
 package's, on the CPU.
 
-- Plan parity: the headline and the mixed-content timeline, built by
-  each package from its own classes (bench.build_timeline against
-  timelines.build_timeline, benchmarks._mixed_timeline against
-  timelines.mixed_timeline), planned by each package at 320x180 and
+- Plan parity: the headline, the mixed-content timeline and config2's
+  crossfade, built by each package from its own classes
+  (bench.build_timeline against timelines.build_timeline,
+  benchmarks._mixed_timeline against timelines.mixed_timeline,
+  benchmarks.config2's source, rebuilt here, against
+  timelines.crossfade_timeline), planned by each package at 320x180 and
   1920x1080 over the segments of frames 0..16 and of a range across a
   segment cut: the same segments, the port's sliced signature equal to
   canvas_tpu.render._sliced_signature, every flat param
@@ -57,13 +59,27 @@ PORT = dict(basetypes=port_basetypes, coded=port_coded,
 
 # --- plan parity --------------------------------------------------------
 
+def _ref_crossfade(length):
+    """The source ``benchmarks.config2`` renders (benchmarks.py:
+    240-252), built from the JAX package's classes."""
+    lerp = ref_framefuncs.LerpFunc
+    return ref_sources.VideoMixFilter(
+        ref_sources.SolidColorVideoSource(lerp((1, 0, 0, 1), (0, 1, 0, 1),
+                                               length)),
+        ref_sources.SolidColorVideoSource(lerp((0, 0, 1, 1), (1, 1, 0, 1),
+                                               length)),
+        lerp((0.0,), (1.0,), length))
+
+
 # (JAX builder, port builder, length, a range across a structure cut, the
 # cut): the headline's scalers leave identity after frame 0, the mixed
-# timeline ends at frame 16.
+# timeline ends at frame 16, the crossfade's mix leaves 0 after frame 0.
 TIMELINES = {'headline': (bench.build_timeline, timelines.build_timeline, 64,
                           (0, 6), 1),
              'mixed': (benchmarks._mixed_timeline, timelines.mixed_timeline,
-                       16, (12, 20), 16)}
+                       16, (12, 20), 16),
+             'crossfade': (_ref_crossfade, timelines.crossfade_timeline, 64,
+                           (0, 6), 1)}
 WINDOWS = {'320x180': (0, 0, 319, 179), '1920x1080': (0, 0, 1919, 1079)}
 
 
@@ -115,6 +131,18 @@ def test_plan_matches_jax(built, name, window):
             np.testing.assert_array_equal(
                 ir.windows_to_array(a.windows),
                 ref_render.windows_to_array(b.windows))
+
+
+def test_frame_params_match_jax():
+    """Every op the JAX package declares its frame params for, the port
+    declares the same (slicing a batch consults this table), apart from
+    ``solid_cells``: a TPU A/B gate the port does not have. An op missing
+    here fails ``iter_batches``, as ``u8_linearize`` (a decoder's RGBA,
+    the libav plugin's non-DV video) did."""
+    want = dict(ref_render._FRAME_PARAMS)
+    del want['solid_cells']
+    assert ir._FRAME_PARAMS == want
+    assert ir._BATCH_AXIS == ref_render._BATCH_AXIS
 
 
 def test_explain_marks_staged_stacks(built):

@@ -28,7 +28,9 @@ editor's UI layer (``canvas_tpu_torch.editor.ui``, its entry point
 through an ``audioout.AudioPlayer``, and opens the headline project in
 an ``EditorApp`` whose thumbnails and painted timeline it takes, all
 through the render programs (``render.program_stats``, ``explain``'s
-program line); pulls
+program line); imports every user entry point
+(``canvas_tpu_torch.tools``) and runs ``explain --demo`` and
+``decode_raw_image`` with ``--device cpu``; pulls
 through the torch arms on the CPU and times both branches of
 ``process.time_get_frame`` there, and reaches the rest of ``process``'s
 names (the pull queue, ``NS_PER_SEC``, the shims); and nothing it runs
@@ -321,6 +323,28 @@ SCRIPT = BLOCKER + textwrap.dedent('''
     for _rep in range(2):           # eagerly, then captured
         planner.render(2, 4)
     assert 'program CAPTURED' in planner.explain(2, 4)
+
+    # every user entry point imports, and two of them run on the CPU
+    import contextlib
+    import io
+    import pkgutil
+    import canvas_tpu_torch.tools as tools
+    names = sorted(m.name for m in pkgutil.iter_modules(tools.__path__))
+    assert {'audio_roundtrip', 'decode_raw_image', 'demo_project',
+            'encode_faac_mkv', 'encode_video', 'encode_x264_faac_mkv',
+            'encode_x264_mkv', 'explain', 'play_demo',
+            'write_raw_audio'} <= set(names), names
+    for name in names:
+        importlib.import_module('canvas_tpu_torch.tools.' + name)
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        assert tools.explain.main(['--demo', '--stop', '4', '--device',
+                                   'cpu']) == 0
+        assert tools.decode_raw_image.main(
+            [os.path.join(tmp, 'raw.ppm'), '--device', 'cpu']) == 0
+    assert 'segment [1, 4)' in said.getvalue()
+    assert os.path.getsize(os.path.join(tmp, 'raw.ppm')) == \
+        15 + 480 * 720 * 3
 
     loaded = sorted(m for m in sys.modules if m.split('.')[0] in REFUSED)
     assert not loaded, loaded

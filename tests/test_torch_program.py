@@ -10,7 +10,8 @@ path against the eager ``run`` and against the JAX package's program
 (``canvas_tpu.render._get_program``) on CPU JAX; outputs the caller owns
 across later batches; the region offsets as tensors; the launch counts a
 replay adds; eviction under the memory guard; ``explain``'s program
-line.
+line; a program a caller holds, evicted mid-segment by count, by memory
+or over a mesh, leaving no capture outside the cache.
 
 Tolerances: the headline and each post bit-equal to the eager run (the
 program runs the very same ops); against the JAX package, the headline
@@ -614,3 +615,84 @@ def test_threads_share_programs_under_eviction(headline, monkeypatch):
     assert not errors, errors[:3]
     assert _stats()['evictions'] > 0
     planner.close()
+
+
+def _record_programs(monkeypatch):
+    """Every ``_Program`` made from here on, in or out of the cache."""
+    made = []
+    init = port._Program.__init__
+
+    def recording(self, *args, **kw):
+        init(self, *args, **kw)
+        made.append(self)
+
+    monkeypatch.setattr(port._Program, '__init__', recording)
+    return made
+
+
+def _clear_programs():
+    with port._program_lock:
+        progs = list(port._program_cache.values())
+        port._program_cache.clear()
+    port._evict(progs)
+
+
+@pytest.mark.parametrize('route', ['count', 'memory', 'mesh'])
+def test_a_held_program_evicted_mid_segment(headline, monkeypatch, route):
+    """Planner A streams one segment of several batches and holds its
+    program across them (``iter_batches``); paused after three batches,
+    planner B renders frames 200..201 twice, which evicts A's program:
+    by count (``_PROGRAMS_KEPT`` 1), by the memory guard (a budget that
+    fits B's batch but not B's batch and A's program while B renders),
+    or by count over a mesh of two ``cpu`` entries. A then resumes. No
+    capture lands outside the cache (none is an orphan), the guard's
+    ``_held_bytes`` is what every program made holds, no family outlives
+    its program (``explain`` says "not captured" once the programs are
+    cleared), and A's frames are bit-equal to an uninterrupted pass."""
+    window = box2i(0, 0, 159, 89)
+    mesh = Mesh([CPU, CPU], ('frames',)) if route == 'mesh' else None
+    a = port.RenderPlanner(headline, window, device='cpu')
+    a.plan_cache_segments = 0
+    b = port.RenderPlanner(headline, window, device='cpu')
+    assert a.segments(1, 65, min_span=8) == [(1, 65)]
+    want = [(s, n, np.asarray(out).copy())
+            for s, n, out in a.iter_batches(1, 65, batch=8, mesh=mesh)]
+    _clear_programs()
+    made = _record_programs(monkeypatch)
+    budget = {'bytes': None}
+    if route == 'memory':
+        monkeypatch.setattr(port, '_hbm_budget_bytes',
+                            lambda device: budget['bytes'])
+    else:
+        monkeypatch.setattr(port, '_PROGRAMS_KEPT', 1)
+    before = _stats()
+    batches = a.iter_batches(1, 65, batch=8, mesh=mesh)
+    got = [next(batches) for _k in range(3)]
+    held = sum(p.held_bytes for p in made)
+    assert held > 0 and _stats()['captures'] - before['captures'] == 1
+    if route == 'memory':
+        est = port._hbm_estimate_bytes(2, window, None, 1)[0]
+        budget['bytes'] = int(1.1 * est)
+        assert est + held > port._MARGINAL * budget['bytes']
+    for _rep in range(2):
+        b.render(200, 202)
+    budget['bytes'] = None
+    got += list(batches)
+    after = _stats()
+    assert after['evictions'] > before['evictions']
+    live = {id(p) for p in port._program_cache.values()}
+    assert all(id(p) in live for p in made if p.captured)
+    assert port._held_bytes(CPU) == sum(p.held_bytes for p in made)
+    assert after['orphans'] == before['orphans']
+    assert [(s, n) for s, n, _o in got] == [(s, n) for s, n, _o in want]
+    for (_s, _n, out), (_s2, _n2, ref) in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(out), ref)
+    # the resumed segment captured anew in the cache and replays there
+    assert 'segment [1, 65)  64 frames  program CAPTURED' in a.explain(1, 65)
+    _clear_programs()
+    assert all((p.family, p.device) not in port._compiled_families
+               for p in made)
+    assert 'segment [1, 65)  64 frames  program not captured' in \
+        a.explain(1, 65)
+    a.close()
+    b.close()

@@ -323,6 +323,35 @@ def test_transfer_timeline_renders():
     np.testing.assert_array_equal(streamed, got)
 
 
+def test_crossfade_timeline_renders():
+    """config2's crossfade (two lerped solids under a lerped mix, which
+    the mix peephole plans as one lerped ``solid``): the plan's signature
+    equals the JAX package's for benchmarks.config2's source, and the
+    frames are bit-equal to its program's at quality 10, to the pull
+    path's and streamed."""
+    from canvas_tpu.framefuncs import LerpFunc as RefLerp
+    src = timelines.crossfade_timeline(1024)
+    ref_src = ref_sources.VideoMixFilter(
+        ref_sources.SolidColorVideoSource(RefLerp((1, 0, 0, 1), (0, 1, 0, 1),
+                                                  1024)),
+        ref_sources.SolidColorVideoSource(RefLerp((0, 0, 1, 1), (1, 1, 0, 1),
+                                                  1024)),
+        RefLerp((0.0,), (1.0,), 1024))
+    window = (0, 0, 127, 71)
+    node, got, want = _eval_both(src, ref_src, window, 500, 508)
+    assert node.op == 'solid'
+    np.testing.assert_array_equal(got.view(np.uint16), want.view(np.uint16))
+    with port_backend.force_backend('numpy'):
+        pull = np.stack([np.asarray(src.get_frame_f16(i, box2i(*window)).data)
+                         for i in range(500, 508)])
+    np.testing.assert_array_equal(got.view(np.uint16), pull.view(np.uint16))
+    planner = port.RenderPlanner(src, box2i(*window), device='cpu')
+    assert planner.quality == 10
+    streamed = np.concatenate([out.numpy() for _s, _n, out in
+                               planner.iter_batches(500, 508, batch=3)])
+    np.testing.assert_array_equal(streamed, got)
+
+
 def test_stage_and_dv_recon_ops_match_jax():
     """The two ops no emitter plans, through both ``_eval``s on seeded
     params: 'stage' exactly; 'dv_recon' as 'dv_recon_rows' is held in
