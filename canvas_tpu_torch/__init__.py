@@ -14,7 +14,7 @@ Host side (the JAX package's host code, copied module for module):
   ``ops.color``: the pull path's pixel math, each op with a NumPy arm
   and a plain torch arm (the JAX arm's form), and the planner's tap
   builders;
-- ``profiling``: the planner's stage timers and a ``torch.profiler``
+- ``profiling``: the port's spans and counters and a ``torch.profiler``
   trace;
 - ``timelines``: the headline and mixed-content timelines;
 - ``clock``, ``signal``: presentation clocks and the weakref signal a

@@ -37,6 +37,7 @@ import threading
 import numpy as np
 import torch
 
+from canvas_tpu_torch import profiling
 from canvas_tpu_torch.mesh import Mesh, Replicated, ShardedFrames
 
 __all__ = ['get_backend', 'set_backend', 'force_backend', 'use_torch_for',
@@ -231,13 +232,15 @@ def to_host(t):
     where ``.cpu()`` into pageable memory moves the bytes through a
     staging buffer. The copy waits for the device; a CPU tensor is
     returned as it is. A ``mesh.ShardedFrames`` comes back whole, each
-    shard copied into its block of one host tensor."""
-    if isinstance(t, ShardedFrames):
-        return t.to_host()
-    if t.device.type != 'cuda':
-        return t
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    return host.copy_(t)
+    shard copied into its block of one host tensor. A span,
+    ``backend.to_host``."""
+    with profiling.Timer('backend.to_host'):
+        if isinstance(t, ShardedFrames):
+            return t.to_host()
+        if t.device.type != 'cuda':
+            return t
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return host.copy_(t)
 
 
 def count_h2d(nbytes, calls):

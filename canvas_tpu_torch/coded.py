@@ -31,7 +31,7 @@ import bisect
 import numpy as np
 import torch
 
-from canvas_tpu_torch import backend
+from canvas_tpu_torch import backend, profiling
 from canvas_tpu_torch.basetypes import EMPTY_BOX2I, box2i, box2i_intersect
 from canvas_tpu_torch.frames import RgbaFrameF16, VideoSource
 from canvas_tpu_torch.ir import Node, tile_window, windows_to_array
@@ -563,7 +563,13 @@ def device_plane_stack(ctx, source, quality, cache, hint_ids=(),
     ``row_of`` mapping frame index -> stack row. Returns None if a coded
     pull fails, the plane shapes change mid-stream, or the first decoded
     luma plane is not of shape *expect_y* when that is given (the caller
-    then host-stages the whole node)."""
+    then host-stages the whole node). A span, ``render.stage.coded``."""
+    with profiling.Timer('render.stage.coded'):
+        return _device_plane_stack(ctx, source, quality, cache, hint_ids,
+                                   expect_y)
+
+
+def _device_plane_stack(ctx, source, quality, cache, hint_ids, expect_y):
     key = ('dvplanes', id(source), int(quality), ctx.mesh)
     needed = [int(f) for f in ctx.frames]
     entry = cache.get(key)

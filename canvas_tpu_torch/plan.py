@@ -63,18 +63,23 @@ class StageLRU:
         self.gen = 0
 
     def get(self, key, source, serving=None):
+        """The value of *key*, or None; counted as a hit or a miss
+        (``render.stage_cache.hit`` / ``.miss``)."""
         with self._lock:
             entry = self._entries.get(key)
             if entry is None:
+                profiling.count('render.stage_cache.miss')
                 return None
             if entry['ref']() is not source:
                 # id() reuse after the original source died: stale entry
                 self.bytes -= entry['nbytes']
                 del self._entries[key]
+                profiling.count('render.stage_cache.miss')
                 return None
             if serving is not None:
                 entry['served'].add(tuple(serving))
             self._entries.move_to_end(key)
+            profiling.count('render.stage_cache.hit')
             return entry['value']
 
     def put(self, key, source, value, nbytes, serving=None, gen=None):

@@ -902,20 +902,23 @@ class _Program:
             if self._stream is not None and self._stream != cur:
                 cur.wait_stream(self._stream)
             self._stream = cur
-        self._bind(plist)
+        with profiling.Timer('render.bind'):
+            self._bind(plist)
         replayed = self.captured
         first_replay = replayed and not self.replays
-        if replayed:
-            outs, finish = self._replay()
+        capture = not replayed and self.calls
+        with profiling.Timer('render.replay'):
+            if capture:
+                # its eager warm-up batch's finish included
+                out = self._capture()
+            else:
+                # a replay, or the first call: the body eagerly on the
+                # static inputs, its launches real
+                outs, finish = (self._replay() if replayed
+                                else self._body(self.params))
+        if not capture:
             out = finish(outs)
-            self.replays += 1
-        elif self.calls:
-            out = self._capture()
-        else:
-            # the first call: the body eagerly on the static inputs, its
-            # launches real
-            outs, finish = self._body(self.params)
-            out = finish(outs)
+        self.replays += replayed
         self.calls += 1
         if self.out_shape is None:
             self.out_shape = tuple(out.shape)
@@ -1181,7 +1184,14 @@ def _make_run(signature, post, device):
         outs, finish = _split_eval(signature, iter(params), device)
         if post_fn is None:
             return outs, finish
-        return outs, lambda o: post_fn(finish(o))
+
+        def finish_post(o):
+            frames = finish(o)
+            with profiling.Timer('render.post'), \
+                    profiling.device_span('render.post.device', device):
+                return post_fn(frames)
+
+        return outs, finish_post
 
     return body
 
@@ -1590,6 +1600,12 @@ class _Prepared:
         return self.plists[i]
 
 
+def _hits(counts, cache):
+    """``explain``'s hit and miss counts of *cache*, a counter prefix."""
+    return '%d hits, %d misses' % (counts.get(cache + '.hit', 0),
+                                   counts.get(cache + '.miss', 0))
+
+
 class RenderPlanner:
     """Plans frame ranges of *source* on the host and renders them on a
     torch device (the counterpart of ``canvas_tpu.render.RenderPlanner``).
@@ -1703,11 +1719,12 @@ class RenderPlanner:
         """Human-readable plan report for [start, stop): per segment, the
         IR tree (op, static geometry, param shapes with ``@dev`` on
         tensors already on the device, per-frame window coverage), then
-        the stage cache's and the plan cache's size. Each segment's line
-        says whether a render program of it was captured on this
-        planner's device and is live (render.py:1686-1692). Planning is
-        real: it stages what a first render would, into the same
-        caches."""
+        the stage cache's and the plan cache's size with their hits and
+        misses (``profiling``'s counters since its last ``reset``, every
+        planner's). Each segment's line says whether a render program of
+        it was captured on this planner's device and is live
+        (render.py:1686-1692). Planning is real: it stages what a first
+        render would, into the same caches."""
         lines = []
         area = float(self.window.width * self.window.height)
 
@@ -1747,10 +1764,13 @@ class RenderPlanner:
                             'CAPTURED' if captured else 'not captured'))
             walk(node, 0)
         cache = self.persistent_cache
-        lines.append('stage cache: %d entries, %.1f MB of %.1f MB'
-                     % (len(cache), cache.bytes / 1e6, cache.budget / 1e6))
-        lines.append('plan cache: %d prepared segments'
-                     % (len(self._plan_cache),))
+        counts = {k: v[1] for k, v in profiling.report().items()}
+        lines.append('stage cache: %d entries, %.1f MB of %.1f MB; %s'
+                     % (len(cache), cache.bytes / 1e6, cache.budget / 1e6,
+                        _hits(counts, 'render.stage_cache')))
+        lines.append('plan cache: %d prepared segments; %s'
+                     % (len(self._plan_cache),
+                        _hits(counts, 'render.plan_cache')))
         return '\n'.join(lines)
 
     def segments(self, start, stop, min_span=0):
@@ -1847,13 +1867,17 @@ class RenderPlanner:
                 got = self._plan_cache.get(key)
                 if got is not None:
                     self._plan_cache.move_to_end(key)
+                    profiling.count('render.plan_cache.hit')
                     return got[0]
+            profiling.count('render.plan_cache.miss')
         ctx = self._plan_context(seg, mesh)
-        with profiling.Timer('render.plan'):
+        with profiling.Timer('render.plan', seg):
             node = check_placed(ctx.plan(self.source))
         shards = mesh.shape[axis] if mesh is not None else 1
-        result = _Prepared(*self._cut(seg, node, batch, shards),
-                           ops=node.flat_ops([]), family=signature(node))
+        with profiling.Timer('render.cut', seg):
+            result = _Prepared(*self._cut(seg, node, batch, shards),
+                               ops=node.flat_ops([]),
+                               family=signature(node))
         if cache_plans:
             pinned = _pinned_bytes(result.plists)
             budget = self.persistent_cache.budget
@@ -1940,59 +1964,69 @@ class RenderPlanner:
                              % (sorted(color_ops.POSTS), post))
         if max_inflight is not None and max_inflight <= 0:
             max_inflight = None
-        need = _check_hbm_footprint(batch, self.window, post, max_inflight,
-                                    self.device, shares=shares)
-        # Plans pin staged device stacks: no staging budget, no plan
-        # cache either (a cold staging measurement sets stage_cache_mb =
-        # 0 and relies on it disabling BOTH).
-        cache_plans = (self.plan_cache_segments > 0
-                       and self.persistent_cache.budget > 0)
-        ran_on = (list(dict.fromkeys(devices)) if devices is not None
-                  else [self.device])
-        pending = (deque() if max_inflight and device_out
-                   and ran_on[0].type == 'cuda' else None)
-        segs = self.segments(start, stop, min_span=batch)
-        self._drain_plan_pool()
-        self._watch_frames_updated()
-        self._note_render_stream(mesh)
-        pool = self._plan_pool = ThreadPoolExecutor(
-            max_workers=1, thread_name_prefix='canvas-torch-plan')
-        try:
+        with profiling.Timer('render.pass_start'):
+            need = _check_hbm_footprint(batch, self.window, post,
+                                        max_inflight, self.device,
+                                        shares=shares)
+            # Plans pin staged device stacks: no staging budget, no plan
+            # cache either (a cold staging measurement sets
+            # stage_cache_mb = 0 and relies on it disabling BOTH).
+            cache_plans = (self.plan_cache_segments > 0
+                           and self.persistent_cache.budget > 0)
+            ran_on = (list(dict.fromkeys(devices)) if devices is not None
+                      else [self.device])
+            pending = (deque() if max_inflight and device_out
+                       and ran_on[0].type == 'cuda' else None)
+            segs = self.segments(start, stop, min_span=batch)
+            self._drain_plan_pool()
+            self._watch_frames_updated()
+            self._note_render_stream(mesh)
+            pool = self._plan_pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix='canvas-torch-plan')
+            # a pool that never gets here is shut down by the next
+            # pass's _drain_plan_pool
             fut = (pool.submit(self._prepared, segs[0], batch, post,
                                cache_plans, mesh, axis) if segs else None)
-            for i in range(len(segs)):
-                prepared = fut.result()
+        try:
+            for i, seg in enumerate(segs):
+                with profiling.Timer('render.prepare_wait', seg):
+                    prepared = fut.result()
                 if i + 1 < len(segs):
                     fut = pool.submit(self._prepared, segs[i + 1], batch,
                                       post, cache_plans, mesh, axis)
-                if devices is None:
-                    program = _get_program(prepared.sig, self.device, post,
-                                           need[self.device],
-                                           prepared.family)
-                else:
-                    programs = _get_sharded_program(
-                        prepared.sig, devices, post, need, prepared.family)
+                with profiling.Timer('render.dispatch', seg):
+                    if devices is None:
+                        program = _get_program(prepared.sig, self.device,
+                                               post, need[self.device],
+                                               prepared.family)
+                    else:
+                        programs = _get_sharded_program(
+                            prepared.sig, devices, post, need,
+                            prepared.family)
                 for k, (pos, take) in enumerate(prepared.spans):
                     if pending is not None and len(pending) >= max_inflight:
                         # the oldest pending batch: each stream runs in
                         # order, so everything older has finished too
-                        for done in pending.popleft():
-                            done.synchronize()
+                        with profiling.Timer('render.inflight_wait'):
+                            for done in pending.popleft():
+                                done.synchronize()
                     # A cached plan keeps its params on the device (one
                     # device copy into the program a batch); otherwise the
                     # host params go straight into the program's buffer.
-                    if devices is None:
-                        with _on(self.device):
-                            out = program(
-                                prepared.device_params(k, self.device)
-                                if cache_plans else prepared.plists[k])
-                    else:
-                        out = self._run_shards(
-                            prepared.sig,
-                            prepared.shard_params(k, devices) if cache_plans
-                            else _split_shards(prepared.plists[k],
-                                               prepared.ops, devices),
-                            devices, mesh, axis, post, programs)
+                    with profiling.Timer('render.dispatch', seg):
+                        if devices is None:
+                            with _on(self.device):
+                                out = program(
+                                    prepared.device_params(k, self.device)
+                                    if cache_plans else prepared.plists[k])
+                        else:
+                            out = self._run_shards(
+                                prepared.sig,
+                                prepared.shard_params(k, devices)
+                                if cache_plans
+                                else _split_shards(prepared.plists[k],
+                                                   prepared.ops, devices),
+                                devices, mesh, axis, post, programs)
                     if pending is not None:
                         events = []
                         for d in ran_on:
