@@ -7,6 +7,19 @@ into one shared library under ``canvas_tpu_torch/_build/``, named by a
 hash of the sources and flags, and loaded with ``ctypes``. A later call
 with unchanged sources loads the cached library. A failed build raises;
 nothing falls back.
+
+The launchers are called with the GIL held (``ctypes.PyDLL``). They run
+on the thread that runs the render programs: the caller of
+``iter_batches``, ``render`` and ``render_display``, the producer thread
+of ``libav.write_video`` and the playback engine's render thread; the
+planner's prepare thread plans and stages and calls none. A launch
+returns at once, and a call that released the GIL waited for it to come
+back while the prepare thread planned in Python, up to the interpreter's
+switch interval, with the card idle behind the export's post. Held, the
+GIL also covers what a launcher does before its launch: ``cudaSetDevice``
+on every call, the lazy load of a kernel's module at its first launch in
+a process, and at ``canvas_yuv420_post``'s first call on a device its
+``cudaFuncSetAttribute`` and occupancy query.
 """
 
 import ctypes
@@ -27,7 +40,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG / '_build'
 SOURCES = ('solid_fold.cu', 'region_over_sep.cu', 'region_over.cu',
-           'fold_study.cu', 'tile_fold.cu', 'fma_chain.cu')
+           'yuv420_post.cu', 'fold_study.cu', 'tile_fold.cu', 'fma_chain.cu')
 #: Headers the sources include; part of the library's hash.
 HEADERS = ('fold_tile.cuh', 'cols.cuh')
 #: Compile flags of each source (``-c``); the objects link with ``-shared``.
@@ -47,6 +60,10 @@ _SIGNATURES = {
     # layer, P, A, dy0, dx0 (device int32s), B, h, w, H, W, bf16, vec,
     # device, stream
     'canvas_region_over': (_P,) * 5 + (_I,) * 8 + (_P,),
+    # x, table, out, B, H, W, vec, device, stream
+    'canvas_yuv420_post': (_P,) * 3 + (_I,) * 5 + (_P,),
+    # out, device, stream
+    'canvas_yuv420_levels': (_P, _I, _P),
     # color, box, gain, offset, out, L, B, H, W, variant, device, stream
     'canvas_fold_interior': (_P,) * 5 + (_I,) * 6 + (_P,),
     # x, col, box, out, L, B, H, W, mult, device, stream
@@ -149,7 +166,7 @@ def library():
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(_build()))
+            lib = ctypes.PyDLL(str(_build()))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes

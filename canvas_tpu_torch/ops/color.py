@@ -24,7 +24,9 @@ The torch half runs on the device:
   (PERF.md).
 - ``POSTS``: the export conversions of ``iter_batches(post=...)``
   (``_u8_math`` color.py:551-558, ``_yuv420_pack_studio_math``
-  628-656) in plain torch ops, applied to the f16 frames.
+  628-656) in plain torch ops, applied to the f16 frames; on a card
+  ``yuv420`` is one launch of a fused CUDA kernel instead
+  (``cuda_ops.yuv420_post``), bit-equal to its plain ops there.
 - The display transports of ``render_display`` and the playback
   engine: ``display_u8`` (``_display_u8_math``, color.py:521-533),
   ``yuv420_pack`` (``_yuv420_pack_math``, 575-608) and the gamma45
@@ -46,6 +48,7 @@ import numpy as np
 import torch
 
 from canvas_tpu_torch import backend
+from canvas_tpu_torch.ops import cuda_ops
 
 __all__ = [
     'rec709_to_linear_scene', 'rec709_to_linear_display',
@@ -57,7 +60,8 @@ __all__ = [
     'color_matrix', 'rgb_to_xyz_sdtv_frame', 'xyz_to_srgb_frame',
     'build_half_lut', 'apply_half_lut', 'float_to_half_trunc', 'get_lut',
     'TRANSFERS', 'quantize_f16', 'quantize_f16_trunc', 'device_transfer',
-    'u8_interleaved', 'yuv420_pack_studio', 'POSTS',
+    'u8_interleaved', 'studio_ycbcr', 'yuv420_pack_studio',
+    'yuv420_pack_studio_plain', 'POSTS',
     'display_ramp_u8', 'apply_display_u8', 'display_u8', 'yuv420_pack',
     'rgb24_unpack', 'yuv420_unpack', 'yuv420_unpack_batch',
 ]
@@ -591,17 +595,25 @@ def _edge_pad_even(c):
     return c
 
 
-def yuv420_pack_studio(x16):
-    """(B, 4, H, W) f16 frames -> (B, H*W + 2*ceil(H/2)*ceil(W/2)) u8:
-    studio-range 4:2:0 (Y 16-235, Cb/Cr 16-240, BT.601 matrix) of the
-    gamma45 u8 RGB, chroma the 2x2 mean after an edge-replicate pad of
-    odd sizes (``_yuv420_pack_studio_math``, color.py:628-656)."""
-    u8f = _gamma45_floor(x16)
-    R, G, Bl = u8f[:, 0], u8f[:, 1], u8f[:, 2]
+def studio_ycbcr(R, G, Bl):
+    """The unrounded studio-range BT.601 (Y, Cb, Cr) of the gamma45 u8
+    levels *R*, *G*, *Bl* (f32 tensors of whole levels), each op of
+    ``_yuv420_pack_studio_math`` (color.py:628-656) rounded apart."""
     Ey = (0.299 * R + 0.587 * G + 0.114 * Bl) / 255.0
     Y = 16.0 + 219.0 * Ey
     Cb = 128.0 + 224.0 * 0.5 / 0.886 * (Bl / 255.0 - Ey)
     Cr = 128.0 + 224.0 * 0.5 / 0.701 * (R / 255.0 - Ey)
+    return Y, Cb, Cr
+
+
+def yuv420_pack_studio_plain(x16):
+    """(B, 4, H, W) f16 frames -> (B, H*W + 2*ceil(H/2)*ceil(W/2)) u8:
+    studio-range 4:2:0 (Y 16-235, Cb/Cr 16-240, BT.601 matrix) of the
+    gamma45 u8 RGB, chroma the 2x2 mean after an edge-replicate pad of
+    odd sizes (``_yuv420_pack_studio_math``, color.py:628-656), in plain
+    torch ops on any device."""
+    u8f = _gamma45_floor(x16)
+    Y, Cb, Cr = studio_ycbcr(u8f[:, 0], u8f[:, 1], u8f[:, 2])
     B = Y.shape[0]
 
     def sub(c):
@@ -615,6 +627,25 @@ def yuv420_pack_studio(x16):
 
     return torch.cat([q(Y, 235.0), q(sub(Cb), 240.0), q(sub(Cr), 240.0)],
                      dim=1)
+
+
+@functools.lru_cache(maxsize=None)
+def _gamma45_u8_table(device):
+    """``_gamma45_floor`` of every f16 bit pattern as a 65,536-entry u8
+    table on *device* (a string), kept for the process: the levels are
+    whole numbers 0-255."""
+    return torch.floor(_levels_table(None, 'cpu')).to(torch.uint8).to(device)
+
+
+def yuv420_pack_studio(x16):
+    """The export post ``yuv420``: ``yuv420_pack_studio_plain``'s bytes.
+    A CPU tensor takes the plain version; on a card one launch of the
+    fused kernel (``cuda_ops.yuv420_post``) writes the same bytes as the
+    plain version run there. The card takes contiguous f16 frames, as
+    the render's finish writes them; anything else raises."""
+    if x16.device.type == 'cpu':
+        return yuv420_pack_studio_plain(x16)
+    return cuda_ops.yuv420_post(x16, _gamma45_u8_table(str(x16.device)))
 
 
 # --- display transports (render_display, the playback engine) ------------

@@ -18,6 +18,8 @@ tensors passed. Each wrapper counts its launches in plain integer
 attributes, one per form (``solid_fold.launches`` and
 ``solid_fold.launches_bf16``, likewise for ``region_over_sep`` and
 ``region_over``), so a run can show that its path went through each.
+``yuv420_post``, the fused export post, has one form and counts its
+launches in ``yuv420_post.launches``.
 
 The region offsets ``(dy0, dx0)`` of ``region_over`` and
 ``region_over_sep`` are device data, as the TPU kernels' scalar-prefetched
@@ -33,10 +35,10 @@ capture of a render program, which launches nothing) is not counted but
 recorded; the program adds the recorded launches to the counters at
 every replay.
 
-``solid_fold``, ``region_over_sep`` and ``region_over`` each have two
-instantiations of one template: one that moves 16 bytes a thread, for
-rows of a multiple of 8 values in planes that start at a multiple of 16
-bytes, and a scalar one for everything else. ``_vector_ok`` chooses from
+``solid_fold``, ``region_over_sep``, ``region_over`` and ``yuv420_post``
+each have two instantiations of one template: one that moves 16 bytes a
+thread, for rows of a multiple of 8 values in planes that start at a
+multiple of 16 bytes, and a scalar one for everything else. ``_vector_ok`` chooses from
 the row length and the tensors' pointers; ``launches_vector`` and
 ``launches_scalar`` count which one ran. Both give the same bits.
 
@@ -59,8 +61,8 @@ from canvas_tpu_torch.ops import _build
 
 __all__ = ['solid_fold', 'solid_stack', 'region_over', 'region_over_sep',
            'solid_fold_plain', 'region_over_plain', 'region_over_sep_plain',
-           'fold_tile_pixel_layers', 'check_offsets', 'recording',
-           'add_launches']
+           'yuv420_post', 'yuv420_levels', 'fold_tile_pixel_layers',
+           'check_offsets', 'recording', 'add_launches']
 
 # The damage-region block grid (planner quantization, sources.py).
 _QR, _QC = 64, 128
@@ -540,3 +542,74 @@ region_over_sep.launches = 0
 region_over_sep.launches_bf16 = 0
 region_over_sep.launches_vector = 0
 region_over_sep.launches_scalar = 0
+
+
+# --- the yuv420 export post ---------------------------------------------
+
+#: Entries of ``yuv420_post``'s level table: one per f16 bit pattern.
+_LEVELS = 65536
+
+
+def _yuv420_args(x16, table, out, vector, device_index, stream):
+    """The arguments of ``canvas_yuv420_post`` (``_build._SIGNATURES``)."""
+    B, _c, H, W = x16.shape
+    return (x16.data_ptr(), table.data_ptr(), out.data_ptr(), B, H, W,
+            int(vector), device_index, stream)
+
+
+def yuv420_post(x16, table):
+    """The ``yuv420`` export post of (B, 4, H, W) f16 frames on a card, in
+    one launch of ``csrc/yuv420_post.cu``: the packed (B, H*W +
+    2*ceil(H/2)*ceil(W/2)) u8 studio-range 4:2:0 output, bit-equal to
+    ``color.yuv420_pack_studio_plain`` run on the same card.
+
+    *table* is the (65536,) u8 gamma45 level of every f16 bit pattern
+    (``color._gamma45_u8_table``), on the frames' device. The frames are
+    contiguous f16; anything else raises. The 16-byte instantiation runs
+    where ``_vector_ok`` grants it from W and the frames' and output's
+    pointers, else the scalar one, which also pads odd sizes. The plain
+    version lives with the posts in ``color``, which sends a CPU tensor
+    there and never calls this."""
+    dev = x16.device
+    if dev.type != 'cuda':
+        raise ValueError('yuv420_post: unsupported device %s' % (dev,))
+    if x16.dim() != 4 or x16.shape[1] != 4:
+        raise ValueError('yuv420_post: expected (B, 4, H, W) frames, got %s'
+                         % (tuple(x16.shape),))
+    B, _c, H, W = x16.shape
+    _need(x16, 'x16', torch.float16, (B, 4, H, W), dev)
+    _need(table, 'table', torch.uint8, (_LEVELS,), dev)
+    Hc, Wc = -(-H // 2), -(-W // 2)
+    out = torch.empty((B, H * W + 2 * Hc * Wc), dtype=torch.uint8,
+                      device=dev)
+    if B and H and W:
+        vector = _vector_ok(W, x16.data_ptr(), out.data_ptr())
+        if B * Hc * (W // 8 if vector else Wc) >= 2 ** 30:
+            raise ValueError('yuv420_post: %d frames of %dx%d are too many '
+                             'for one launch' % (B, W, H))
+        lib = _build.library()
+        rc = lib.canvas_yuv420_post(*_yuv420_args(
+            x16, table, out, vector, dev.index, _stream(dev)))
+        _build.check(lib, 'yuv420_post', rc)
+        _count(yuv420_post, False, vector)
+    return out
+
+
+yuv420_post.launches = 0
+yuv420_post.launches_vector = 0
+yuv420_post.launches_scalar = 0
+
+
+def yuv420_levels(device):
+    """The unrounded (Y, Cb, Cr) that ``yuv420_post`` computes for every
+    (R, G, B) level triple, as a (3, 256**3) f32 tensor on the card
+    *device*; triple i is (i >> 16, (i >> 8) & 255, i & 255). For
+    holding the kernel's arithmetic to the eager ops' (the tests)."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device('cuda', torch.cuda.current_device())
+    out = torch.empty((3, 1 << 24), dtype=torch.float32, device=device)
+    lib = _build.library()
+    _build.check(lib, 'yuv420_levels', lib.canvas_yuv420_levels(
+        out.data_ptr(), device.index, _stream(device)))
+    return out

@@ -1412,19 +1412,22 @@ def _hbm_budget_bytes(device):
 
 #: The working set of each export post of ``color_ops.POSTS`` at its
 #: peak, in bytes per pixel of the batch, one term per tensor live there.
-#: All three start with ``_gamma45_floor``'s level gather
-#: (``_display_levels``), and its gather is the peak: the f16 bits widen
-#: to int32 and are masked (a second int32 tensor, the first freed when
-#: the mask is done), the gather converts its int32 indices to int64,
-#: and writes f32 levels, while the caller still holds the f16 frame.
-#: The ``floor`` of the levels (16 B/px, beside the 16 of the levels)
-#: comes after the bits and indices are freed, and what follows it (the
-#: u8 copies of the interleave, yuv420's f32 planes of 4 B/px each) is
-#: smaller again, so none of it adds to that peak.
+#: ``rgba_u8`` and ``bgra_u8`` start with ``_gamma45_floor``'s level
+#: gather (``_display_levels``), and its gather is the peak: the f16 bits
+#: widen to int32 and are masked (a second int32 tensor, the first freed
+#: when the mask is done), the gather converts its int32 indices to
+#: int64, and writes f32 levels, while the caller still holds the f16
+#: frame. The ``floor`` of the levels (16 B/px, beside the 16 of the
+#: levels) comes after the bits and indices are freed, and the u8 copies
+#: of the interleave are smaller again, so none of it adds to that peak.
+#: ``yuv420`` is one kernel on a card (``cuda_ops.yuv420_post``), the only
+#: device the guard runs on: it holds the f16 frame it reads, and writes
+#: the output the retained depth already counts.
 POST_WORKING_BPP = {
-    post: (('f16 frame', 8), ('int32 bits', 16), ('int64 indices', 32),
-           ('f32 levels', 16))
-    for post in ('rgba_u8', 'bgra_u8', 'yuv420')}
+    **{post: (('f16 frame', 8), ('int32 bits', 16), ('int64 indices', 32),
+              ('f32 levels', 16))
+       for post in ('rgba_u8', 'bgra_u8')},
+    'yuv420': (('f16 frame', 8),)}
 
 
 def _hbm_estimate_bytes(batch, window, post, max_inflight, working_bpp=16,
@@ -1437,8 +1440,9 @@ def _hbm_estimate_bytes(batch, window, post, max_inflight, working_bpp=16,
     accumulators), and with a *post* that post's working set,
     ``POST_WORKING_BPP``: per pixel, the f16 frame it reads (8), the
     int32 bits of its level gather (16), the gather's int64 indices
-    (32) and the f32 levels (16), 72 bytes for each of ``rgba_u8``,
-    ``bgra_u8`` and ``yuv420``. The accumulators are freed by the
+    (32) and the f32 levels (16), 72 bytes for each of ``rgba_u8`` and
+    ``bgra_u8``; the f16 frame alone for ``yuv420``'s fused kernel, 8
+    bytes. The accumulators are freed by the
     finalize before the post runs, so the sum is an upper bound. With
     *device*, the bytes the live render programs on it keep (their graph
     pools, measured at capture, param buffers and slots) are added; the

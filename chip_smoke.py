@@ -67,8 +67,12 @@ prints one line or more; any failure raises
    iter_batches(batch=128, post='bgra_u8') and (post='yuv420'), each
    batch against the same conversion run on the CPU over the post=None
    f16 frames of the range (the share of u8 values that differ and the
-   largest difference, at most 1 on at most 0.1% of values); the
-   conversions' device time on one batch; the headline's cold fps with
+   largest difference, at most 1 on at most 0.1% of values), one
+   ``yuv420_post`` launch a yuv420 batch and none a bgra_u8 one; the
+   conversions' device time on one batch; the fused yuv420 kernel's
+   bytes on that batch bit-equal to its plain ops' on the card
+   (``color.yuv420_pack_studio_plain``), its time beside theirs and its
+   7.5 B/px floor; the headline's cold fps with
    post='yuv420' beside post=None's, timed in turns under phase 5's
    protocol;
 10. display path, on the headline at 1080p: ``render_display`` of frames
@@ -119,7 +123,8 @@ prints one line or more; any failure raises
    post='yuv420' (``config6b_4k_export_yuv420_transport_fps``), cold,
    the batches left on the card as benchmarks.py leaves them; each
    post's first pass is the checked one (its launches: 2 solid_fold and
-   2 region_over_sep a batch, nothing else), then one warm pass, best of
+   2 region_over_sep a batch, and 1 yuv420_post a yuv420 batch, nothing
+   else), then one warm pass, best of
    3; the device busy time and idle share, the post's
    device time per batch, the memory guard's estimate beside the
    measured peak (the estimate must not be below it); frames 0 and 63
@@ -211,8 +216,9 @@ prints one line or more; any failure raises
    frames x space mesh, ``render_sharded`` of 5 frames with
    ``spatial_axis='space'`` bit-equal to the unsharded frames, and
    ``iter_batches(0, 5, batch=8, mesh, post='yuv420')`` u8-equal to the
-   unsharded post; (c) config5's protocol (benchmarks.py:483-546) on the
-   2-shard mesh: sharded and plain fps over frames 0..255 at batch 128,
+   unsharded post, with one ``yuv420_post`` launch a shard of each
+   batch; (c) config5's protocol (benchmarks.py:483-546) on the 2-shard
+   mesh: sharded and plain fps over frames 0..255 at batch 128,
    cold, and their ratio, the median of three interleaved pairs; host
    enqueue and device busy ms per batch, sharded beside unsharded, and
    the sharded pass's device idle share; the memory guard's per-device
@@ -227,7 +233,9 @@ prints one line or more; any failure raises
    path through its programs against the eager run on the same params,
    max diff 0: the headline's frames 128..515 at batch 128 (the tail
    segment [512, 516) its own signature), config7's frames 0..127 at
-   batch 16, the ``rgba_u8`` and ``yuv420`` posts, ``render_display``
+   batch 16, the ``rgba_u8`` and ``yuv420`` posts (one ``yuv420_post``
+   launch a program call of the yuv420 pass, none in the others),
+   ``render_display``
    rgb24 at full size and 960x540 (frames 0, 130, 1000), config5 over a
    mesh naming the card twice; (b) from no program, three cold passes of
    the headline capture once per signature (a program's first two calls
@@ -288,7 +296,9 @@ version's, and its bound: the larger of the bytes it must move over the
 card's published memory rate and its f32 operations over the published
 f32 rate
 (PEAK_BYTES_PER_S, PEAK_F32_PER_S), from this run's shapes. The bf16
-form of each render kernel has an entry of its own. No single PyTorch
+form of each render kernel has an entry of its own; the fused yuv420
+post (``yuv420_post``) has one, timed and held to its plain ops on
+phase 9's batch of 128 1080p frames. No single PyTorch
 call computes what any of the kernels computes, so ``library_ms`` is
 null throughout.
 The line before the last is the card's nvidia-smi line; the last line is
@@ -333,6 +343,13 @@ FOLD_OPS_PER_LAYER = 10
 FINALIZE_OPS = 3
 OVER_OPS = 12
 RANK1_OPS = 8
+
+#: The fused yuv420 post per pixel: the R, G and B f16 planes read (6 B)
+#: and Y with the 2x2 Cb and Cr written (1.5 B); its f32 operations, Ey
+#: (3 multiplies, 2 adds, the /255: 6), Y (2), Cb and Cr before the mean
+#: (4 each) and the two 2x2 means (4 each a quad: 2).
+YUV420_BYTES = 7.5
+YUV420_OPS = 18
 
 
 def _bound(nbytes, ops):
@@ -389,6 +406,9 @@ def _solid_layers(rng, L, B, H, W):
 #: counted apart ('<name>' and '<name>_bf16').
 _RENDER_KERNELS = ('solid_fold', 'region_over_sep', 'region_over')
 
+#: The fused yuv420 export post: one form, one launch a posted batch.
+_POST_KERNEL = 'yuv420_post'
+
 
 def _launch_counts():
     from canvas_tpu_torch.ops import cuda_ops
@@ -397,6 +417,7 @@ def _launch_counts():
         fn = getattr(cuda_ops, name)
         out[name] = fn.launches
         out[name + '_bf16'] = fn.launches_bf16
+    out[_POST_KERNEL] = getattr(cuda_ops, _POST_KERNEL).launches
     return out
 
 
@@ -414,6 +435,7 @@ def _zero_launch_counts():
     for name in _RENDER_KERNELS:
         getattr(cuda_ops, name).launches = 0
         getattr(cuda_ops, name).launches_bf16 = 0
+    getattr(cuda_ops, _POST_KERNEL).launches = 0
     for name in _STUDY_WRAPPERS:
         getattr(study_ops, name).launches = 0
 
@@ -1106,7 +1128,8 @@ def _posts(tag, window):
     batch against the same conversion run on the CPU over the post=None
     f16 frames of the range; the conversions' device time on one batch;
     the cold fps with post='yuv420' beside post=None's, in turns. Returns
-    the path's launches."""
+    the path's launches and the fused yuv420 kernel's (max |diff| against
+    its plain ops, ms, plain ms, bound ms, bound by) on one batch."""
     import torch
 
     from canvas_tpu_torch import timelines
@@ -1125,9 +1148,11 @@ def _posts(tag, window):
     agree = {}
     _zero_launch_counts()
     for post, size in sizes.items():
-        n_diff = n_all = worst = 0
+        n_diff = n_all = worst = n_batches = 0
+        posted = _launch_counts()[_POST_KERNEL]
         for s, n, out in planner.iter_batches(start, stop, batch=batch,
                                               post=post):
+            n_batches += 1
             if out.dtype != torch.uint8 or tuple(out.shape) != (n,) + size:
                 raise AssertionError('post %s batch at %d: %s %s' % (
                     post, s, out.dtype, tuple(out.shape)))
@@ -1139,6 +1164,10 @@ def _posts(tag, window):
                 n_all += d.numel()
                 worst = max(worst, int(d.max()))
         agree[post] = (n_diff / n_all, worst)
+        posted = _launch_counts()[_POST_KERNEL] - posted
+        if posted != (n_batches if post == 'yuv420' else 0):
+            raise AssertionError('post %s: %d batches, %d yuv420_post '
+                                 'launches' % (post, n_batches, posted))
     launches = _launch_counts()
     if (launches['solid_fold'] <= 0 or launches['region_over_sep'] <= 0
             or launches['region_over'] != 0):
@@ -1155,12 +1184,38 @@ def _posts(tag, window):
 
     x16 = next(planner.iter_batches(start, start + batch, batch=batch))[2]
     px = batch * H * W
-    for post, per_px in (('bgra_u8', 4), ('yuv420', 1.5)):
-        ms = cuda_ms(lambda: color_ops.POSTS[post](x16), 5)
+    post_ms = {}
+    # bytes a pixel read and written: bgra_u8's gather reads all four f16
+    # planes; the fused yuv420 kernel reads R, G and B and writes Y and
+    # the 2x2 Cb and Cr
+    for post, read, written in (('bgra_u8', 8, 4), ('yuv420', 6, 1.5)):
+        ms = post_ms[post] = cuda_ms(lambda: color_ops.POSTS[post](x16), 5)
         print('phase 9 post %s on one batch of %d %dx%d f16 frames: %.3f ms '
               'on the card (%.1f GB/s for the f16 read and the u8 write) %s'
-              % (post, batch, W, H, ms, px * (8 + per_px) / ms / 1e6, tag),
-              flush=True)
+              % (post, batch, W, H, ms, px * (read + written) / ms / 1e6,
+                 tag), flush=True)
+    # the kernel's bytes against its plain ops' on the same card batch
+    posted = _launch_counts()[_POST_KERNEL]
+    got = color_ops.yuv420_pack_studio(x16)
+    if _launch_counts()[_POST_KERNEL] - posted != 1:
+        raise AssertionError('yuv420_pack_studio on the card made %d '
+                             'yuv420_post launches' % (
+                                 _launch_counts()[_POST_KERNEL] - posted))
+    want = color_ops.yuv420_pack_studio_plain(x16)
+    err = int((got.int() - want.int()).abs().max())
+    if got.shape != want.shape or err != 0:
+        raise AssertionError('yuv420_post differs from its plain ops by %d '
+                             '(%s, %s)' % (err, tuple(got.shape),
+                                           tuple(want.shape)))
+    del got, want
+    plain_ms = cuda_ms(lambda: color_ops.yuv420_pack_studio_plain(x16), 3)
+    kernel = (err, post_ms['yuv420'], plain_ms) + _bound(
+        px * YUV420_BYTES, px * YUV420_OPS)
+    print('phase 9 yuv420_post kernel %.4f ms, its plain ops %.3f ms, max '
+          '|diff| %d against them (must be 0), bound %.4f ms (%s: %.1f B/px '
+          'at 3.35 TB/s), %.2fx the bound %s'
+          % (post_ms['yuv420'], plain_ms, err, kernel[3], kernel[4],
+             YUV420_BYTES, post_ms['yuv420'] / kernel[3], tag), flush=True)
     del x16, f16
 
     start, stop = 128, 512
@@ -1179,7 +1234,7 @@ def _posts(tag, window):
               (stop - start) / min(walls[None]), start, stop - 1, batch,
               ', '.join('%.4f' % w for w in walls['yuv420']),
               ', '.join('%.4f' % w for w in walls[None]), tag), flush=True)
-    return launches
+    return launches, kernel
 
 
 #: Phase 10's display comparisons: frames, (transport, intent), viewport.
@@ -2094,6 +2149,7 @@ def _export_4k(tag):
         want_seen = dict.fromkeys(seen, 0)
         want_seen.update(solid_fold=2 * n_batches,
                          region_over_sep=2 * n_batches)
+        want_seen[_POST_KERNEL] = n_batches if post == 'yuv420' else 0
         if seen != want_seen:
             raise AssertionError('4K export post=%r ran %d batches with '
                                  'launches %r' % (post, n_batches, seen))
@@ -3505,14 +3561,28 @@ def _multi_device(tag, window, config7, device=None):
     _sharded_equal('frames x space reshard', got, want)
     blocks = [b[0] + b[2] for _t, b in got.shards]
 
+    posted = []
+
     def sharded_post():
         planner = planner_of(ws)
-        parts = [t for _s, _n, out in planner.iter_batches(
-            0, 5, batch=8, mesh=mesh, post='yuv420') for t, _b in out.shards]
+        parts = []
+        for s, _n, out in planner.iter_batches(0, 5, batch=8, mesh=mesh,
+                                               post='yuv420'):
+            posted.append(s)
+            parts += [t for t, _b in out.shards]
         planner.close()
         return torch.cat(parts)
 
+    before = launches[_POST_KERNEL]
     post = counted(sharded_post)
+    # every shard of a batch posts on its own card, one launch each, also
+    # a shard that the batch's cut to its valid frames leaves out
+    if launches[_POST_KERNEL] - before != (len(posted) * mesh.size
+                                           if on_card else 0):
+        raise AssertionError('the sharded yuv420 post: %d yuv420_post '
+                             'launches for %d batches over %d shards' % (
+                                 launches[_POST_KERNEL] - before,
+                                 len(posted), mesh.size))
     want_u8 = _unsharded(ws, window, 0, 5, 8, post='yuv420', device=card)
     if not torch.equal(post, want_u8):
         raise AssertionError('the sharded yuv420 post differs from the '
@@ -3846,10 +3916,16 @@ def _programs(tag, window, device=None):
             planner.close()
             del _got
         before = program_stats()
+        posted = launches[_POST_KERNEL]
         planner, got = one_pass()
+        posted = launches[_POST_KERNEL] - posted
         after = program_stats()
         calls = after['calls'] - before['calls']
         replays = after['replays'] - before['replays']
+        # one yuv420_post launch a program call that posts yuv420 on a card
+        if posted != (calls if post == 'yuv420' and on_card else 0):
+            raise AssertionError('%s: %d yuv420_post launches over %d '
+                                 'program calls' % (what, posted, calls))
         worst, i, sigs = 0.0, 0, set()
         devices = mesh.axis_devices('frames') if mesh is not None else None
         for seg in planner.segments(start, stop, min_span=batch):
@@ -4932,7 +5008,7 @@ def main():
 
     # 9. the export conversions of the headline
     torch.cuda.empty_cache()
-    post_launches = _posts(tag, window)
+    post_launches, yuv420_kernel = _posts(tag, window)
 
     _note_programs('8-9')
     # 10. the editor's display path
@@ -5029,6 +5105,15 @@ def main():
                                  'solid_fold finalize')),
             ('region_over_sep', 375, ('region_over_sep',)),
             ('region_over', 276, ('region_over',)))
+    ] + [
+        {'name': _POST_KERNEL, 'route': 'cuda',
+         'source': 'canvas_tpu_torch/csrc/yuv420_post.cu',
+         'replaces': 'canvas_tpu/ops/color.py:628',
+         'launches': total[_POST_KERNEL],
+         'max_abs_err': yuv420_kernel[0],
+         'ms': yuv420_kernel[1], 'plain_ms': yuv420_kernel[2],
+         'bound_ms': yuv420_kernel[3], 'bound_by': yuv420_kernel[4],
+         'library_ms': None},
     ] + study_kernels
     for k in kernels:
         print('kernel %s: %d launches, %.4f ms against a bound of %.4f ms '

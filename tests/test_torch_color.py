@@ -178,3 +178,60 @@ def test_level_tables_are_kept_per_intent_and_device_with_a_bound():
         color._levels_table(1.0 + k / 64, 'cpu')
     assert color._levels_table.cache_info().currsize == bound
 
+
+
+def test_yuv420_post_on_the_cpu_takes_the_plain_ops(monkeypatch):
+    """A CPU tensor takes the plain ops of the yuv420 post: no kernel
+    library is loaded and no launch is counted."""
+    from canvas_tpu_torch.ops import _build, cuda_ops
+
+    def no_library():
+        raise AssertionError('the CPU post loaded the kernel library')
+
+    monkeypatch.setattr(_build, 'library', no_library)
+    x = torch.from_numpy(np.random.default_rng(7).uniform(
+        -0.1, 1.3, (2, 4, 9, 13)).astype(np.float16))
+    before = (cuda_ops.yuv420_post.launches,
+              cuda_ops.yuv420_post.launches_vector,
+              cuda_ops.yuv420_post.launches_scalar)
+    got = color.POSTS['yuv420'](x)
+    assert torch.equal(got, color.yuv420_pack_studio_plain(x))
+    assert (cuda_ops.yuv420_post.launches,
+            cuda_ops.yuv420_post.launches_vector,
+            cuda_ops.yuv420_post.launches_scalar) == before
+    with pytest.raises(ValueError, match='unsupported device'):
+        cuda_ops.yuv420_post(x, color._gamma45_u8_table('cpu'))
+
+
+def test_yuv420_post_arguments_match_its_signature():
+    """The wrapper's argument list for ``canvas_yuv420_post`` has the
+    count and kinds of its ctypes signature, each value accepted by its
+    ctypes type (a wrong list only shows on the card)."""
+    import ctypes
+
+    from canvas_tpu_torch.ops import _build, cuda_ops
+    x = torch.zeros((2, 4, 6, 8), dtype=torch.float16)
+    table = color._gamma45_u8_table('cpu')
+    out = torch.empty((2, 6 * 8 + 2 * 3 * 4), dtype=torch.uint8)
+    args = cuda_ops._yuv420_args(x, table, out, True, 0, 12345)
+    argtypes = _build._SIGNATURES['canvas_yuv420_post']
+    assert len(args) == len(argtypes)
+    for arg, argtype in zip(args, argtypes):
+        assert isinstance(arg, int)
+        argtype(arg)
+    assert [a for a, t in zip(args, argtypes) if t is ctypes.c_void_p] == [
+        x.data_ptr(), table.data_ptr(), out.data_ptr(), 12345]
+    assert args[3:7] == (2, 6, 8, 1)
+
+
+def test_gamma45_u8_table_holds_every_f16_level():
+    """The kernel's level table is ``_gamma45_floor`` of every f16 bit
+    pattern, as u8 without loss: whole levels 0-255, NaN and negatives
+    0, everything from 1.0 up 255."""
+    table = color._gamma45_u8_table('cpu')
+    x = torch.from_numpy(np.arange(65536, dtype=np.uint16).view(np.float16))
+    levels = color._gamma45_floor(x)
+    assert table.dtype == torch.uint8 and table.shape == (65536,)
+    assert torch.equal(table.float(), levels)
+    assert int(table[0x7E00]) == 0 and int(table[0xBC00]) == 0
+    assert int(table[0x3C00]) == 255 and int(table[0x7C00]) == 255

@@ -27,7 +27,12 @@ bit-equal to the first pass on the same card, and a headline batch
 rendered over a logical mesh of the one card (two shards) to the
 unsharded batch. A default-mode eager
 pull at 1080p (the torch arms on the card) is held to the same gates
-against the NumPy arm's pull. A render program's replay (the headline,
+against the NumPy arm's pull. The fused yuv420 post
+(``cuda_ops.yuv420_post``) is bit-equal to its plain ops run on the
+card (``color.yuv420_pack_studio_plain``): every byte of a seeded
+128-frame 1080p batch, of odd and unaligned sizes and of every f16 bit
+pattern in R, G and B, and the unrounded Y, Cb and Cr of all 256**3
+level triples. A render program's replay (the headline,
 config7, the posts, the display program, the fuzz's graphs) is
 bit-equal to the eager run, also while another thread stages and runs
 batches during the captures.
@@ -1248,3 +1253,132 @@ def test_fuzz_program_replay_equals_eager_on_card(cuda, seed):
     calls = after['calls'] - before['calls']
     assert calls and after['replays'] - before['replays'] == calls, seed
     planner.close()
+
+
+# The yuv420 export post: one launch of csrc/yuv420_post.cu against the
+# plain PyTorch ops (color.yuv420_pack_studio_plain) on the same card.
+
+def _yuv420_counts():
+    return (co.yuv420_post.launches, co.yuv420_post.launches_vector,
+            co.yuv420_post.launches_scalar)
+
+
+def _yuv420_vs_plain(x16, vector):
+    """The kernel's bytes and the plain ops' on *x16*, with one launch of
+    the instantiation *vector* counted. Returns (mismatch share, max
+    |diff|)."""
+    from canvas_tpu_torch.ops import color
+    before = _yuv420_counts()
+    got = color.yuv420_pack_studio(x16)
+    after = _yuv420_counts()
+    assert after[0] - before[0] == 1
+    assert (after[1] - before[1], after[2] - before[2]) == (
+        (1, 0) if vector else (0, 1))
+    want = color.yuv420_pack_studio_plain(x16)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.uint8 and got.shape == want.shape
+    diff = (got.int() - want.int()).abs()
+    return float((diff != 0).sum()) / diff.numel(), int(diff.max())
+
+
+@pytest.mark.gpu
+def test_yuv420_post_seeded_1080p_batch_is_bit_equal(cuda):
+    """A seeded 128-frame 1080p batch, values across the whole level ramp
+    and past both ends: every byte equal to the plain ops' (measured
+    mismatch share 0)."""
+    g = torch.Generator(device=cuda).manual_seed(2020)
+    x16 = (torch.rand((128, 4, 1080, 1920), generator=g, device=cuda)
+           * 1.3 - 0.1).half()
+    assert _yuv420_vs_plain(x16, vector=True) == (0.0, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('B, H, W, shift, vector', [
+    (1, 1, 1, 0, False),
+    (2, 3, 5, 0, False),
+    (1, 1081, 1919, 0, False),
+    (2, 66, 100, 0, False),        # W % 8 == 4
+    (3, 1080, 1920, 1, False),     # frames 2 bytes off a 16-byte boundary
+    (2, 5, 16, 0, True),           # odd H in the 16-byte form
+    (2, 1081, 1920, 0, True),
+])
+def test_yuv420_post_odd_and_unaligned_sizes(cuda, B, H, W, shift, vector):
+    """Odd sizes (the edge-replicate pad), rows of a width that is not a
+    multiple of 8 and frames off a 16-byte boundary take the scalar
+    instantiation, the rest the 16-byte one; every byte equal."""
+    rng = np.random.default_rng(B * H + W)
+    x16 = torch.from_numpy(rng.uniform(-0.1, 1.3, (B, 4, H, W)).astype(
+        np.float16)).to(cuda)
+    if shift:
+        x16 = _offset_view(x16, shift)
+    assert _yuv420_vs_plain(x16, vector) == (0.0, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('vector', [True, False])
+@pytest.mark.parametrize('channel', [0, 1, 2])
+def test_yuv420_post_every_f16_bit_pattern(cuda, channel, vector):
+    """Every f16 bit pattern (NaN, +/-inf, negatives, subnormals) in R, G
+    or B, the other channels seeded: every byte equal, in both
+    instantiations."""
+    rng = np.random.default_rng(channel)
+    x = rng.uniform(-0.1, 1.3, (1, 4, 256, 256)).astype(np.float16)
+    x[0, channel] = np.arange(65536, dtype=np.uint16).view(
+        np.float16).reshape(256, 256)
+    x16 = torch.from_numpy(x).to(cuda)
+    if not vector:
+        x16 = _offset_view(x16, 1)
+    assert _yuv420_vs_plain(x16, vector) == (0.0, 0)
+
+
+@pytest.mark.gpu
+def test_yuv420_post_unrounded_levels_of_every_triple(cuda):
+    """The kernel's unrounded Y, Cb and Cr (``cuda_ops.yuv420_levels``)
+    of all 256**3 (R, G, B) level triples, bit-equal to the plain ops'
+    (``color.studio_ycbcr``) on the card."""
+    from canvas_tpu_torch.ops import color
+    got = co.yuv420_levels(cuda)
+    i = torch.arange(1 << 24, dtype=torch.int32, device=cuda)
+    want = color.studio_ycbcr((i >> 16).float(), ((i >> 8) & 255).float(),
+                              (i & 255).float())
+    for name, g, w in zip(('Y', 'Cb', 'Cr'), got, want):
+        same = g.view(torch.int32) == w.view(torch.int32)
+        assert bool(same.all()), (name, int((~same).sum()))
+
+
+@pytest.mark.gpu
+def test_yuv420_post_one_launch_a_batch_through_the_planner(cuda):
+    """The headline through iter_batches(post='yuv420') on the card, its
+    programs captured and replayed: one kernel launch per batch, none of
+    the plain ops' (no other post ran), and each batch's bytes equal to
+    the plain ops' over the same batch's f16 frames."""
+    from canvas_tpu_torch import timelines
+    from canvas_tpu_torch.ops import color
+    from canvas_tpu_torch.render import RenderPlanner, box2i
+    planner = RenderPlanner(timelines.build_timeline(64),
+                            box2i(0, 0, 319, 179))
+    frames = {s: out for s, _n, out in
+              planner.iter_batches(0, 40, batch=8)}
+    for _rep in range(3):
+        before = _yuv420_counts()
+        batches = list(planner.iter_batches(0, 40, batch=8, post='yuv420'))
+        after = _yuv420_counts()
+        assert after[0] - before[0] == len(batches) > 1
+        assert after[1] - before[1] == len(batches)
+        for s, _n, out in batches:
+            assert torch.equal(out,
+                               color.yuv420_pack_studio_plain(frames[s]))
+    planner.close()
+
+
+@pytest.mark.gpu
+def test_yuv420_post_refuses_frames_not_f16_or_not_contiguous(cuda):
+    """On a card the post takes contiguous f16 frames only: f32 frames
+    and a strided view raise, and nothing launches."""
+    from canvas_tpu_torch.ops import color
+    x16 = torch.zeros((2, 4, 8, 16), dtype=torch.float16, device=cuda)
+    before = _yuv420_counts()
+    for bad in (x16.float(), x16[:, :, :, ::2]):
+        with pytest.raises(ValueError, match='contiguous'):
+            color.yuv420_pack_studio(bad)
+    assert _yuv420_counts() == before

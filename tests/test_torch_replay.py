@@ -498,24 +498,30 @@ def test_hbm_footprint_guard_cumulative_render(monkeypatch):
     planner.close()
 
 
-#: A post's working set at its level gather: the f16 frame (8), the
-#: int32 bits (16), the int64 indices (32) and the f32 levels (16).
-_POST_BPP = 8 + 16 + 32 + 16
+#: The working set of ``rgba_u8`` and ``bgra_u8`` at their level gather:
+#: the f16 frame (8), the int32 bits (16), the int64 indices (32) and the
+#: f32 levels (16).
+_GATHER_TERMS = {'f16 frame': 8, 'int32 bits': 16, 'int64 indices': 32,
+                 'f32 levels': 16}
+_POST_BPP = sum(_GATHER_TERMS.values())
+#: ``yuv420``'s fused kernel on a card holds the f16 frame it reads.
+_YUV420_TERMS = {'f16 frame': 8}
 
 
 @pytest.mark.parametrize('post, max_inflight, want_bpp, want_depth', [
     (None, None, 3 * 8 + 16, 3),
     ('rgba_u8', None, 3 * 4 + 16 + _POST_BPP, 3),
     ('bgra_u8', 2, 2 * 4 + 16 + _POST_BPP, 2),
-    ('yuv420', 0, 3 * 1.5 + 16 + _POST_BPP, 3),
+    ('yuv420', 0, 3 * 1.5 + 16 + 8, 3),
     (None, 1, 1 * 8 + 16, 1),
     ('bgra_u8', None, 3 * 4 + 16 + _POST_BPP, 3),
 ])
 def test_hbm_estimate_per_post(post, max_inflight, want_bpp, want_depth):
     """The one model the guard refuses by (and chip_smoke prints): depth
     retained outputs of 8 / 4 / 1.5 B/px by post, a 16 B/px working
-    stack and, with a post, its 72 B/px working set term by term, exact
-    in bytes."""
+    stack and, with a post, its working set term by term, exact in
+    bytes: 72 B/px for the u8 interleaves' level gather, the 8 B/px f16
+    frame for yuv420's fused kernel."""
     window = box2i(0, 0, 3839, 2159)
     est, depth = port._hbm_estimate_bytes(8, window, post, max_inflight)
     assert depth == want_depth
@@ -524,10 +530,8 @@ def test_hbm_estimate_per_post(post, max_inflight, want_bpp, want_depth):
                                     working_bpp=0)[0] == \
         int((want_bpp - 16) * 8 * 3840 * 2160)
     terms = dict(port.POST_WORKING_BPP.get(post, ()))
-    assert sum(terms.values()) == (_POST_BPP if post else 0)
-    if post:
-        assert terms == {'f16 frame': 8, 'int32 bits': 16,
-                         'int64 indices': 32, 'f32 levels': 16}
+    want_terms = {None: {}, 'yuv420': _YUV420_TERMS}.get(post, _GATHER_TERMS)
+    assert terms == want_terms
 
 
 def test_hbm_budget_is_the_cards_total(monkeypatch):
