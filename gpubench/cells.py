@@ -1,14 +1,21 @@
 """Finding a cell's pieces by name: the cell in ``BENCHMARK.json``, its
 configuration (``configs/<config>.json``), its traffic mix
 (``traffic/<traffic>.json``), its correctness limits
-(``limits/<cell>.json``), the per-layer metrics it reports and their
-readers (``metrics/<name>.py``, else ``metrics/<name up to its first
-dot>.py``), and the kernels a roofline counts (``kernels/*.json``)."""
+(``limits/<cell>.json``), its CPU rehearsal, the per-layer metrics it
+reports and their readers (``metrics/<name>.py``, else
+``metrics/<name up to its first dot>.py``), and the kernels a roofline
+counts (``kernels/*.json``).
+``load`` loads a file of the harness by its path: a reader here, a layer
+kind in ``graph``; ``load_reference`` a layer kind's or a post's
+reference (``reference/compose``, ``check``), once ``guard`` finds that
+it imports nothing of the program."""
 
 import glob
 import importlib.util
 import json
 import os
+
+from gpubench import guard
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -46,16 +53,47 @@ def cell(name):
     }
 
 
+def rehearsal(name):
+    """Cell *name* cut to its rehearsal on the CPU: the ``window`` of its
+    configuration's ``rehearsal`` key, passes over the first 24 frames in
+    batches of 8."""
+    c = cell(name)
+    c['config']['window'] = c['config']['rehearsal']['window']
+    c['traffic'].update(batch=8, frames=24)
+    return c
+
+
+def load(path, name):
+    """The module of the file *path*, loaded by its path under *name*."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def refuse_program_imports(path):
+    """Exit naming the imports of the reference file *path* that
+    ``guard.program_imports`` refuses, if it finds any."""
+    bad = guard.program_imports(path)
+    if bad:
+        raise SystemExit('%s imports %s: a reference imports nothing of '
+                         'the program' % (path, ', '.join(bad)))
+
+
+def load_reference(path, name):
+    """``load`` of the reference file *path*, refused if it imports the
+    program."""
+    refuse_program_imports(path)
+    return load(path, name)
+
+
 def reader(metric_name):
     """The ``read(ctx)`` function of a per-layer metric."""
     for stem in (metric_name, metric_name.split('.')[0]):
         path = os.path.join(HERE, 'metrics', stem + '.py')
         if os.path.exists(path):
-            spec = importlib.util.spec_from_file_location(
-                'gpubench.metrics.' + stem.replace('.', '_'), path)
-            module = importlib.util.module_from_spec(spec)
-            spec.loader.exec_module(module)
-            return module.read
+            return load(path, 'gpubench.metrics.'
+                        + stem.replace('.', '_')).read
     raise SystemExit('no reader for metric %r under gpubench/metrics'
                      % (metric_name,))
 

@@ -2,16 +2,41 @@
 against the plain reference (``reference/``), rendered from the same
 configuration, seed and frame index.
 
-An export cell (``post`` 'yuv420') compares the fetched u8 transport
-with the reference's; a cell with no post compares the f16 frames left
-on the device with the reference's, bit for bit. Two numbers each, with
-their limits in ``limits/<cell>.json``: the share of values that differ
+An export cell compares the fetched u8 transport with the reference's:
+``reference/post.yuv420`` for the post 'yuv420', and for any other post
+the ``apply(x16)`` of ``reference/posts/<post>.py``, which maps a
+(B, 4, H, W) f16 batch to the u8 transport the program fetches. A cell
+with no post compares the f16 frames left on the device with the
+reference's, bit for bit. Two numbers each, with their limits in
+``limits/<cell>.json``: the share of values that differ
 (``*_mismatch_share``) and the largest difference (``*_max_diff``); a
 number the cell's limits leave out is not compared."""
 
+import os
+
 import torch
 
+from gpubench import cells
 from gpubench.reference import compose, post
+
+#: Where the reference of a post other than 'yuv420' is found:
+#: ``<post>.py``.
+POSTS_DIR = os.path.join(cells.HERE, 'reference', 'posts')
+
+
+def reference_post(name):
+    """The plain form of the post *name*, (B, 4, H, W) f16 -> the u8
+    transport; None for no post."""
+    if name is None:
+        return None
+    if name == 'yuv420':
+        return post.yuv420
+    path = os.path.join(POSTS_DIR, name + '.py')
+    if not os.path.exists(path):
+        raise SystemExit('no reference for the post %r: no %s'
+                         % (name, path))
+    return cells.load_reference(
+        path, 'gpubench.reference.posts.' + name).apply
 
 
 def judge(samples, config, seed, traffic, device, limits):
@@ -19,9 +44,8 @@ def judge(samples, config, seed, traffic, device, limits):
     name (those *limits* holds) to its value and limit; *failed* counts
     the sampled frames that break a limit on their own."""
     renderer = compose.Renderer(config, seed, device)
-    u8 = traffic['post'] is not None
-    if u8 and traffic['post'] != 'yuv420':
-        raise ValueError('the check knows the yuv420 post only')
+    convert = reference_post(traffic['post'])
+    u8 = convert is not None
     tag = 'u8' if u8 else 'f16'
     share_key, max_key = tag + '_mismatch_share', tag + '_max_diff'
     differ = total = 0
@@ -30,7 +54,7 @@ def judge(samples, config, seed, traffic, device, limits):
     for frame, data in samples:
         ref16 = renderer.frame(frame)
         if u8:
-            ref = post.yuv420(ref16[None])[0].to(torch.int32)
+            ref = convert(ref16[None])[0].to(torch.int32)
             d = (data.to(device).to(torch.int32) - ref).abs()
             n_diff = int((d != 0).sum())
         else:

@@ -32,7 +32,8 @@ def main(argv):
     cell = cells.cell(args.workload)
     for quality in [int(q) for q in args.quality.split(',')]:
         for seed in [int(s) for s in args.seeds.split(',')]:
-            r = core.run_cell(cell, seed, args.seconds, False, args.device,
+            r = core.run_cell(cell, seed, args.seconds, False,
+                              core.cell_devices(cell, args.device),
                               time.perf_counter(), quality=quality)
             print(json.dumps({'cell': args.workload, 'seed': seed,
                               'quality': quality,

@@ -10,6 +10,7 @@ import time
 import torch
 
 from canvas_tpu_torch import backend, profiling, render
+from canvas_tpu_torch.mesh import Mesh
 from canvas_tpu_torch.render import RenderPlanner
 
 from gpubench import cells, check, drive, graph, guard, trace
@@ -43,28 +44,43 @@ def _delta(after, before):
                          for k in after['programs']}}
 
 
-def run_cell(cell, seed, seconds, traced, device, t_start, quality=None):
-    """Run *cell* (``cells.cell``) once on *device* ('cuda' or 'cpu');
-    returns the result dict (the JSON line's keys)."""
-    device = torch.device(device)
-    if device.type == 'cuda' and device.index is None:
-        device = torch.device('cuda', 0)
-    on_cuda = device.type == 'cuda'
+def cell_devices(cell, kind='cuda'):
+    """The devices a run of *cell* renders on: cards 0 to ``chips`` - 1,
+    or as many entries of the CPU for *kind* 'cpu'."""
+    if kind == 'cpu':
+        return ['cpu'] * cell['chips']
+    return ['%s:%d' % (kind, i) for i in range(cell['chips'])]
+
+
+def run_cell(cell, seed, seconds, traced, devices, t_start, quality=None):
+    """Run *cell* (``cells.cell``) once over *devices*, a list of 'cpu'
+    or CUDA devices (one may repeat): the planner's device is the first,
+    and more than one make a mesh. Returns the result dict (the JSON
+    line's keys)."""
+    devices = [torch.device(d) for d in devices]
+    devices = [torch.device('cuda', 0) if d.type == 'cuda'
+               and d.index is None else d for d in devices]
+    device = devices[0]
+    cards = list(dict.fromkeys(d for d in devices if d.type == 'cuda'))
+    on_cuda = bool(cards)
 
     def sync():
-        if on_cuda:
-            torch.cuda.synchronize(device)
+        for d in cards:
+            torch.cuda.synchronize(d)
 
     config, traffic = cell['config'], cell['traffic']
+    check.reference_post(traffic['post'])
     t_build = time.perf_counter()
     if on_cuda:
         torch.cuda.init()
-        torch.cuda.reset_peak_memory_stats(device)
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
     source = graph.build(config, seed)
     planner = RenderPlanner(source, graph.window(config),
                             quality=config['quality'] if quality is None
                             else quality, device=device)
-    stream = drive.Stream(planner, config, traffic, seed, sync)
+    mesh = Mesh(devices, ('frames',)) if len(devices) > 1 else None
+    stream = drive.Stream(planner, config, traffic, seed, sync, mesh)
     t_warm = time.perf_counter()
     stream.warm()
     before = _counters()
@@ -72,7 +88,7 @@ def run_cell(cell, seed, seconds, traced, device, t_start, quality=None):
     print('set-up: %.3f s to the planner, %.3f s to build it, %.3f s to '
           'warm up' % (t_build - t_start, t_warm - t_build,
                        t_start + setup_s - t_warm), file=sys.stderr)
-    prof = trace.profile(device) if traced else None
+    prof = trace.profile(on_cuda) if traced else None
     if prof is not None:
         prof.__enter__()
     try:
@@ -82,19 +98,22 @@ def run_cell(cell, seed, seconds, traced, device, t_start, quality=None):
             prof.__exit__(None, None, None)
     after = _counters()
     _print_window(w, _delta(after, before))
-    peak = torch.cuda.max_memory_allocated(device) if on_cuda else 0
+    peak = max((torch.cuda.max_memory_allocated(d) for d in cards),
+               default=0)
     plan_text = stream.explain() if traced else None
-    picture = trace.read(prof) if traced else None
+    picture = trace.read(prof, [d.index for d in cards]) if traced else None
     if traced:
-        print('trace read: %d device operations; host peak %d MB'
-              % (len(picture['device']) if picture else 0,
-                 resource.getrusage(resource.RUSAGE_SELF).ru_maxrss // 1024),
-              file=sys.stderr)
+        print('trace read: %d device operations on cards %s; host peak %d '
+              'MB' % (len(picture['device']) if picture else 0,
+                      picture['cards_seen'] if picture else [],
+                      resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+                      // 1024), file=sys.stderr)
     planner.close()
-    del planner, source, stream, prof
+    del planner, source, stream, prof, mesh
     gc.collect()
-    if on_cuda:
-        torch.cuda.empty_cache()
+    for d in cards:
+        with torch.cuda.device(d):
+            torch.cuda.empty_cache()
 
     correct, failed, checks = check.judge(
         w['samples'], config, seed, traffic, device, cell['limits'])
@@ -119,6 +138,7 @@ def run_cell(cell, seed, seconds, traced, device, t_start, quality=None):
                    seconds=w['seconds'], fetch=traffic['fetch'],
                    fetch_s=w['fetch_s'], next_s=w['next_s'],
                    trace=picture, plan_text=plan_text,
+                   busy_s_by_card=picture and picture['busy_s_by_card'],
                    kernels=cells.kernels(), peak_bytes_per_s=PEAK_BYTES_PER_S)
         for m in cell['per_layer']:
             value = cells.reader(m['name'])(ctx)
@@ -141,6 +161,7 @@ def run_cell(cell, seed, seconds, traced, device, t_start, quality=None):
     if traced and picture is not None:
         result['device']['busy_s'] = picture['busy_s']
         result['device']['window_s'] = picture['window_s']
+        result['device']['busy_s_by_card'] = picture['busy_s_by_card']
         result['breakdown'] = picture['breakdown']
     result['checks'] = checks
     return result
@@ -189,7 +210,7 @@ def main(argv, t_start):
               file=sys.stderr)
         return 2
     result = run_cell(cell, args.seed, args.seconds, bool(args.trace),
-                      'cuda', t_start)
+                      cell_devices(cell), t_start)
     mods = guard.refused_modules()
     if mods:
         print('refused modules loaded: %s' % ', '.join(mods),

@@ -12,6 +12,11 @@ from frame 0, start to end, over and over: each pass is one
 - ``stage_cache_mb``: the planner's staging budget; 0 turns the staging
   and plan caches off, so every pass plans and stages afresh (an
   export); null keeps the port's default (a looped range).
+
+On a cell of more than one device every ``iter_batches`` call takes
+``mesh=``, a ``Mesh`` of the cell's devices over the one axis 'frames'
+(``iter_batches``'s default ``axis``), each batch's frames split over
+them; on one device it takes no ``mesh=``.
 """
 
 import contextlib
@@ -20,6 +25,7 @@ import time
 from torch.profiler import record_function
 
 from canvas_tpu_torch import backend
+from canvas_tpu_torch.mesh import ShardedFrames
 
 from gpubench import inputs
 
@@ -37,13 +43,24 @@ def _nullspan(_name):
     return contextlib.nullcontext()
 
 
+def _frame(out, j):
+    """A copy of frame *j* of the batch *out*, on the device it was
+    rendered on: the batch is freed, the frame kept for the check."""
+    one = out[j:j + 1]
+    if isinstance(one, ShardedFrames):
+        # the mesh splits a batch by frames: one frame is in one shard
+        (one, _block), = one.shards
+    return one[0].clone()
+
+
 class Stream:
     """One run's traffic over a planner: ``warm()`` is set-up,
     ``window(seconds)`` the measured window."""
 
-    def __init__(self, planner, config, traffic, seed, sync):
+    def __init__(self, planner, config, traffic, seed, sync, mesh=None):
         self.planner = planner
         self.traffic = traffic
+        self.shard = {} if mesh is None else {'mesh': mesh}
         self.stop = int(traffic['frames'] or config['length'])
         if traffic['stage_cache_mb'] is not None:
             planner.stage_cache_mb = traffic['stage_cache_mb']
@@ -55,7 +72,7 @@ class Stream:
         t = self.traffic
         return self.planner.iter_batches(
             0, self.stop, batch=t['batch'], device_out=True, post=t['post'],
-            max_inflight=t['max_inflight'])
+            max_inflight=t['max_inflight'], **self.shard)
 
     def _passes(self):
         """``(first_frame, n_valid, out)`` of every batch, pass after
@@ -106,7 +123,7 @@ class Stream:
                     if slot is not None and take:
                         j = int(self._pick.integers(min(take, out.shape[0])))
                         self.reservoir.items[slot] = (
-                            first + j, out[j].clone())
+                            first + j, _frame(out, j))
                     if clock() - t0 >= seconds:
                         break
                 self.sync()

@@ -14,12 +14,24 @@ A configuration lists its layers bottom to top; each is a dict with a
 - ``dv``: a 720x480 4:1:1 DV clip (``clip`` picks its seeded planes,
   ``inputs.dv_base_planes``) through the DV reconstruction.
 
+Any other kind is a pair of files: ``layers/<kind>.py``, whose
+``build(spec, length, seed, build_layer)`` returns the source built from
+the port's public classes (``canvas_tpu_torch.process``, ``coded``,
+``timelines``) and builds a nested spec with the *build_layer* it is
+handed, and ``reference/layers/<kind>.py`` (``reference/compose.py``).
+
 The same dicts drive the plain reference (``reference/compose.py``).
 """
 
+import os
+
 from canvas_tpu_torch import process
 
-from gpubench import inputs
+from gpubench import cells, inputs
+from gpubench.reference import compose
+
+#: Where a layer kind of its own is found: ``<kind>.py``.
+LAYERS_DIR = os.path.join(cells.HERE, 'layers')
 
 
 def _func(value, length):
@@ -75,7 +87,21 @@ def build_layer(spec, length, seed):
             _func(spec['mix'], length))
     if kind == 'dv':
         return process.DVReconstructionFilter(SeededDV(seed, spec['clip']))
-    raise ValueError('unknown layer kind %r' % (kind,))
+    return _kind(kind).build(spec, length, seed, build_layer)
+
+
+def _kind(kind):
+    """The module of layer kind *kind*, whose reference has to be there
+    too: the check renders every layer the program builds."""
+    paths = [os.path.join(LAYERS_DIR, kind + '.py'),
+             os.path.join(compose.LAYERS_DIR, kind + '.py')]
+    missing = [p for p in paths if not os.path.exists(p)]
+    if missing:
+        raise SystemExit('unknown layer kind %r: looked for %s and %s; '
+                         'missing %s' % (kind, paths[0], paths[1],
+                                         ', '.join(missing)))
+    cells.refuse_program_imports(paths[1])
+    return cells.load(paths[0], 'gpubench.layers.' + kind)
 
 
 def build(config, seed):

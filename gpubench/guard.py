@@ -6,8 +6,13 @@ package, JAX itself, and the JAX package's benchmark scripts), or when it
 opened a file of the JAX package or of its old benchmark
 (``REFUSED_FILES``). The opens are seen by an audit hook, installed once
 per process by ``watch_opens``.
+
+The plain reference imports nothing of the program: ``program_imports``
+reads a reference file's imports, and ``cells.load_reference`` refuses a
+layer kind's or a post's reference that makes one.
 """
 
+import ast
 import fnmatch
 import os
 import sys
@@ -15,6 +20,14 @@ import threading
 
 REFUSED_MODULES = ('jax', 'jaxlib', 'flax', 'canvas_tpu', 'bench',
                    'benchmarks')
+
+#: The program under test.
+PROGRAM = 'canvas_tpu_torch'
+
+#: The modules of the harness that a reference may import: none of them
+#: loads the program.
+REFERENCE_MAY_IMPORT = ('gpubench.cells', 'gpubench.inputs',
+                        'gpubench.reference')
 
 #: Paths, relative to the repository's root, of the JAX package and of
 #: the benchmark that measured it.
@@ -51,6 +64,39 @@ def refused_modules(modules=None):
     names = sys.modules if modules is None else modules
     return sorted(n for n in list(names)
                   if n.split('.')[0] in REFUSED_MODULES)
+
+
+def _refused_import(name):
+    top = name.split('.')[0]
+    if top in REFUSED_MODULES or top in (PROGRAM, 'importlib'):
+        return True
+    return top == 'gpubench' and not any(
+        name == m or name.startswith(m + '.') for m in REFERENCE_MAY_IMPORT)
+
+
+def program_imports(path):
+    """The imports in the Python file *path* that a reference may not
+    make, as dotted names: the program, JAX or the JAX package, a module
+    of the harness outside ``REFERENCE_MAY_IMPORT``, and any relative or
+    dynamic (``importlib``, ``__import__``) import."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                bad.append('.' * node.level + (node.module or ''))
+                continue
+            names = [node.module + '.' + a.name for a in node.names]
+        elif isinstance(node, ast.Name) and node.id == '__import__':
+            bad.append('__import__')
+            continue
+        else:
+            continue
+        bad += [n for n in names if _refused_import(n)]
+    return bad
 
 
 def refused_opens(root, since=0):

@@ -5,16 +5,28 @@ every layer rendered in f32 over the whole window, the workspace's over
 blends in f32, the result rounded to f16 once. Parameters are worked out
 on the host in f64, as frame functions are.
 
+A layer kind of its own (``graph.py``) renders through
+``layers/<kind>.py`` beside this file: its ``render(renderer, spec,
+frame, full)`` returns ``(data, box)`` as ``Renderer.layer`` does, renders
+a nested spec with ``renderer.layer`` (a stack of them with
+``renderer.stack``) and imports nothing of the program.
+
 Boxes are ``(x0, y0, x1, y1)`` tuples, inclusive; a box with x1 < x0 or
 y1 < y0 is empty. A frame is ``(data, box)``: ``data`` a (4, H, W) f32
 tensor over the requested window, zero outside ``box``.
 """
 
+import os
+
 import numpy as np
 import torch
 
-from gpubench import inputs
+from gpubench import cells, inputs
 from gpubench.reference import tables
+
+#: Where a layer kind of its own is found: ``<kind>.py``.
+LAYERS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          'layers')
 
 EMPTY = (0, 0, -1, -1)
 
@@ -285,6 +297,7 @@ class Renderer:
         self.window = tuple(config['window'])
         self.seed = seed
         self._dv = {}
+        self._kinds = {}
         self.consts = {
             'dv_up': torch.from_numpy(dv_up_matrix()).to(self.device),
             'ycbcr': torch.from_numpy(YCBCR_TO_RGB_REC709).to(self.device),
@@ -350,7 +363,17 @@ class Renderer:
                                             frame)
             image = dv_image(planes, self.device, self.consts)
             return place(image, DV_IMAGE, full, cur).float(), cur
-        raise ValueError('unknown layer kind %r' % (kind,))
+        return self._kind(kind).render(self, spec, frame, full)
+
+    def _kind(self, kind):
+        if kind not in self._kinds:
+            path = os.path.join(LAYERS_DIR, kind + '.py')
+            if not os.path.exists(path):
+                raise SystemExit('unknown layer kind %r: no %s'
+                                 % (kind, path))
+            self._kinds[kind] = cells.load_reference(
+                path, 'gpubench.reference.layers.' + kind)
+        return self._kinds[kind]
 
     def _scaler(self, spec, frame, full, zeros):
         L = self.length
@@ -376,9 +399,14 @@ class Renderer:
 
     def frame(self, frame):
         """The (4, H, W) f16 frame *frame* of the workspace."""
-        full = self.window
+        out, _cur = self.stack(self.config['layers'], frame, self.window)
+        return out.to(torch.float16)
+
+    def stack(self, specs, frame, full):
+        """The layers *specs*, bottom to top, composited over the box
+        *full* as a workspace composites its items: (data, box)."""
         out, cur = None, EMPTY
-        for spec in self.config['layers']:
+        for spec in specs:
             data, win = self.layer(spec, frame, full)
             if out is None:
                 out, cur = data, win
@@ -388,4 +416,4 @@ class Renderer:
             elif not empty(win):
                 out = over(out, data)
                 cur = intersect(union(cur, win), full)
-        return out.to(torch.float16)
+        return out, cur

@@ -14,10 +14,6 @@ SPAN_METRICS = ('prepare_wait_ms_per_frame', 'dispatch_ms_per_frame',
                 'post_device_ms_per_frame', 'coded_stage_ms_per_frame',
                 'plan_cache_hit_share', 'to_host_ms_per_frame')
 
-#: Per configuration, a small window (as the harness's rehearsals cut).
-WINDOWS = {'headline_1080p': [560, 240, 879, 419],
-           'mixed_dv_1080p': [1440, 60, 1759, 239]}
-
 BENCH = cells.benchmark()
 CELLS = [w['name'] for w in BENCH['workloads']]
 
@@ -65,10 +61,8 @@ def test_readers_divide_by_frames():
 
 @pytest.mark.parametrize('name', CELLS)
 def test_a_traced_rehearsal_reads_the_spans(name):
-    cell = cells.cell(name)
-    cell['config']['window'] = WINDOWS[cell['config']['name']]
-    cell['traffic'].update(batch=8, frames=24)
-    r = core.run_cell(cell, 20260101, 0.5, True, 'cpu', time.perf_counter())
+    r = core.run_cell(cells.rehearsal(name), 20260101, 0.5, True, ['cpu'],
+                      time.perf_counter())
     assert r['correct']
     listed = _listed(name)
     want = {m for m in listed if not m.startswith('post_device_')}

@@ -1,15 +1,19 @@
 """The device trace of a window: ``torch.profiler`` over CPU and CUDA,
-kept in memory. Busy time is the union of the device's kernel, copy and
-set intervals inside the window's own span (``gpubench.window``)."""
+kept in memory. A card's busy time is the union of its kernel, copy and
+set intervals inside the window's own span (``gpubench.window``); a
+run's is the mean over its cards. The device-side copies of host ranges
+(``record_function``: the harness's spans and the program's, such as
+``render.replay`` or ``backend.to_host``) are annotations that span the
+gaps between their operations, and are left out."""
 
 import torch
 
 HOST_SPANS = ('gpubench.next', 'gpubench.fetch')
 
 
-def profile(device):
+def profile(cuda):
     acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.device(device).type == 'cuda':
+    if cuda:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     return torch.profiler.profile(activities=acts)
 
@@ -25,11 +29,19 @@ def _union(intervals):
     return out
 
 
-def read(prof):
-    """The window's device picture: a dict with ``busy_s``, ``window_s``,
+def _busy_s(intervals):
+    return sum(b - a for a, b in _union(intervals)) / 1e6
+
+
+def read(prof, cards=()):
+    """The window's device picture: a dict with ``busy_s_by_card`` (each
+    of the CUDA device indices *cards* in turn), ``busy_s`` (their mean;
+    with no *cards*, the union over every device), ``window_s``,
     ``device`` (name, start us, end us) per device operation inside the
-    window, and ``breakdown`` (the ten device operations that took the
-    most time, and the idle time by the harness span the host was in)."""
+    window, ``cards_seen`` (the indices its operations ran on), and
+    ``breakdown`` (the ten device operations that took the most time,
+    and the idle time by the harness span the host was in, over the
+    union of every card's)."""
     dev, host, win = [], [], None
     # the profiler's raw events: its own event tree, built on first use
     # of ``prof.events()``, takes minutes over a window's ~10^6 kernels
@@ -37,10 +49,8 @@ def read(prof):
     for e in prof.profiler.kineto_results.events():
         name, a, b = e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3
         if e.device_type() == cuda:
-            # the device-side copies of the harness's own spans are
-            # annotations, not work
-            if not name.startswith('gpubench.'):
-                dev.append((name, a, b))
+            if not e.is_user_annotation():
+                dev.append((name, a, b, e.device_index()))
         elif name == 'gpubench.window':
             win = (a, b)
         elif name in HOST_SPANS:
@@ -48,11 +58,13 @@ def read(prof):
     if win is None:
         return None
     w0, w1 = win
-    dev = [(n, max(a, w0), min(b, w1)) for n, a, b in dev
+    dev = [(n, max(a, w0), min(b, w1), c) for n, a, b, c in dev
            if b > w0 and a < w1]
-    busy = _union([a, b] for _n, a, b in dev)
+    busy = _union([a, b] for _n, a, b, _c in dev)
+    by_card = [_busy_s([a, b] for _n, a, b, c in dev if c == card)
+               for card in cards]
     by_op = {}
-    for n, a, b in dev:
+    for n, a, b, _c in dev:
         by_op[n] = by_op.get(n, 0.0) + (b - a)
     idle = {}
     host.sort()
@@ -72,9 +84,12 @@ def read(prof):
         return [[_short(n), v / 1e6] for n, v in
                 sorted(d.items(), key=lambda kv: -kv[1])[:10]]
 
-    return {'busy_s': sum(b - a for a, b in busy) / 1e6,
+    return {'busy_s': (sum(by_card) / len(by_card) if by_card
+                       else sum(b - a for a, b in busy) / 1e6),
+            'busy_s_by_card': by_card,
             'window_s': (w1 - w0) / 1e6,
-            'device': dev,
+            'device': [(n, a, b) for n, a, b, _c in dev],
+            'cards_seen': sorted(set(c for _n, _a, _b, c in dev)),
             'breakdown': {'device_ops': top(by_op), 'idle_gaps': top(idle)}}
 
 
